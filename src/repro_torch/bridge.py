@@ -1,0 +1,81 @@
+"""Carry weights into the port from nested dicts of numpy arrays.
+
+The reference keeps each block-pattern position's parameters stacked over
+periods (``params["stack"][pos]``, leading axis = period, for
+``lax.scan``); the port keeps one dict per layer.  The packed expert store
+arrives as the reference's per-matrix leaves, ``(L_moe, E, ...)``, and is
+rebuilt into the port's one-record-per-(layer, expert) store, bit for bit.
+The caller converts its arrays to numpy; nothing here imports the
+reference.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig, OffloadSpec
+from repro_torch.core import expert_pool as EP
+from repro_torch.quant import hqq
+
+
+def _to_torch(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_torch(v, device) for v in tree)
+    return torch.from_numpy(np.array(tree)).to(device)
+
+
+def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device=None):
+    """The reference's parameter tree (numpy leaves) -> the port's layout:
+    ``stack[l % period]`` sliced at period ``l // period`` becomes
+    ``layers[l]``.  Zero-size leaves (the reference's placeholders for
+    packed experts) are dropped."""
+    dev = resolve_device(device)
+    if cfg.n_tail_layers:
+        raise NotImplementedError("tail layers are not ported")
+    period = cfg.pattern_period
+
+    def take(t, per):
+        if isinstance(t, dict):
+            out = {k: take(v, per) for k, v in t.items()}
+            return {k: v for k, v in out.items() if v is not None and
+                    not (isinstance(v, dict) and not v)}
+        a = np.asarray(t)[per]
+        return None if a.size == 0 else a
+
+    layers = [take(tree["stack"][l % period], l // period)
+              for l in range(cfg.n_layers)]
+    out = {k: v for k, v in tree.items() if k not in ("stack", "tail")}
+    out["layers"] = layers
+    return _to_torch(out, dev)
+
+
+def store_from_numpy(leaves: Dict[str, Dict[str, Any]], cfg: ModelConfig,
+                     spec: OffloadSpec, device=None) -> EP.Tier:
+    """Rebuild the packed host store from the reference's ``PackedExperts``
+    leaves: ``leaves[mat] = {"packed", "scale", "zero", "meta": {...}}``
+    for each of ``w_gate``/``w_up``/``w_down``, every array ``(L_moe, E,
+    ...)``.  Pinned when ``device`` is the card."""
+    dev = resolve_device(device)
+    gs = hqq.PAPER_SCHEMES[spec.expert_bits]["group_size"]
+    qts = {}
+    for mat in EP.EXPERT_MATS:
+        d = leaves[mat]
+        t = lambda a: torch.from_numpy(np.array(a))
+        meta = None if d.get("meta") is None else \
+            {k: t(d["meta"][k]) for k in hqq.META_KEYS}
+        packed = t(d["packed"])
+        L, E, G = packed.shape[:3]
+        qts[mat] = hqq.QTensor(packed, t(d["scale"]), t(d["zero"]), meta,
+                               spec.expert_bits, gs,
+                               (L, E, G * gs, packed.shape[-1]))
+    L, E = qts["w_gate"].packed.shape[:2]
+    store = EP.new_store(EP.RecordLayout.of(qts, 2), L, E, dev)
+    for l in range(L):
+        EP.write_layer(store, l, {m: hqq.slice_leading(qt, l)
+                                  for m, qt in qts.items()})
+    return store

@@ -1,0 +1,39 @@
+"""Plain PyTorch versions of the dequant-matmul kernel's two bindings.
+
+They mirror the reference's jnp path (``ops._dequant_rows`` and the
+batched einsum of ``ops.dequant_matmul_batched``/``_slots``):
+``_meta_dequantize`` + ``unpack_codes`` + ``(q - zero) * scale`` +
+``einsum("bmk,bkn->bmn")`` in float32.  The CPU path of ``kernels/ops``
+runs these; on the card ``chip_smoke.py`` holds the kernel against them.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.quant import hqq
+
+
+def dequant_rows(qt: hqq.QTensor) -> torch.Tensor:
+    """Dequantize a (B, G, pg, N)-packed row stack to (B, K, N) f32."""
+    scale, zero = hqq._meta_dequantize(qt)
+    B, G, _, N = qt.packed.shape
+    q = hqq.unpack_codes(qt.packed, qt.bits, qt.group_size).to(torch.float32)
+    w = (q - zero) * scale
+    return w.reshape(B, G * qt.group_size, N)
+
+
+def dequant_matmul_batched(x: torch.Tensor, qt: hqq.QTensor) -> torch.Tensor:
+    """x (B, M, K) @ dequant(qt[b]) per row -> (B, M, N) f32."""
+    return torch.einsum("bmk,bkn->bmn", x.to(torch.float32), dequant_rows(qt))
+
+
+def dequant_matmul_slots(x: torch.Tensor, qt: hqq.QTensor,
+                         slots: torch.Tensor) -> torch.Tensor:
+    """x (B, M, K) @ dequant(qt[slots[b]]) -> (B, M, N) f32: gathers the
+    (small, CPU-side) packed leaves and runs the batched version."""
+    slots = slots.to(device=qt.packed.device, dtype=torch.long)
+    meta = None if qt.meta is None else {k: v[slots] for k, v in qt.meta.items()}
+    gathered = hqq.QTensor(qt.packed[slots], qt.scale[slots], qt.zero[slots],
+                           meta, qt.bits, qt.group_size,
+                           (int(slots.shape[0]),) + tuple(qt.shape[1:]))
+    return dequant_matmul_batched(x, gathered)

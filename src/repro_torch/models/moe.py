@@ -1,0 +1,166 @@
+"""Sparse mixture-of-experts FFN over HQQ-packed experts (port of the
+reference's ``models/moe.py``, the paths offloaded generation runs).
+
+* :func:`moe_apply_gather`: per-token gather over a dense expert stack,
+  kept as a test oracle only.
+* :func:`moe_apply_packed`: decode.  The routed experts are served from
+  the layer's device pool (``core/expert_pool.acquire``) and the kernel
+  reads the pool in place, by slot (``ops.dequant_matmul_slots``).
+* :func:`moe_apply_packed_stream`: prefill.  Each distinct routed expert
+  of the layer is copied once into a reusable device tier, the rows are
+  grouped by expert, and the kernel runs over that tier as a batch
+  (``ops.dequant_matmul_batched``); no pool state, no counter.
+
+Both compute paths keep the reference's cast points (``_packed_compute``):
+gate and up products cast to the model dtype, the activation in float32,
+the down product and the routing-weighted sum in float32.  The kernel
+computes every output row independently and in the same order, so a row
+gets the same bits whether it is served by slot or in a group.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import expert_pool as EP
+from repro_torch.core import speculative
+from repro_torch.kernels import ops
+
+
+def init_moe(gen, cfg):
+    spec = cfg.moe
+    D, F, E = cfg.d_model, cfg.d_ff, spec.num_experts
+    dt = getattr(torch, cfg.dtype)
+    sc_in = 1.0 / math.sqrt(D)
+    sc_out = 1.0 / math.sqrt(F) / math.sqrt(2 * cfg.n_layers)
+    dev = gen.device
+    rn = lambda shape, sc: (torch.randn(shape, generator=gen, device=dev)
+                            * sc).to(dt)
+    return {
+        "router": torch.randn((D, E), generator=gen, device=dev) * sc_in,
+        "experts": {
+            "w_gate": rn((E, D, F), sc_in),
+            "w_up": rn((E, D, F), sc_in),
+            "w_down": rn((E, F, D), sc_out),
+        },
+    }
+
+
+def router_logits(p, x2d):
+    """(T, E) router logits in float32."""
+    return x2d.to(torch.float32) @ p["router"].to(torch.float32)
+
+
+def route_topk(p, spec, x2d) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Returns (weights (T,K) f32, ids (T,K) int32, probs (T,E) f32)."""
+    probs = torch.softmax(router_logits(p, x2d), dim=-1)
+    w, ids = torch.topk(probs, spec.top_k, dim=-1)
+    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)  # mixtral renorm
+    return w, ids.to(torch.int32), probs
+
+
+def moe_apply_gather(p, cfg, x2d):
+    """Per-token expert-weight gather over the dense ``p["experts"]``
+    stack (the oracle of the packed paths)."""
+    w, ids, probs = route_topk(p, cfg.moe, x2d)
+    ex = p["experts"]
+    idx = ids.to(torch.long)
+    wg, wu, wd = ex["w_gate"][idx], ex["w_up"][idx], ex["w_down"][idx]
+    g = torch.einsum("td,tkdf->tkf", x2d, wg)
+    u = torch.einsum("td,tkdf->tkf", x2d, wu)
+    h = torch.nn.functional.silu(g.to(torch.float32)).to(x2d.dtype) * u
+    yk = torch.einsum("tkf,tkfd->tkd", h, wd)
+    y = torch.einsum("tkd,tk->td", yk.to(torch.float32), w)
+    return y.to(x2d.dtype), {"ids": ids, "weights": w, "probs": probs}
+
+
+# ----------------------------------------------------------------------
+def _expert_ffn(cfg, xk, mats: EP.PackedExperts, slots):
+    """xk (B, M, D) through the packed experts: row b reads slot
+    ``slots[b]`` of the (S, ...) tier ``mats``, or slot b when ``slots``
+    is None.  Returns (B, M, D) float32."""
+    if slots is None:
+        mm = ops.dequant_matmul_batched
+    else:
+        mm = lambda x, qt: ops.dequant_matmul_slots(x, qt, slots)
+    dt = xk.dtype
+    g = mm(xk, mats.w_gate).to(dt)
+    u = mm(xk, mats.w_up).to(dt)
+    h = torch.nn.functional.silu(g.to(torch.float32)).to(dt) * u
+    return mm(h, mats.w_down)
+
+
+def _packed_compute(cfg, x2d, mats: EP.PackedExperts, slots, w):
+    """Every (token, k) expert matmul of a decode batch, straight from the
+    packed tier ``mats`` at ``slots`` (T*K,): the reference's fused
+    branch."""
+    T, K = w.shape
+    xk = x2d.repeat_interleave(K, dim=0)[:, None, :]  # (T*K, 1, D)
+    yk = _expert_ffn(cfg, xk, mats, slots)            # (T*K, 1, D) f32
+    y = torch.einsum("tkd,tk->td", yk.reshape(T, K, -1), w)
+    return y.to(x2d.dtype)
+
+
+def moe_apply_packed_stream(p, cfg, x2d, store: EP.Tier, l: int,
+                            tier: EP.PrefillTier):
+    """Prefill-chunk MoE over the packed host store: route, read the ids
+    to the host (one read), copy each distinct routed expert once into
+    ``tier``, group the (token, k) rows by expert into an (U, M, D) batch
+    (zero rows pad the short groups) and run the kernel over the tier.
+    No pool state is read or written and no offload counter moves.
+    Returns ``(y2d, route_info)``."""
+    w, ids, probs = route_topk(p, cfg.moe, x2d)
+    T, K = ids.shape
+    flat = EP.read_host(tier, ids.reshape(-1)).astype(np.int64)
+    experts, group = np.unique(flat, return_inverse=True)  # row -> group
+    order = np.argsort(group, kind="stable")
+    counts = np.bincount(group, minlength=len(experts))
+    pos = np.empty_like(group)
+    pos[order] = np.arange(len(flat)) - np.repeat(np.cumsum(counts) - counts,
+                                                   counts)
+    mats = tier.load(store, l, experts)
+    dev = x2d.device
+    g_t = torch.as_tensor(group, device=dev)
+    p_t = torch.as_tensor(pos, device=dev)
+    tier.batches.append((len(experts), int(counts.max()), len(flat)))
+    xg = x2d.new_zeros((len(experts), int(counts.max()), x2d.shape[1]))
+    xg[g_t, p_t] = x2d.repeat_interleave(K, dim=0)
+    yg = _expert_ffn(cfg, xg, mats, None)              # (U, M, D) f32
+    yk = yg[g_t, p_t].reshape(T, K, -1)
+    y = torch.einsum("tkd,tk->td", yk, w).to(x2d.dtype)
+    return y, {"ids": ids, "weights": w, "probs": probs}
+
+
+def moe_apply_packed(p, cfg, x2d, store: EP.Tier, pstate: EP.PoolState,
+                     l: int, routers=None, *, lookahead: int = 1,
+                     n_spec: int = 0):
+    """Offloaded-decode MoE of MoE layer ``l``.
+
+    Routes, and (batch-1 decode with ``n_spec > 0`` and ``routers``)
+    predicts the lookahead layer's experts from the same hidden state;
+    both id sets reach the host in ONE read, the layer's only
+    synchronisation.  ``acquire`` then performs the pool swaps, the
+    lookahead layer's staging is issued on the side copy stream (so it
+    overlaps this layer's expert compute), and the kernel reads the pool
+    in place.  Returns ``(y2d, route_info, pstate)``; ``route_info["ids"]``
+    is the host copy of the routed ids.
+    """
+    w, ids, probs = route_topk(p, cfg.moe, x2d)
+    T, K = ids.shape
+    L = store.n_layers
+    tgt = l + lookahead
+    speculate = T == 1 and n_spec > 0 and routers is not None and tgt < L
+    read = ids.reshape(-1)
+    if speculate:
+        pred = speculative.predict_experts(routers[tgt], x2d, n_spec)[0]
+        read = torch.cat([read, pred])
+    host = EP.read_host(pstate, read)
+    ids_h = host[: T * K].reshape(T, K)
+    slots = EP.acquire(store, pstate, l, ids_h)
+    if speculate:
+        EP.stage(store, pstate, tgt, host[T * K:])
+    y = _packed_compute(cfg, x2d, pstate.pool.layer(l), slots, w)
+    return y, {"ids": ids_h, "weights": w, "probs": probs}, pstate

@@ -1,0 +1,127 @@
+"""Model assembly for the offloaded-generation slice: blocks of
+(SWA or global) attention + MoE FFN, pre-norm residual.
+
+Port of the reference's ``models/transformer.py`` for the ``swa+moe`` and
+``attn+moe`` block kinds.  The reference stacks each pattern position's
+parameters over periods for ``lax.scan``; the port keeps one dict per
+layer, ``params["layers"][l]``, and loops in Python (``bridge`` un-stacks
+the reference's layout).  The decode state is one dense KV ring per layer
+plus the shared position, updated in place.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig, parse_block
+from repro_torch.models import layers as L
+from repro_torch.models import moe as M
+
+BLOCK_KINDS = ("swa+moe", "attn+moe")
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Refuse what the slice does not run yet (ROADMAP queue 1, item 11)."""
+    bad = sorted(set(cfg.layer_kinds()) - set(BLOCK_KINDS))
+    if bad:
+        raise NotImplementedError(
+            f"{cfg.name}: block kinds {bad} are not ported yet (the port "
+            f"runs {BLOCK_KINDS})")
+    if (cfg.norm != "rmsnorm" or cfg.mlp_act != "swiglu" or cfg.qkv_bias
+            or cfg.attn_out_bias or cfg.logit_softcap or cfg.n_tail_layers):
+        raise NotImplementedError(
+            f"{cfg.name}: only rmsnorm, swiglu, bias-free attention, no "
+            f"softcap and no tail layers are ported")
+
+
+def _init_block(gen, cfg: ModelConfig):
+    return {"norm1": L.init_norm(cfg, gen.device),
+            "attn": L.init_attention(gen, cfg),
+            "norm2": L.init_norm(cfg, gen.device),
+            "moe": M.init_moe(gen, cfg)}
+
+
+def init_model(cfg: ModelConfig, *, seed: int = 0, device=None) -> Dict[str, Any]:
+    """Random weights from a seeded ``torch.Generator`` on ``device`` (the
+    card unless ``device="cpu"``)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(dev)
+    gen.manual_seed(seed)
+    params: Dict[str, Any] = {"embed": L.init_embedding(gen, cfg)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.init_lm_head(gen, cfg)
+    params["final_norm"] = L.init_norm(cfg, dev)
+    params["layers"] = [_init_block(gen, cfg) for _ in range(cfg.n_layers)]
+    return params
+
+
+# ----------------------------------------------------------------------
+def decode_block_packed_mixer(p, cfg: ModelConfig, kind: str, x_t, state,
+                              pos: int):
+    """Mixer half of a packed MoE block's step: norm1 + attention +
+    residual, plus the pre-MoE norm.  x_t: (B, C, D); the KV ring in
+    ``state["kv"]`` is written at ``pos .. pos+C-1``.  Returns (x_t,
+    state, h2 (B, C, D))."""
+    mixer, _ = parse_block(kind)
+    h = L.apply_norm(p["norm1"], cfg, x_t)
+    window = cfg.sliding_window if mixer == "swa" else None
+    y, kv = L.attention_decode(p["attn"], cfg, h, state["kv"], pos,
+                               window=window)
+    state = dict(state, kv=kv)
+    x_t = x_t + y
+    return x_t, state, L.apply_norm(p["norm2"], cfg, x_t)
+
+
+def decode_block_packed_moe(p, cfg: ModelConfig, x_t, h2, store, pstate,
+                            l_moe: int, routers=None, *, lookahead: int = 1,
+                            n_spec: int = 0):
+    """MoE half of a packed block's decode step: route + acquire (+ the
+    lookahead layer's staging) + packed compute + residual.  Returns
+    (x_t, pstate, info)."""
+    B, S, D = h2.shape
+    h2d = h2.reshape(B * S, D)
+    y2d, route, pstate = M.moe_apply_packed(
+        p["moe"], cfg, h2d, store, pstate, l_moe, routers,
+        lookahead=lookahead, n_spec=n_spec)
+    return (x_t + y2d.reshape(B, S, D), pstate,
+            {"route": route, "hidden_pre_moe": h2d})
+
+
+def prefill_block_packed_moe(p, cfg: ModelConfig, x_t, h2, store, l_moe: int,
+                             tier):
+    """MoE half of a prefill chunk: store-direct through the prefill tier."""
+    B, C, D = h2.shape
+    y2d, route = M.moe_apply_packed_stream(p["moe"], cfg, h2.reshape(B * C, D),
+                                           store, l_moe, tier)
+    return x_t + y2d.reshape(B, C, D), route
+
+
+# ----------------------------------------------------------------------
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
+                      device) -> Dict[str, Any]:
+    """One dense KV ring per layer (SWA layers ring at the window) and the
+    shared start position of the next chunk."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    rings = []
+    for kind in cfg.layer_kinds():
+        window = cfg.sliding_window if parse_block(kind)[0] == "swa" else None
+        rings.append({"kv": L.init_attn_cache(cfg, batch, max_len, dev, window)})
+    return {"layers": rings, "pos": 0}
+
+
+def layer_params(params, cfg: ModelConfig, layer_idx: int):
+    return params["layers"][layer_idx]
+
+
+def embed_tokens(params, cfg: ModelConfig, tokens):
+    """(B, S) int -> (B, S, D) embeddings."""
+    return L.embed(params["embed"], cfg, tokens)
+
+
+def apply_head(params, cfg: ModelConfig, x):
+    """Final norm + unembed."""
+    return L.unembed(params, cfg, L.apply_norm(params["final_norm"], cfg, x))
