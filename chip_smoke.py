@@ -21,9 +21,24 @@ last line):
 5. prefill kernel: the batched binding timed again at the shapes the main
    run's prefill launched (experts x rows padded to the largest group),
    beside the same rows spread evenly, so the padding's cost shows.
+6. ragged kernel: the paged-attention kernel against its plain version at
+   Mixtral's attention shapes (H 32, Hkv 8, hd 128, pages of 16, bf16):
+   a decode step of 4 rows (live lengths 37, 300, 1500, 4200, window
+   4096) and a 128-token admission chunk; time, plain time, bound.
+7. continuous parity: ``tiny-moe`` served by ``ContinuousEngine`` over the
+   offloaded pool on paged KV, four requests through two slots, on the
+   card (kernels) and on the CPU (plain versions): equal tokens, emit
+   steps and counters.
+8. serving: ``mixtral-offload`` (the main phase's 8 layers) serving 8
+   requests through 4 slots on paged KV, greedy, FCFS: tokens/s, active
+   rows per step, the pool's counters against the h2d bytes issued, the
+   launch counts of all three kernel bindings against the expected, the
+   slot binding against its plain version (and timed) on the inputs of
+   the decode launch that read farthest into the pool's overflow
+   records, and a profiler window over a few decode steps.
 
-The second-to-last line is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+The line before the card's line is ``{"kernels": [...]}``; the last line
+is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -42,8 +57,12 @@ BF16_FLOP_PER_S = 989e12     # H100 SXM dense bf16 on the tensor cores: the
                              # inputs are bf16 activations and integer codes
 KERNEL_RTOL = 1e-4           # of max |plain|: f32 sums over <= 14336 terms in another order
 LOGIT_ATOL = 1e-3            # tiny-moe f32 logits, card vs CPU
+RAGGED_BF16_RTOL = 2 ** -7   # of each row's max |plain in f32|: the kernel
+                             # accumulates in f32 and rounds only its bf16
+                             # output, by at most 2^-8 of the value
 MAIN_LAYERS = 8              # depth cut of mixtral-offload
 PROMPT_LEN, NEW_TOKENS = 64, 32
+SERVE_REQUESTS, SERVE_NEW, SERVE_SLOTS = 8, 24, 4
 
 
 def log(*a):
@@ -69,10 +88,12 @@ def phase_device():
         f"cuda {torch.version.cuda}")
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    report = build.compile_source("dequant_matmul")
-    regs = sorted({ln.strip() for ln in report.splitlines() if "registers" in ln})
-    log(f"[build] dequant_matmul.cu in {time.perf_counter() - t0:.1f} s: "
-        + " | ".join(regs))
+    reports = build.compile_all()  # one nvcc per source, all at once
+    for name, report in reports.items():
+        regs = sorted({ln.strip() for ln in report.splitlines()
+                       if "registers" in ln or "spill" in ln})
+        log(f"[build] {name}.cu: " + " | ".join(regs))
+    log(f"[build] {len(reports)} sources in {time.perf_counter() - t0:.1f} s")
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
     torch.backends.cudnn.allow_tf32 = False
     return card
@@ -360,7 +381,8 @@ def phase_main(dev):
     timing = eng.last_timing
     steps = timing["decode_steps"]
     L = eng.n_moe_layers
-    expect = {"dequant_matmul_batched": 3 * L, "dequant_matmul_slots": 3 * L * steps}
+    expect = {"dequant_matmul_batched": 3 * L, "dequant_matmul_slots": 3 * L * steps,
+              "ragged_attention": 0}  # this path attends over the dense ring
     logits = torch.stack([lg.float() for lg in last])
     report = {
         "prefill_s": timing["prefill_s"], "decode_s": timing["decode_s"],
@@ -399,7 +421,7 @@ def phase_main(dev):
     _profile_decode(eng, prompt, dev)
     if len(batches) != L:
         fail(f"{len(batches)} prefill kernel batches for {L} MoE layers")
-    return launches, batches
+    return launches, batches, eng, cfg
 
 
 def _h2d_rate(store, dev):
@@ -432,12 +454,52 @@ def _union_ms(spans):
     return total / 1e3
 
 
+def _device_split(prof, steps, label, trace_name):
+    """The union of device activity by kind over a profiled window of
+    ``steps`` steps (expert copies h2d, device-local copies, the dequant
+    kernel, the ragged kernel, other kernels) beside the window's wall
+    time, so the idle share of the card follows; the Chrome trace goes to
+    the git-ignored output directory beside this script."""
+    import torch
+    evs = list(prof.events())
+    cuda = [e for e in evs if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not cuda:
+        log(f"[{label}] the profiler recorded no device activity: not measured")
+        return None
+    span = lambda es: [(e.time_range.start, e.time_range.end) for e in es]
+    kinds = {
+        "h2d_copy": [e for e in cuda if "HtoD" in e.name],
+        "d2d_copy": [e for e in cuda if "DtoD" in e.name],
+        "dequant_kernel": [e for e in cuda if "dequant_matmul" in e.name],
+        "ragged_kernel": [e for e in cuda if "ragged_" in e.name],
+    }
+    used = {id(e) for es in kinds.values() for e in es}
+    kinds["other_kernels"] = [e for e in cuda if id(e) not in used
+                              and "Memcpy" not in e.name]
+    t0 = min(e.time_range.start for e in evs)
+    t1 = max(e.time_range.end for e in evs)
+    window = (t1 - t0) / 1e3
+    out = {k: _union_ms(span(v)) for k, v in kinds.items()}
+    compute = _union_ms(span(kinds["dequant_kernel"] + kinds["ragged_kernel"]
+                             + kinds["other_kernels"]))
+    busy = _union_ms(span(cuda))
+    host_launches = sum(e.name.startswith("cudaLaunchKernel") for e in evs)
+    out.update(window_ms=window, per_step_ms=window / steps,
+               kernel_launches_per_step=host_launches / steps,
+               device_busy_ms=busy, device_idle_share=1 - busy / window,
+               compute_idle_share=1 - compute / window,
+               h2d_copies=len([e for e in kinds["h2d_copy"]
+                               if e.time_range.elapsed_us() > 100]))
+    log(f"[{label}] {steps} decode steps: {json.dumps(out)}")
+    trace = Path(__file__).resolve().parent / "chiprun_out"
+    trace.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(trace / trace_name))
+    return out
+
+
 def _profile_decode(eng, prompt, dev, steps=8):
-    """Where a decode step's time goes: ``steps`` decode steps after a
-    64-token prefill, under ``torch.profiler``.  Reports the window's wall
-    time and the union of device activity by kind (expert copies h2d,
-    device-local copies, the dequant kernel, other kernels), so the idle
-    share of the card follows; the Chrome trace goes to chiprun_out/."""
+    """Where a batch-1 decode step's time goes: ``steps`` decode steps
+    after a 64-token prefill, under ``torch.profiler``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     dec = eng._exec
@@ -452,38 +514,350 @@ def _profile_decode(eng, prompt, dev, steps=8):
             tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
             int(tok[0, 0])
         torch.cuda.synchronize(dev)
-    evs = list(prof.events())
-    cuda = [e for e in evs if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not cuda:
-        log("[profile] the profiler recorded no device activity: not measured")
-        return None
-    span = lambda es: [(e.time_range.start, e.time_range.end) for e in es]
-    kinds = {
-        "h2d_copy": [e for e in cuda if "HtoD" in e.name],
-        "d2d_copy": [e for e in cuda if "DtoD" in e.name],
-        "dequant_kernel": [e for e in cuda if "dequant_matmul" in e.name],
-    }
-    used = {id(e) for es in kinds.values() for e in es}
-    kinds["other_kernels"] = [e for e in cuda if id(e) not in used
-                              and "Memcpy" not in e.name]
-    t0 = min(e.time_range.start for e in evs)
-    t1 = max(e.time_range.end for e in evs)
-    window = (t1 - t0) / 1e3
-    out = {k: _union_ms(span(v)) for k, v in kinds.items()}
-    compute = _union_ms(span(kinds["dequant_kernel"] + kinds["other_kernels"]))
-    busy = _union_ms(span(cuda))
-    host_launches = sum(e.name.startswith("cudaLaunchKernel") for e in evs)
-    out.update(window_ms=window, per_step_ms=window / steps,
-               kernel_launches_per_step=host_launches / steps,
-               device_busy_ms=busy, device_idle_share=1 - busy / window,
-               compute_idle_share=1 - compute / window,
-               h2d_copies=len([e for e in kinds["h2d_copy"]
-                               if e.time_range.elapsed_us() > 100]))
-    log(f"[profile] {steps} decode steps: {json.dumps(out)}")
-    trace = Path(__file__).resolve().parent / "chiprun_out"
-    trace.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(trace / "decode_trace.json"))
+    return _device_split(prof, steps, "profile", "decode_trace.json")
+
+
+# ----------------------------------------------------------------------
+def _paged_case(dev, lens, C, gen, n_heads=32, n_kv=8, hd=128, ps=16):
+    """Mixtral-shaped paged KV (bf16) for rows of live lengths ``lens``,
+    their pages scattered over the pool, queries at the last C positions;
+    with the work list and the bytes a kernel must move (each visited
+    page's k, v and ppos once, q and out) and the operations on the
+    valid keys (q.k and p.v, 2 x 2 x hd each)."""
+    import torch
+    from repro_torch.kernels import ragged_attention as RA
+    B = len(lens)
+    T = max(-(-n // ps) for n in lens)
+    P = sum(-(-n // ps) for n in lens) + 8
+    ids = torch.randperm(P, generator=torch.Generator().manual_seed(P)).tolist()
+    pages = np.full((B, T), -1, np.int32)
+    ppos = np.full((P, ps), -1, np.int32)
+    for b, n in enumerate(lens):
+        for o in range(-(-n // ps)):
+            pages[b, o] = pid = ids.pop()
+            for j in range(min(ps, n - o * ps)):
+                ppos[pid, j] = o * ps + j
+    qpos = (np.asarray(lens)[:, None] - C + np.arange(C)).astype(np.int32)
+    kp = torch.randn((P, ps, n_kv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    vp = torch.randn((P, ps, n_kv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    q = torch.randn((B, C, n_heads, hd), generator=gen, device=dev).to(torch.bfloat16)
+    window = 4096
+    wl = RA.build_page_worklist(pages, lens, qpos[:, 0], qpos[:, -1], ps,
+                                window=window)
+    packed, n_seg = RA.pack_worklist(*wl, B)
+    work = RA.DeviceWorklist(torch.from_numpy(packed).to(dev), n_seg)
+    visited = int(wl[2][:, 2].sum())
+    page_bytes = 2 * ps * n_kv * hd * 2 + ps * 4
+    nbytes = visited * page_bytes + 2 * q.numel() * 2
+    keys = sum(int(((0 <= kv) & (kv <= qp) & (qp - kv < window)).sum())
+               for b in range(B) for qp in qpos[b]
+               for kv in [ppos[pages[b][pages[b] >= 0]].ravel()])
+    flops = 4 * n_heads * hd * keys
+    return dict(q=q, kp=kp, vp=vp, ppos=torch.from_numpy(ppos).to(dev),
+                pages=torch.from_numpy(pages).to(dev),
+                qpos=torch.from_numpy(qpos).to(dev), work=work,
+                window=window, nbytes=nbytes, flops=flops, visited=visited,
+                listed=T * B, segments=n_seg)
+
+
+def phase_ragged_kernel(dev, flush):
+    """The ragged paged-attention kernel against its plain version at
+    Mixtral's attention shapes, called through the binding the model
+    path calls (``ops.ragged_attention``, which counts the launch): a
+    decode step of 4 rows whose live lengths straddle the 4096 window
+    (its pages wholly outside the window are skipped, the rest masked
+    per key) and a 128-token admission chunk.  Each row is held against
+    the plain version run in f32 on the same (upcast) inputs, within
+    ``RAGGED_BF16_RTOL`` of that row's own largest value.  Each launch
+    timed alone after an L2 flush; the bound is the
+    visited pages' bytes (k, v, ppos) plus q and out over the memory rate.
+    ``scaled_dot_product_attention`` on the pre-gathered dense view is
+    printed as a yardstick on its own line; the port never calls it.
+    Returns the decode figures (the kernels line's entry)."""
+    import torch
+    from repro_torch.kernels import ops, ragged_attention as RA
+    gen = torch.Generator(dev)
+    gen.manual_seed(3)
+    out = {}
+    for case, lens, C in (("decode", [37, 300, 1500, 4200], 1),
+                          ("admission", [200], 128)):
+        c = _paged_case(dev, lens, C, gen)
+        args = (c["q"], c["kp"], c["vp"], c["ppos"])
+        run = lambda: ops.ragged_attention(*args, c["pages"], c["qpos"],
+                                           window=c["window"],
+                                           worklist=c["work"])
+        plain = lambda: RA.ragged_attention_reference(
+            *args, c["pages"], c["qpos"], window=c["window"])
+        before = ops.ragged_attention.launches
+        y = run()
+        y32 = RA.ragged_attention_reference(  # the same sums in f32
+            *(a.float() for a in args[:3]), c["ppos"], c["pages"], c["qpos"],
+            window=c["window"])
+        torch.cuda.synchronize()
+        if ops.ragged_attention.launches != before + 1:
+            fail(f"ragged_attention {case}: the binding did not count its launch")
+        err, tol, row_errs = 0.0, 0.0, []
+        for b in range(len(lens)):
+            e = (y[b].float() - y32[b]).abs().max().item()
+            t = RAGGED_BF16_RTOL * y32[b].abs().max().item()
+            row_errs.append((e, t))
+            if not e <= t:
+                fail(f"ragged_attention {case} row {b} (live {lens[b]}): max "
+                     f"|kernel - plain f32| {e:.3g} > {t:.3g}")
+            err, tol = max(err, e), max(tol, t)
+        if not torch.isfinite(y).all():
+            fail(f"ragged_attention {case}: non-finite output")
+        bound_ms, bound_by = _bound(c["nbytes"], c["flops"])
+        r = dict(ms=_event_ms(run, 20, flush), plain_ms=_event_ms(plain, 3, flush),
+                 bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                 row_err_and_tolerance=row_errs, bytes=c["nbytes"],
+                 pages_visited=c["visited"],
+                 table_pages=c["listed"], segments=c["segments"], B=len(lens), C=C)
+        k, v, kpos = RA.ragged_gather(c["kp"], c["vp"], c["ppos"], c["pages"])
+        H, G = c["q"].shape[2], c["q"].shape[2] // k.shape[2]
+        qp = c["qpos"][:, None, :, None]
+        mask = ((kpos[:, None, None, :] >= 0) & (kpos[:, None, None, :] <= qp)
+                & (qp - kpos[:, None, None, :] < c["window"]))
+        qs = c["q"].transpose(1, 2)
+        ks = k.repeat_interleave(G, 2).transpose(1, 2)
+        vs = v.repeat_interleave(G, 2).transpose(1, 2)
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask)
+        r["sdpa_dense_ms"] = _event_ms(sdpa, 10, flush)
+        log(f"[ragged] {case} B={len(lens)} C={C} lens={lens}: {json.dumps(r)}")
+        log(f"[yardstick] scaled_dot_product_attention on the gathered dense "
+            f"view ({case}, {ks.shape[2]} keys per row, not paged, not used "
+            f"by the port): {r['sdpa_dense_ms']:.4f} ms")
+        out[case] = r
+    dec = dict(out["decode"])
+    dec["max_abs_err"] = max(o["max_abs_err"] for o in out.values())
+    return dec
+
+
+# ----------------------------------------------------------------------
+def _serve(eng, cfg, prompts, max_news, *, max_slots, on_engine=None, **kw):
+    """Serve ``prompts`` through a ContinuousEngine over ``eng``'s pool on
+    paged KV (16-position pages); returns (engine, tokens per request,
+    emit step of every token, decode calls and active rows, chunk calls).
+    ``on_engine`` is called with the engine before it serves."""
+    from repro_torch.serving.engine import ContinuousEngine
+    ce = ContinuousEngine(None, cfg, offload=eng, max_slots=max_slots,
+                          kv_page=16, eos_id=None, **kw)
+    if on_engine is not None:
+        on_engine(ce)
+    calls = {"decode": 0, "rows": 0, "chunks": 0}
+    dec, chunk = ce._exec.decode, ce._exec.prefill_chunk_row
+
+    def counted_decode(state, tokens, pstate, active=None):
+        calls["decode"] += 1
+        calls["rows"] += int(active.sum())
+        return dec(state, tokens, pstate, active)
+
+    def counted_chunk(*a):
+        calls["chunks"] += 1
+        return chunk(*a)
+
+    ce._exec.decode, ce._exec.prefill_chunk_row = counted_decode, counted_chunk
+    steps = {}
+    try:
+        reqs = [ce.submit(p, m, on_token=lambda r, t: steps.setdefault(
+            r.rid, []).append(ce.step_count)) for p, m in zip(prompts, max_news)]
+        ce.run(max_steps=1000)
+    finally:
+        del ce._exec.decode, ce._exec.prefill_chunk_row
+    if not all(r.state == "finished" for r in reqs):
+        fail("a served request never finished")
+    return ce, [r.generated for r in reqs], [steps[r.rid] for r in reqs], calls
+
+
+def phase_continuous_parity(dev):
+    """tiny-moe continuous batching over the offloaded pool on paged KV,
+    four requests through two slots, card against CPU: equal tokens, emit
+    steps and offload counters."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.offload_engine import (OffloadEngine,
+                                                 quantize_for_offload)
+    from repro_torch.models import transformer as T
+    cfg = get_config("tiny-moe")
+    spec = cfg.offload
+    params = T.init_model(cfg, seed=0, device="cpu")
+    exec_params, store = quantize_for_offload(params, cfg, spec, device="cpu")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in (6, 11, 8, 14)]
+    news = (8, 5, 7, 4)
+    runs = {}
+    for where in ("cpu", dev):
+        eng = OffloadEngine(_to(exec_params, where), cfg, spec,
+                            store=store if where == "cpu" else _cpu_store_to(store, where),
+                            device=where)
+        ce, toks, steps, _ = _serve(eng, cfg, prompts, news, max_slots=2,
+                                    slot_len=64)
+        counters = {k: v for k, v in ce.stats().items() if k.startswith("offload_")}
+        runs[str(where)] = (toks, steps, counters, ce._pstate.overflow_accesses)
+    same = runs["cpu"] == runs[str(dev)]
+    log(f"[continuous-parity] tiny-moe 4 requests / 2 slots, card vs cpu: equal "
+        f"{same}; counters {runs[str(dev)][2]}, overflow accesses "
+        f"{runs[str(dev)][3]}; tokens {runs[str(dev)][0]}")
+    if not same:
+        fail(f"tiny-moe continuous serving on the card differs from the CPU: "
+             f"{runs[str(dev)]} vs {runs['cpu']}")
+
+
+class _SlotCapture:
+    """Keeps the inputs of the decode launches of the slot binding that
+    read the farthest into a pool's overflow records (one per matrix:
+    gate, up, down, in the order the MoE layer calls them), so that they
+    can be checked and timed after the run.  The slot map is read from
+    the pool state's host copy, so the capture adds no device read; it
+    copies x and the slot map only when a launch reaches farther."""
+
+    def __init__(self, ops):
+        self.ops, self.fn, self.ce = ops, ops.dequant_matmul_slots, None
+        self.calls, self.best = 0, [None] * 3
+
+    def __call__(self, x, qt, slots):
+        st = self.ce._pstate
+        key = (int(st.slot_host[:slots.numel()].numpy().max()), slots.numel())
+        i = self.calls % 3
+        self.calls += 1
+        if self.best[i] is None or key > self.best[i][0]:
+            self.best[i] = (key, x.clone(), qt, slots.clone(),
+                            st.pool.n_slots)
+        return self.fn(x, qt, slots)
+
+    @property
+    def launches(self):  # the binding counts through its module's name
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches = n
+
+    def __enter__(self):
+        self.ops.dequant_matmul_slots = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.dequant_matmul_slots = self.fn
+
+
+def _check_serving_slots(capture):
+    """The slot binding on the captured serving inputs (x of the active
+    rows, the layer's pool-and-overflow view, the slot map ``acquire``
+    returned) against its plain version at ``KERNEL_RTOL``, and timed
+    (CUDA events, flushed L2).  The bound reads each distinct record
+    once."""
+    import torch
+    from repro_torch.kernels import ref
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    fn = capture.fn
+    record_bytes = capture.ce._pstate.pool.layout.record_bytes
+    out = dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0, err=0.0, rel=0.0)
+    for (max_index, rows), x, qt, slots, S in capture.best:
+        y, yp = fn(x, qt, slots), ref.dequant_matmul_slots(x, qt, slots)
+        torch.cuda.synchronize()
+        err = (y - yp).abs().max().item()
+        scale = yp.abs().max().item()
+        if not (err <= KERNEL_RTOL * scale) or not torch.isfinite(y).all():
+            fail(f"dequant_matmul_slots at serving shape ({rows} rows, slot "
+                 f"index up to {max_index}): {err:.3g} > {KERNEL_RTOL} x {scale:.3g}")
+        K, N = qt.shape[1:]
+        distinct = len(set(slots.tolist()))
+        out["ms"] += _event_ms(lambda: fn(x, qt, slots), 20, flush)
+        out["plain_ms"] += _event_ms(lambda: ref.dequant_matmul_slots(x, qt, slots),
+                                     3, flush)
+        out["bytes"] += (_stored_bytes(qt, distinct) + x.numel() * x.element_size()
+                         + y.numel() * 4)
+        out["flops"] += 2 * rows * K * N
+        out["err"], out["rel"] = max(out["err"], err), max(out["rel"], err / scale)
+        if max_index < S:
+            fail("no serving decode launch read an overflow record")
+        out.setdefault("rows_maxindex_distinct", []).append(
+            (rows, max_index, distinct))
+        out["max_offset_gib"] = max(out.get("max_offset_gib", 0.0),
+                                    max_index * record_bytes / 2**30)
+    out["bound_ms"], out["bound_by"] = _bound(out["bytes"], out["flops"])
+    log(f"[serve-kernel] dequant_matmul_slots at the serving run's shapes, "
+        f"per MoE layer (3 matrices): {json.dumps(out)}")
     return out
+
+
+def phase_serving(dev, eng, cfg):
+    """mixtral-offload (8 of 32 layers) serving 8 requests through 4 slots
+    on paged KV, greedy, FCFS: the slice's main path.  Every launch count
+    is read around this run alone.  The slot binding's decode launch that
+    read farthest into the overflow records is checked and timed after
+    the run on the inputs it had."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(0)
+    lens = rng.integers(24, 97, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    news = [SERVE_NEW] * SERVE_REQUESTS
+    kw = dict(max_slots=SERVE_SLOTS, slot_len=256)
+    _serve(eng, cfg, prompts[:2], [3, 3], **kw)  # warm-up (allocator, handles)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    with _SlotCapture(ops) as capture:
+        t0 = time.perf_counter()
+        ce, toks, steps, calls = _serve(
+            eng, cfg, prompts, news,
+            on_engine=lambda e: setattr(capture, "ce", e), **kw)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    launches = ops.launches()
+    L = eng.n_moe_layers
+    expect = {"dequant_matmul_batched": 3 * L * calls["chunks"],
+              "dequant_matmul_slots": 3 * L * calls["decode"],
+              "ragged_attention": cfg.n_layers * (calls["decode"] + calls["chunks"])}
+    st = ce._pstate
+    hits, spec_hits, demand, spec = (int(c) for c in st.counts)
+    counters_bytes = (demand + spec) * eng.expert_bytes
+    n_tok = sum(len(t) for t in toks)
+    report = {
+        "requests": SERVE_REQUESTS, "prompt_lens": lens.tolist(),
+        "max_new": SERVE_NEW, "slots": SERVE_SLOTS, "wall_s": wall,
+        "tokens": n_tok, "tokens_per_s": n_tok / wall,
+        "decode_tokens": calls["rows"], "decode_tokens_per_s": calls["rows"] / wall,
+        "steps": ce.step_count, "decode_steps": calls["decode"],
+        "admission_chunks": calls["chunks"],
+        "mean_active_rows": calls["rows"] / max(1, calls["decode"]),
+        "hits": hits, "spec_hits": spec_hits, "demand_loads": demand,
+        "spec_loads": spec, "overflow_accesses": st.overflow_accesses,
+        "bytes_h2d_issued": st.h2d_bytes, "bytes_h2d_counters": counters_bytes,
+        "host_reads": st.host_reads,
+        "launches": launches, "launches_expected": expect,
+        "peak_device_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    log(f"[serve] {json.dumps(report)}")
+    if launches != expect or min(launches.values()) < 1:
+        fail(f"serving launches {launches} != expected {expect}")
+    if st.h2d_bytes != counters_bytes:
+        fail(f"serving h2d bytes issued {st.h2d_bytes} != counters {counters_bytes}")
+    if spec != 0:
+        fail(f"{spec} speculative loads at batch {SERVE_SLOTS}")
+    if any(len(t) != SERVE_NEW or not all(0 <= x < cfg.vocab_size for x in t)
+           for t in toks):
+        fail("served requests returned malformed tokens")
+    ce.kv.check_invariants()
+    report["slots_kernel"] = _check_serving_slots(capture)
+    # the profiler window: four rows decoding together
+    from repro_torch.serving.engine import ContinuousEngine
+    ce = ContinuousEngine(None, cfg, offload=eng, kv_page=16, eos_id=None, **kw)
+    for p in prompts[:SERVE_SLOTS]:
+        ce.submit(p, SERVE_NEW)
+    for _ in range(3):  # admission step + two decode steps
+        ce.step()
+    torch.cuda.synchronize(dev)
+    n_prof = 6
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            ce.step()
+        torch.cuda.synchronize(dev)
+    report["profile"] = _device_split(prof, n_prof, "serve-profile",
+                                      "serve_decode_trace.json")
+    return launches, report["slots_kernel"]
 
 
 # ----------------------------------------------------------------------
@@ -492,22 +866,32 @@ def main():
     import torch
     dev = torch.device("cuda", 0)
     kern, tiers, flush = phase_kernels(dev)
+    kern["ragged_attention"] = phase_ragged_kernel(dev, flush)
     phase_parity(dev)
-    launches, batches = phase_main(dev)
+    phase_continuous_parity(dev)
+    launches, batches, eng, cfg = phase_main(dev)
     batched = phase_prefill_kernel(dev, tiers, flush, batches)
     batched["max_abs_err"] = max(batched["max_abs_err"],
                                  kern["dequant_matmul_batched"]["max_abs_err"])
     kern["dequant_matmul_batched"] = batched
-    src = "src/repro_torch/kernels/csrc/dequant_matmul.cu"
+    del tiers, flush
+    serve_launches, serve_slots = phase_serving(dev, eng, cfg)
+    launches["ragged_attention"] = serve_launches["ragged_attention"]
+    slots = kern["dequant_matmul_slots"]
+    slots["max_abs_err"] = max(slots["max_abs_err"], serve_slots["err"])
+    csrc = "src/repro_torch/kernels/csrc/"
+    src = {"dequant_matmul_batched": csrc + "dequant_matmul.cu",
+           "dequant_matmul_slots": csrc + "dequant_matmul.cu",
+           "ragged_attention": csrc + "ragged_attention.cu"}
     replaces = {"dequant_matmul_batched": "src/repro/kernels/dequant_matmul.py:109",
-                "dequant_matmul_slots": "src/repro/kernels/dequant_matmul.py:145"}
+                "dequant_matmul_slots": "src/repro/kernels/dequant_matmul.py:145",
+                "ragged_attention": "src/repro/kernels/ragged_attention.py:206"}
     line = {"kernels": [
-        {"name": n, "route": "cuda", "source": src, "replaces": replaces[n],
+        {"name": n, "route": "cuda", "source": src[n], "replaces": replaces[n],
          "launches": launches[n], "max_abs_err": kern[n]["max_abs_err"],
          "ms": kern[n]["ms"], "plain_ms": kern[n]["plain_ms"],
          "bound_ms": kern[n]["bound_ms"], "bound_by": kern[n]["bound_by"],
-         "library_ms": None} for n in ("dequant_matmul_batched",
-                                       "dequant_matmul_slots")]}
+         "library_ms": None} for n in src]}
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,9 @@ So a demand load or a prefetch is one ``cudaMemcpyAsync`` of
 * **host store** ``(L_moe, E)``, pinned host memory when the pool is on
   the card;
 * **LRU pool** ``(L_moe, cache_size)`` and **staging** ``(L_moe,
-  num_speculative)`` on the device.
+  num_speculative)`` on the device; the pool carries T*K - 1 **overflow**
+  records after it, for the accesses of a T-row batch that lose their
+  slot to a later access of the same batch.
 
 The QTensors the kernel reads are views into a tier's buffer
 (:attr:`Tier.experts`), so the pool is read in place, by slot.
@@ -137,15 +139,24 @@ class RecordLayout:
 
 
 class Tier:
-    """(L, S) expert records in one uint8 buffer (module docstring)."""
+    """(L, S) expert records in one uint8 buffer (module docstring), plus
+    ``extra`` records after them that every layer can address: the
+    pool's overflow tier.  Layer ``l``'s view (:meth:`served`) covers its
+    own S records and everything after them, so record ``(L - l) * S + o``
+    of that view is extra record ``o``, and one slot map reads pool and
+    overflow alike."""
 
     def __init__(self, layout: RecordLayout, n_layers: int, n_slots: int,
-                 device, *, pin: bool = False):
+                 device, *, pin: bool = False, extra: int = 0):
         self.layout = layout
         alloc = torch.empty if pin else torch.zeros  # a pinned store is filled whole
-        self.buf = alloc((n_layers, n_slots, layout.record_bytes),
-                         dtype=torch.uint8, device=device, pin_memory=pin)
+        R = layout.record_bytes
+        self.flat = alloc((n_layers * n_slots + extra, R), dtype=torch.uint8,
+                          device=device, pin_memory=pin)
+        self.buf = self.flat[: n_layers * n_slots].view(n_layers, n_slots, R)
+        self.n_extra = extra
         self.experts = layout.views(self.buf)
+        self._served: List[Optional[PackedExperts]] = [None] * n_layers
 
     @property
     def n_layers(self) -> int:
@@ -162,8 +173,23 @@ class Tier:
     def record(self, l: int, s: int) -> torch.Tensor:
         return self.buf[l, s]
 
+    def extra_record(self, o: int) -> torch.Tensor:
+        return self.flat[self.buf.shape[0] * self.buf.shape[1] + o]
+
+    def extra_index(self, l: int, o: int) -> int:
+        """Index of extra record ``o`` in layer ``l``'s :meth:`served` view."""
+        return (self.n_layers - l) * self.n_slots + o
+
+    def served(self, l: int) -> PackedExperts:
+        """Views of layer ``l``'s slots and every record after them, as one
+        (S_l, ...) stack: what the kernel reads by slot map."""
+        if self._served[l] is None:
+            self._served[l] = self.layout.views(
+                self.flat[l * self.n_slots:][None]).slice(0)
+        return self._served[l]
+
     def nbytes(self) -> int:
-        return self.buf.numel()
+        return self.flat.numel()
 
 
 def per_expert_nbytes(store: Tier) -> float:
@@ -234,8 +260,9 @@ def build_store(params, cfg: ModelConfig, spec: OffloadSpec,
 @dataclasses.dataclass
 class PoolState:
     """The offload state of one generation: host-side LRU state per MoE
-    layer, the device pool and staging tiers, the counters, and the copy
-    machinery (side stream + one staging event per layer on the card)."""
+    layer, the device pool (with its overflow records) and staging
+    tiers, the counters, and the copy machinery (side stream + one
+    staging event per layer on the card)."""
 
     lru: List[LC.LayerCacheState]
     pool: Tier
@@ -248,17 +275,24 @@ class PoolState:
     slot_dev: torch.Tensor
     h2d_bytes: int = 0             # bytes of h2d copies actually issued
     host_reads: int = 0            # device->host reads of routing decisions
+    overflow_accesses: int = 0     # accesses served from the overflow tier
 
 
 def init_pool_state(store: Tier, spec: OffloadSpec, device: torch.device,
                     max_rows: int) -> PoolState:
     """Zero-filled pool + staging tiers and cold LRU state for a store;
-    ``max_rows`` bounds the (token, k) rows one acquire serves."""
+    ``max_rows`` bounds the (token, k) rows one acquire serves, and so
+    the overflow tier: all but the last access of a batch can lose
+    their slot to a later one.  A batch of at most ``cache_size``
+    accesses loses none (each access is more recent than every slot the
+    batch has not touched, and one of those is always the one evicted),
+    so such pools get no overflow records."""
     L, lay = store.n_layers, store.layout
     cuda = device.type == "cuda"
+    extra = 0 if max_rows <= spec.cache_size else max_rows - 1
     return PoolState(
         lru=LC.init_model_state(L, spec.cache_size, spec.num_speculative),
-        pool=Tier(lay, L, spec.cache_size, device),
+        pool=Tier(lay, L, spec.cache_size, device, extra=extra),
         staging=Tier(lay, L, spec.num_speculative, device),
         counts=np.zeros((4,), np.int64),
         scratch=Tier(lay, 1, max(1, spec.num_speculative), device),
@@ -280,40 +314,73 @@ def _h2d(st: PoolState, dst: torch.Tensor, src: torch.Tensor) -> None:
     st.h2d_bytes += src.numel()
 
 
-def acquire(store: Tier, st: PoolState, l: int, ids: np.ndarray
-            ) -> torch.Tensor:
+def acquire(store: Tier, st: PoolState, l: int, ids: np.ndarray,
+            active: Optional[np.ndarray] = None) -> torch.Tensor:
     """Serve layer ``l``'s routed experts ``ids`` (T, K) from its pool:
     run the batch plan, issue the copies it implies on the current stream
-    and return the pool slot of every (token, k) row as a (T*K,) int32
-    device tensor, for the kernel to read the pool in place.
+    and return, for every (token, k) access of the active rows in order,
+    the record that holds its expert, as an int32 device tensor indexing
+    ``st.pool.served(l)`` for the kernel to read in place.
 
-    A row whose expert a later row of the same batch evicts would need
-    its own copy of the weights; that happens only for T > 1 (speculative
-    verify chunks) and is not supported yet (ROADMAP queue 1, item 9)."""
+    An access whose slot a later access of the batch takes over is served
+    from the overflow tier instead, filled before the pool's writes land:
+    from its old slot when the expert was resident at batch start, from
+    the staging buffer of a speculative hit, or h2d from the store on a
+    miss.  Each written slot is then written once, with its final
+    occupant.  So every demand load moves its expert h2d exactly once,
+    into its final slot or into the overflow tier, and the h2d bytes
+    issued stay ``(demand_loads + spec_loads) * per_expert_nbytes``.
+    Inactive rows (``active`` (T,) bool False) bypass the cache: no state
+    change, no counter, no copy."""
     T, K = ids.shape
-    new_lru, delta, plan = LC.access_plan_batch(st.lru[l], ids)
-    if not plan.survives.all():
-        raise NotImplementedError(
-            "a decode row whose expert is evicted within its own batch "
-            "(T > 1 verify chunks) needs the store-gather fallback of "
-            "ROADMAP queue 1 item 9")
+    new_lru, delta, plan = LC.access_plan_batch(st.lru[l], ids, active)
+    rows = range(T) if active is None else np.flatnonzero(active)
     ev = st.stage_events[l]
     if ev is not None:
         torch.cuda.current_stream(st.pool.buf.device).wait_event(ev)
-    for t in range(T):
+    # walk the accesses in order; every insertion is an event whose bytes
+    # come from a staging buffer (speculative hit) or the store (miss)
+    content = [("pool", s) for s in range(st.pool.n_slots)]
+    served = []
+    for t in rows:
         for j in range(K):
-            if plan.in_cache[t, j]:
-                continue
-            dst = st.pool.record(l, int(plan.slots[t, j]))
-            if plan.in_spec[t, j]:
-                dst.copy_(st.staging.record(l, int(plan.spec_slot[t, j])),
-                          non_blocking=True)
-            else:
-                _h2d(st, dst, store.record(l, int(ids[t, j])))
+            s = int(plan.slots[t, j])
+            if not plan.in_cache[t, j]:
+                content[s] = (("staging", int(plan.spec_slot[t, j]))
+                              if plan.in_spec[t, j]
+                              else ("store", int(ids[t, j])), len(served))
+            served.append((s, content[s]))
+    overflow: Dict[tuple, int] = {}
+    index = []
+    for s, src in served:
+        if content[s] == src:
+            index.append(s)  # final occupant of its slot
+        else:
+            o = overflow.setdefault(src, len(overflow))
+            index.append(st.pool.extra_index(l, o))
+
+    def fill(dst, src):
+        if src[0] == "pool":
+            dst.copy_(st.pool.record(l, src[1]), non_blocking=True)
+        elif src[0][0] == "staging":
+            dst.copy_(st.staging.record(l, src[0][1]), non_blocking=True)
+        else:
+            _h2d(st, dst, store.record(l, src[0][1]))
+
+    if len(overflow) > st.pool.n_extra:
+        raise RuntimeError(f"{len(overflow)} accesses lose their slot within "
+                           f"the batch; the pool has {st.pool.n_extra} "
+                           f"overflow records (max_rows too small)")
+    for src, o in overflow.items():  # before the writes overwrite old slots
+        fill(st.pool.extra_record(o), src)
+    for s, src in enumerate(content):
+        if src[0] != "pool":
+            fill(st.pool.record(l, s), src)
     st.lru[l] = new_lru
     st.counts += delta
-    n = T * K
-    st.slot_host[:n] = torch.from_numpy(plan.slots.reshape(n).astype(np.int32))
+    st.overflow_accesses += sum(i >= st.pool.n_slots for i in index)
+    n = len(index)
+    st.slot_host[:n] = torch.as_tensor(index, dtype=torch.int32)
     slots = st.slot_dev[:n]
     slots.copy_(st.slot_host[:n], non_blocking=True)
     return slots

@@ -9,8 +9,12 @@ norms and embeddings are untouched.  Expert matmuls run through the
 Hopper dequant-matmul kernel on the card and its plain PyTorch version on
 the CPU.
 
+:class:`ExpertUsageTracker` (with :func:`routing_from_info`) keeps the
+decayed histogram of the experts a running batch routes to, which the
+serving scheduler's expert-overlap policy reads.
+
 Not ported yet (ROADMAP queue 1): accounting mode (``quantized=False``),
-samplers other than greedy, draft-and-verify, telemetry.
+samplers other than greedy in ``generate``, draft-and-verify, telemetry.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, OffloadSpec
 from repro_torch.core import expert_pool as EP
+from repro_torch.core.trace import moe_positions
 from repro_torch.quant import hqq
 from repro_torch.runtime.executor import Executor
 
@@ -42,6 +47,67 @@ class OffloadStats:
         return (self.demand_loads + self.spec_loads) * self.expert_bytes
 
 
+# ----------------------------------------------------------------------
+def routing_from_info(cfg: ModelConfig, infos, want_hiddens=True):
+    """Per-MoE-layer routing of one decode step from the port's per-layer
+    infos (one dict per layer, ``{"route": {"ids"}, "hidden_pre_moe"}``
+    for MoE layers; the reference unpacks its scan-stacked info the same
+    way): returns (ids, hiddens) lists in layer order, arrays (B, top_k)
+    int32 and (B, D) (``hiddens`` empty with ``want_hiddens=False``)."""
+    ids, hiddens = [], []
+    for info in infos[: cfg.n_layers]:
+        if "route" not in info:
+            continue
+        ids.append(np.asarray(info["route"]["ids"]))
+        if want_hiddens:
+            hiddens.append(info["hidden_pre_moe"].float().cpu().numpy())
+    return ids, hiddens
+
+
+class ExpertUsageTracker:
+    """Decayed per-MoE-layer histogram of expert activations: what the
+    running batch has recently routed to, i.e. what the offload pools are
+    hot with.  The expert-overlap admission policy scores waiting requests
+    by their overlap with it (MoBiLE-style expert-aware grouping)."""
+
+    def __init__(self, n_layers: int, n_experts: int, decay: float = 0.9):
+        self.n_layers = n_layers
+        self.n_experts = n_experts
+        self.decay = decay
+        self.counts = np.zeros((n_layers, n_experts), np.float64)
+
+    @classmethod
+    def for_config(cls, cfg: ModelConfig, decay: float = 0.9
+                   ) -> "ExpertUsageTracker":
+        n = len(moe_positions(cfg)) * cfg.n_periods
+        return cls(n, cfg.moe.num_experts, decay)
+
+    def update(self, ids_per_layer, rows=None) -> None:
+        """ids_per_layer: list of (B, K) int32; ``rows`` restricts the
+        accounting to the active batch rows."""
+        self.counts *= self.decay
+        for l, ids in enumerate(ids_per_layer):
+            sel = ids if rows is None else ids[np.asarray(rows, np.int64)]
+            np.add.at(self.counts[l], np.asarray(sel).ravel(), 1.0)
+
+    def normalized(self) -> np.ndarray:
+        """(L, E) rows summing to 1 (uniform where a layer has no counts)."""
+        tot = self.counts.sum(-1, keepdims=True)
+        uniform = np.full_like(self.counts, 1.0 / self.n_experts)
+        return np.where(tot > 0, self.counts / np.maximum(tot, 1e-9), uniform)
+
+    def overlap(self, pred_ids_per_layer) -> float:
+        """Expected fraction of a candidate's predicted expert hits that
+        are already hot, averaged over the layers actually scored."""
+        hist = self.normalized()
+        score = 0.0
+        scored = pred_ids_per_layer[: self.n_layers]
+        for l, ids in enumerate(scored):
+            score += float(hist[l, np.asarray(ids, np.int64).ravel()].sum())
+        return score / max(1, len(scored))
+
+
+# ----------------------------------------------------------------------
 def _quant_dense(w: torch.Tensor, bits: int, mat: torch.Tensor) -> torch.Tensor:
     """Quantize ``mat`` (a 2-D view of ``w``) and dequantize it back to
     ``w``'s shape and dtype; leaves not divisible by the group stay."""

@@ -1,10 +1,11 @@
-"""Build the port's CUDA kernel with ``nvcc`` and load it with ctypes.
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
 
-``csrc/dequant_matmul.cu`` compiles, at first use, into a shared library
+Each ``csrc/<name>.cu`` compiles, at first use, into a shared library
 with a plain C interface in ``kernels/build/`` (listed in ``.gitignore``);
 the library's name carries a hash of its source, so an edited source is
-rebuilt and a stale build is never loaded.  Nothing here runs when the
-module is imported.
+rebuilt and a stale build is never loaded.  :func:`compile_all` starts
+one ``nvcc`` per source, all at once.  Nothing here runs when the module
+is imported.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+
+SOURCES = ("dequant_matmul", "ragged_attention")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -39,26 +42,55 @@ def _lib_path(name: str) -> Path:
     return BUILD / f"lib{name}-{digest}.so"
 
 
-def compile_source(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless a current build exists.  Returns
-    ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory, spills),
-    or "" when nothing was built."""
+def _start(name: str):
+    """Start ``nvcc`` on ``csrc/<name>.cu`` unless a current build exists;
+    returns (process, temporary output) or None."""
     out = _lib_path(name)
     if out.exists():
-        return ""
+        return None
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
+    proc = subprocess.Popen(
         [nvcc_path(), ARCH, "-std=c++17", "-O3", "-shared",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v",
          "-o", str(tmp), str(CSRC / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp
+
+
+def _finish(name: str, started) -> str:
+    if started is None:
+        return ""
+    proc, tmp = started
+    report, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}.cu "
-                           f"(exit {proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, out)
-    (BUILD / f"{name}.ptxas.txt").write_text(proc.stdout)
-    return proc.stdout
+                           f"(exit {proc.returncode}):\n{report}")
+    os.replace(tmp, _lib_path(name))
+    (BUILD / f"{name}.ptxas.txt").write_text(report)
+    return report
+
+
+def compile_source(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless a current build exists.  Returns
+    ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory, spills),
+    or "" when nothing was built."""
+    return _finish(name, _start(name))
+
+
+def compile_all(names=SOURCES) -> Dict[str, str]:
+    """Compile every source at once, one ``nvcc`` each; returns each
+    one's report.  Waits for all of them before raising on a failure."""
+    started = {n: _start(n) for n in names}
+    reports, errors = {}, []
+    for n, s in started.items():
+        try:
+            reports[n] = _finish(n, s)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return reports
 
 
 def load(name: str) -> ctypes.CDLL:

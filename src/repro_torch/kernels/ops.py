@@ -1,12 +1,14 @@
-"""The two bindings of the dequant-matmul kernel, dispatched on the device
-of the tensors they are given.
+"""The port's kernel bindings, dispatched on the device of the tensors
+they are given: the two bindings of the dequant-matmul kernel, and the
+ragged paged-attention kernel's (``kernels/ragged_attention.py``).
 
-* A CPU tensor runs the plain PyTorch version (``kernels/ref.py``).
-* A CUDA tensor launches the Hopper kernel (``csrc/dequant_matmul.cu``)
-  or raises; there is no fall back to the plain version.
+* A CPU tensor runs the plain PyTorch version (``kernels/ref.py``,
+  ``ragged_attention_reference``).
+* A CUDA tensor launches the Hopper kernel (``csrc/*.cu``) or raises;
+  there is no fall back to the plain version.
 
 Each binding counts its kernel launches in ``.launches``, a plain integer
-(:func:`reset_launches` sets both to 0), so that a run can show that its
+(:func:`reset_launches` sets them to 0), so that a run can show that its
 main path went through the kernel.  Plain-version calls do not count.
 """
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.ragged_attention import ragged_attention
 from repro_torch.quant import hqq
 
 
@@ -44,7 +47,7 @@ def dequant_matmul_slots(x: torch.Tensor, qt: hqq.QTensor,
 
 dequant_matmul_batched.launches = 0
 dequant_matmul_slots.launches = 0
-BINDINGS = (dequant_matmul_batched, dequant_matmul_slots)
+BINDINGS = (dequant_matmul_batched, dequant_matmul_slots, ragged_attention)
 
 
 def reset_launches() -> None:

@@ -1,18 +1,25 @@
-"""Transformer layers of the offloaded-generation slice: RMS norm,
-interleaved-pair RoPE, GQA attention over a dense KV ring, embeddings.
+"""Transformer layers of the offloaded slices: RMS norm, interleaved-pair
+RoPE, GQA attention over a dense KV ring or block-paged KV, embeddings.
 
 The port of the reference's ``models/layers.py``.  Parameters are plain
 dicts of tensors with the reference's layouts (``wq: (D, H, hd)``,
 ``wo: (H, hd, D)``); norms, rotary and softmax run in float32 whatever the
 parameter dtype, and every cast sits where the reference puts it.
-Attention stays plain PyTorch (the reference's model path does not use a
-Pallas kernel for it).  The KV ring is updated in place.
+Attention over the dense ring stays plain PyTorch (the reference's model
+path uses no Pallas kernel for it); attention over paged KV goes through
+the ragged paged-attention binding (``kernels/ops.ragged_attention``).
+KV rings and page pools are updated in place.
 """
 from __future__ import annotations
 
 import math
+from typing import Dict, NamedTuple, Optional, Sequence
 
+import numpy as np
 import torch
+
+from repro_torch.kernels import ops
+from repro_torch.kernels import ragged_attention as RA
 
 NEG_INF = -1e30
 
@@ -51,7 +58,8 @@ def rope_frequencies(cfg, device):
 
 
 def apply_rope(x, positions, cfg):
-    """x: (..., S, H, hd); positions: (S,) int shared across the batch."""
+    """x: (..., S, H, hd); positions: (S,) int shared across the batch, or
+    (B, S) per row."""
     inv, rot = rope_frequencies(cfg, x.device)
     if rot == 0:
         return x
@@ -102,8 +110,9 @@ def _out_proj(p, cfg, o):
 def attention_core(q, k, v, qpos, kpos, *, causal, window):
     """Exact GQA attention.
 
-    q: (B, Sq, H, hd)  k, v: (B, Skv, Hkv, hd); qpos: (Sq,) absolute
-    positions; kpos: (B, Skv) (-1 = empty slot of the KV ring).
+    q: (B, Sq, H, hd)  k, v: (B, Skv, Hkv, hd); qpos: (Sq,) or (B, Sq)
+    absolute positions (per row in continuous batches); kpos: (B, Skv)
+    (-1 = empty ring slot or unallocated page).
     """
     B, Sq, H, hd = q.shape
     Hkv = k.shape[2]
@@ -112,7 +121,7 @@ def attention_core(q, k, v, qpos, kpos, *, causal, window):
     s = torch.einsum("bqhgk,bthk->bhgqt", qg.to(torch.float32),
                      k.to(torch.float32)) * scale
     valid = (kpos >= 0)[:, None, :]  # (B, 1, Skv)
-    qp = qpos[None, :, None]
+    qp = qpos.expand(B, Sq)[:, :, None]
     if causal:
         valid = valid & (kpos[:, None, :] <= qp)
     if window is not None:
@@ -136,15 +145,31 @@ def init_attn_cache(cfg, batch, max_len, device, window=None):
     }
 
 
-def attention_decode(p, cfg, x_t, cache, cur_pos: int, *, window=None):
-    """Decode / prefill-chunk step against the dense KV ring.
+def attention_decode(p, cfg, x_t, cache, cur_pos, *, window=None,
+                     pages=None, active=None, step: Optional[PagedStep] = None):
+    """Decode / prefill-chunk step against the dense KV ring or, with
+    ``pages`` or ``step``, the paged KV plane.
 
     x_t: (B, C, D): the C tokens sit at positions ``cur_pos ..
     cur_pos+C-1`` (the whole batch in lock-step); their K/V are written
     into the ring at those positions modulo its width (wrapping like
     decode writes do), and causal masking keeps intra-chunk attention
     exact.  Requires C <= ring width.  The cache is updated in place.
-    """
+
+    ``pages`` (B, T) switches to the paged KV plane: ``cache`` is then an
+    :func:`init_paged_attn_cache` pool, ``cur_pos`` (B,) per-row start
+    positions and ``active`` (B,) bool the rows that may write.  A caller
+    that runs many layers passes the prepared ``step`` instead (it holds
+    all three, built on the host once)."""
+    if step is None and pages is not None:
+        host = lambda t: None if t is None else np.asarray(
+            t.cpu() if isinstance(t, torch.Tensor) else t)
+        pos = np.broadcast_to(host(cur_pos), (x_t.shape[0],))
+        step = paged_step(pos, host(pages), host(active), x_t.shape[1],
+                          cache["ppos"].shape[1], x_t.device, (window,))
+    if step is not None:
+        return _attention_decode_paged(p, cfg, x_t, cache, step,
+                                       window=window)
     B, C = x_t.shape[0], x_t.shape[1]
     W = cache["k"].shape[1]
     assert C <= W, f"chunk of {C} tokens exceeds KV width {W}"
@@ -159,6 +184,124 @@ def attention_decode(p, cfg, x_t, cache, cur_pos: int, *, window=None):
     cache["pos"][:, slots] = posq
     o = attention_core(q, cache["k"], cache["v"], posq, cache["pos"],
                        causal=True, window=window)
+    return _out_proj(p, cfg, o), cache
+
+
+# ----------------------------------------------------------------------
+# Paged KV (the reference's DESIGN.md §9)
+def init_paged_attn_cache(cfg, n_pages, page_size, device):
+    """One layer's page pool, shared by every slot: ``kp/vp`` (P, ps,
+    Hkv, hd) and ``ppos`` (P, ps), the absolute position of each written
+    entry (-1 = never written or scrubbed).  Which pages a row owns lives
+    in the state's page table, not here."""
+    dt = _dt(cfg)
+    shape = (n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    return {"kp": torch.zeros(shape, dtype=dt, device=device),
+            "vp": torch.zeros(shape, dtype=dt, device=device),
+            "ppos": torch.full((n_pages, page_size), -1, dtype=torch.int32,
+                               device=device)}
+
+
+class HostStaging:
+    """A reusable pinned int32 buffer for one host->device copy at a time:
+    :meth:`upload` waits until the previous copy has read the buffer,
+    fills it and starts the next copy without blocking."""
+
+    def __init__(self):
+        self.buf: Optional[torch.Tensor] = None
+        self.done: Optional[torch.cuda.Event] = None
+
+    def upload(self, arr: np.ndarray, device: torch.device) -> torch.Tensor:
+        arr = np.ascontiguousarray(arr, np.int32)
+        if device.type != "cuda":
+            return torch.from_numpy(arr)
+        if self.done is not None:
+            self.done.synchronize()
+        if self.buf is None or self.buf.numel() < arr.size:
+            self.buf = torch.empty((max(arr.size, 1024),), dtype=torch.int32,
+                                   pin_memory=True)
+        self.buf[: arr.size].numpy()[:] = arr
+        out = self.buf[: arr.size].to(device, non_blocking=True)
+        self.done = torch.cuda.Event()
+        self.done.record()
+        return out
+
+
+class PagedStep(NamedTuple):
+    """What every paged attention layer of one decode step or prompt
+    chunk needs, built once on the host from the host-authoritative
+    positions and page tables (:func:`paged_step`) and uploaded in one
+    copy: the query positions, the page table, the (row, position) pairs
+    whose K/V land (unallocated table slots and inactive rows write
+    nowhere) and, on the card, one ragged work list per attention window."""
+
+    posq: torch.Tensor      # (B, C) int32 absolute query positions
+    pages: torch.Tensor     # (B, T) int32 page table
+    w_src: torch.Tensor     # (n,) long: b * C + c of each write that lands
+    w_page: torch.Tensor    # (n,) long
+    w_off: torch.Tensor     # (n,) long
+    rows: torch.Tensor      # (r,) long: the active rows
+    worklists: Dict[Optional[int], RA.DeviceWorklist]
+
+
+def paged_step(pos, pages, active, C: int, page_size: int, device,
+               windows: Sequence[Optional[int]] = (None,),
+               staging: Optional[HostStaging] = None) -> PagedStep:
+    """Build a :class:`PagedStep`.  pos (B,): each row's first query
+    position; pages (B, T) int; active (B,) bool or None (all rows).  The
+    work lists (card only; the plain path gathers the table instead)
+    list, for each active row, the pages of positions ``< pos + C``."""
+    pos = np.asarray(pos, np.int64).reshape(-1)
+    pages = np.asarray(pages, np.int32)
+    B, T = pages.shape
+    act = np.ones(B, bool) if active is None else np.asarray(active, bool)
+    posq = pos[:, None] + np.arange(C)
+    ords, off = posq // page_size, posq % page_size
+    pid = np.take_along_axis(pages, np.clip(ords, 0, T - 1), axis=1)
+    ok = (pid >= 0) & (ords < T) & act[:, None]
+    parts = [posq.ravel(), pages.ravel(), np.flatnonzero(ok), pid[ok],
+             off[ok], np.flatnonzero(act)]
+    n_seg = {}
+    if device.type == "cuda":
+        n_live = np.where(act, pos + C, 0)
+        for w in windows:
+            wl = RA.build_page_worklist(pages, n_live, pos, pos + C - 1,
+                                        page_size, window=w)
+            packed, n_seg[w] = RA.pack_worklist(*wl, B)
+            parts.append(packed)
+    sizes = [len(a) for a in parts]
+    flat = (staging or HostStaging()).upload(
+        np.concatenate([np.asarray(a, np.int32) for a in parts]), device)
+    cut = np.cumsum([0] + sizes)
+    seg = [flat[a:b] for a, b in zip(cut[:-1], cut[1:])]
+    return PagedStep(
+        posq=seg[0].view(B, C), pages=seg[1].view(B, T),
+        w_src=seg[2].long(), w_page=seg[3].long(), w_off=seg[4].long(),
+        rows=seg[5].long(),
+        worklists={w: RA.DeviceWorklist(t, n_seg[w])
+                   for w, t in zip(n_seg, seg[6:])})
+
+
+def _attention_decode_paged(p, cfg, x_t, cache, step: PagedStep, *,
+                            window=None):
+    """Decode / chunk step against the paged KV plane: the C tokens of
+    row b sit at ``step.posq[b]``; their K/V go to the pages the table
+    maps those positions to, where the step says a write lands (an index
+    put of the selected pairs only: nothing is ever written out of
+    range), and attention reads the pool through the ragged binding.
+    The pool is updated in place."""
+    B, C = x_t.shape[0], x_t.shape[1]
+    q = _project_q(p, cfg, x_t)
+    k_new, v_new = _project_kv(p, cfg, x_t)
+    q = apply_rope(q, step.posq, cfg)
+    k_new = apply_rope(k_new, step.posq, cfg)
+    dst = (step.w_page, step.w_off)
+    cache["kp"][dst] = k_new.reshape((B * C,) + k_new.shape[2:])[step.w_src]
+    cache["vp"][dst] = v_new.reshape((B * C,) + v_new.shape[2:])[step.w_src]
+    cache["ppos"][dst] = step.posq.reshape(-1)[step.w_src]
+    o = ops.ragged_attention(q, cache["kp"], cache["vp"], cache["ppos"],
+                             step.pages, step.posq, window=window,
+                             worklist=step.worklists.get(window))
     return _out_proj(p, cfg, o), cache
 
 

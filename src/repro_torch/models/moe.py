@@ -3,9 +3,11 @@ reference's ``models/moe.py``, the paths offloaded generation runs).
 
 * :func:`moe_apply_gather`: per-token gather over a dense expert stack,
   kept as a test oracle only.
-* :func:`moe_apply_packed`: decode.  The routed experts are served from
-  the layer's device pool (``core/expert_pool.acquire``) and the kernel
-  reads the pool in place, by slot (``ops.dequant_matmul_slots``).
+* :func:`moe_apply_packed`: decode of T rows (the busy ones of a
+  continuous batch).  The routed experts are served from the layer's
+  device pool and its overflow records (``core/expert_pool.acquire``)
+  and the kernel reads them in place, by slot
+  (``ops.dequant_matmul_slots``).
 * :func:`moe_apply_packed_stream`: prefill.  Each distinct routed expert
   of the layer is copied once into a reusable device tier, the rows are
   grouped by expert, and the kernel runs over that tier as a batch
@@ -20,7 +22,7 @@ gets the same bits whether it is served by slot or in a group.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -136,17 +138,24 @@ def moe_apply_packed_stream(p, cfg, x2d, store: EP.Tier, l: int,
 
 def moe_apply_packed(p, cfg, x2d, store: EP.Tier, pstate: EP.PoolState,
                      l: int, routers=None, *, lookahead: int = 1,
-                     n_spec: int = 0):
-    """Offloaded-decode MoE of MoE layer ``l``.
+                     n_spec: int = 0, active: Optional[np.ndarray] = None,
+                     rows_dev: Optional[torch.Tensor] = None):
+    """Offloaded-decode MoE of MoE layer ``l`` over T token rows.
 
-    Routes, and (batch-1 decode with ``n_spec > 0`` and ``routers``)
+    Routes, and (a single row with ``n_spec > 0`` and ``routers``)
     predicts the lookahead layer's experts from the same hidden state;
     both id sets reach the host in ONE read, the layer's only
     synchronisation.  ``acquire`` then performs the pool swaps, the
     lookahead layer's staging is issued on the side copy stream (so it
     overlaps this layer's expert compute), and the kernel reads the pool
-    in place.  Returns ``(y2d, route_info, pstate)``; ``route_info["ids"]``
-    is the host copy of the routed ids.
+    and its overflow records in place.
+
+    ``active`` (T,) bool marks the rows whose output is used (the busy
+    slots of a continuous batch); the others bypass the pool and get a
+    zero output: no copy, no kernel row.  ``rows_dev`` is the device copy
+    of their indices when the caller has uploaded it already.  Returns
+    ``(y2d, route_info, pstate)``; ``route_info["ids"]`` is the host copy
+    of every row's routed ids.
     """
     w, ids, probs = route_topk(p, cfg.moe, x2d)
     T, K = ids.shape
@@ -159,8 +168,18 @@ def moe_apply_packed(p, cfg, x2d, store: EP.Tier, pstate: EP.PoolState,
         read = torch.cat([read, pred])
     host = EP.read_host(pstate, read)
     ids_h = host[: T * K].reshape(T, K)
-    slots = EP.acquire(store, pstate, l, ids_h)
+    slots = EP.acquire(store, pstate, l, ids_h, active)
     if speculate:
         EP.stage(store, pstate, tgt, host[T * K:])
-    y = _packed_compute(cfg, x2d, pstate.pool.layer(l), slots, w)
+    mats = pstate.pool.served(l)
+    if active is None or active.all():
+        y = _packed_compute(cfg, x2d, mats, slots, w)
+    else:
+        y = torch.zeros_like(x2d)
+        if active.any():
+            if rows_dev is None:
+                rows_dev = torch.as_tensor(np.flatnonzero(active),
+                                           device=x2d.device)
+            y[rows_dev] = _packed_compute(cfg, x2d[rows_dev], mats, slots,
+                                          w[rows_dev])
     return y, {"ids": ids_h, "weights": w, "probs": probs}, pstate

@@ -6,12 +6,15 @@ Port of the reference's ``models/transformer.py`` for the ``swa+moe`` and
 parameters over periods for ``lax.scan``; the port keeps one dict per
 layer, ``params["layers"][l]``, and loops in Python (``bridge`` un-stacks
 the reference's layout).  The decode state is one dense KV ring per layer
-plus the shared position, updated in place.
+plus the shared position, or, paged, one page pool per layer plus a page
+table and per-row positions kept on the host (numpy); pools and rings
+are updated in place.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -60,16 +63,18 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None) -> Dict[str, Any
 
 # ----------------------------------------------------------------------
 def decode_block_packed_mixer(p, cfg: ModelConfig, kind: str, x_t, state,
-                              pos: int):
+                              pos, pages=None, active=None, step=None):
     """Mixer half of a packed MoE block's step: norm1 + attention +
     residual, plus the pre-MoE norm.  x_t: (B, C, D); the KV ring in
-    ``state["kv"]`` is written at ``pos .. pos+C-1``.  Returns (x_t,
-    state, h2 (B, C, D))."""
-    mixer, _ = parse_block(kind)
+    ``state["kv"]`` is written at ``pos .. pos+C-1``, or with ``pages``
+    (or the prepared paged ``step``, ``layers.paged_step``) the page pool
+    at each row's own positions, active rows only.  Returns (x_t, state,
+    h2 (B, C, D))."""
     h = L.apply_norm(p["norm1"], cfg, x_t)
-    window = cfg.sliding_window if mixer == "swa" else None
+    window = attention_window(cfg, kind)
     y, kv = L.attention_decode(p["attn"], cfg, h, state["kv"], pos,
-                               window=window)
+                               window=window, pages=pages, active=active,
+                               step=step)
     state = dict(state, kv=kv)
     x_t = x_t + y
     return x_t, state, L.apply_norm(p["norm2"], cfg, x_t)
@@ -77,15 +82,15 @@ def decode_block_packed_mixer(p, cfg: ModelConfig, kind: str, x_t, state,
 
 def decode_block_packed_moe(p, cfg: ModelConfig, x_t, h2, store, pstate,
                             l_moe: int, routers=None, *, lookahead: int = 1,
-                            n_spec: int = 0):
+                            n_spec: int = 0, active=None, rows_dev=None):
     """MoE half of a packed block's decode step: route + acquire (+ the
-    lookahead layer's staging) + packed compute + residual.  Returns
-    (x_t, pstate, info)."""
+    lookahead layer's staging) + packed compute + residual, over the
+    active rows (C = 1).  Returns (x_t, pstate, info)."""
     B, S, D = h2.shape
     h2d = h2.reshape(B * S, D)
     y2d, route, pstate = M.moe_apply_packed(
         p["moe"], cfg, h2d, store, pstate, l_moe, routers,
-        lookahead=lookahead, n_spec=n_spec)
+        lookahead=lookahead, n_spec=n_spec, active=active, rows_dev=rows_dev)
     return (x_t + y2d.reshape(B, S, D), pstate,
             {"route": route, "hidden_pre_moe": h2d})
 
@@ -100,16 +105,34 @@ def prefill_block_packed_moe(p, cfg: ModelConfig, x_t, h2, store, l_moe: int,
 
 
 # ----------------------------------------------------------------------
+def attention_window(cfg: ModelConfig, kind: str):
+    """The sliding window of a block kind's attention (None: global)."""
+    return cfg.sliding_window if parse_block(kind)[0] == "swa" else None
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
-                      device) -> Dict[str, Any]:
+                      device, *, kv_pages: int = None, kv_page: int = None,
+                      kv_max_pages: int = None) -> Dict[str, Any]:
     """One dense KV ring per layer (SWA layers ring at the window) and the
-    shared start position of the next chunk."""
+    shared start position of the next chunk.
+
+    ``kv_pages``/``kv_page``/``kv_max_pages`` switch to block-paged KV:
+    every layer holds a batch-free pool of ``kv_pages`` pages of
+    ``kv_page`` positions, and the state grows a page table ``pages``
+    ((batch, kv_max_pages), -1 = unallocated) shared by all layers and
+    per-row positions ``pos`` (batch,), both numpy on the host, where the
+    serving layer keeps them authoritative."""
     check_supported(cfg)
     dev = resolve_device(device)
-    rings = []
-    for kind in cfg.layer_kinds():
-        window = cfg.sliding_window if parse_block(kind)[0] == "swa" else None
-        rings.append({"kv": L.init_attn_cache(cfg, batch, max_len, dev, window)})
+    if kv_page is not None:
+        return {"layers": [{"kv": L.init_paged_attn_cache(cfg, kv_pages,
+                                                          kv_page, dev)}
+                           for _ in cfg.layer_kinds()],
+                "pos": np.zeros((batch,), np.int32),
+                "pages": np.full((batch, kv_max_pages), -1, np.int32)}
+    rings = [{"kv": L.init_attn_cache(cfg, batch, max_len, dev,
+                                      attention_window(cfg, kind))}
+             for kind in cfg.layer_kinds()]
     return {"layers": rings, "pos": 0}
 
 

@@ -13,20 +13,29 @@ Prefill is chunked prefill (one chunk by default): the same mixer, and
 MoE store-direct through a reusable device tier, with no pool traffic and
 no counter.
 
-Only this plane, batch-1 rows and greedy decoding are ported; the plain
-and ``packed_vectorized`` planes, T > 1 decode rows and paged KV are
-ROADMAP queue-1 items.
+Decode takes B >= 1 rows of one token each: a dense KV ring in
+lock-step, or block-paged KV (``state["pages"]``) at per-row positions
+with an ``active`` row mask, the continuous engine's batch.  A paged
+step's positions, page table, write indices and ragged work lists are
+built once on the host and uploaded in one copy
+(``layers.paged_step``); :meth:`prefill_chunk_row` writes one slot's
+prompt chunk into its pages.
+
+Only this plane is ported; the plain and ``packed_vectorized`` planes
+and C > 1 verify chunks are ROADMAP queue-1 items.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, OffloadSpec, parse_block
 from repro_torch.core import expert_pool as EP
 from repro_torch.core.trace import stacked_routers
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 
@@ -50,28 +59,47 @@ class Executor:
             if parse_block(k)[1] == "moe":
                 self.moe_ordinal[l] = len(self.moe_ordinal)
         self.prefill_tier = EP.PrefillTier.for_store(store, self.device)
+        # one ragged work list per distinct attention window
+        self.windows = tuple(dict.fromkeys(T.attention_window(cfg, k)
+                                           for k in self.kinds))
+        self.staging = L.HostStaging()
 
     # ------------------------------------------------------------------
     def init_state(self, batch: int, max_len: int):
         return T.init_decode_state(self.cfg, batch, max_len, self.device)
 
-    def init_pool_state(self) -> EP.PoolState:
+    def init_pool_state(self, max_rows: int = 1) -> EP.PoolState:
+        """Pool state for decode batches of up to ``max_rows`` rows."""
         return EP.init_pool_state(self.store, self.spec, self.device,
-                                  max_rows=self.cfg.moe.top_k)
+                                  max_rows=max_rows * self.cfg.moe.top_k)
+
+    def _paged_step(self, state, active, C: int, rows=slice(None)):
+        """The step's :class:`~repro_torch.models.layers.PagedStep` over
+        the state's table rows ``rows``, from its host positions."""
+        return L.paged_step(state["pos"][rows], state["pages"][rows], active,
+                            C, state["layers"][0]["kv"]["ppos"].shape[1],
+                            self.device, self.windows, self.staging)
 
     # ------------------------------------------------------------------
-    def decode(self, state, tokens, pstate):
-        """One decode step of a batch-1 row: tokens (1, 1) int on the
-        device.  The KV rings, ``state["pos"]`` and ``pstate`` are updated
-        in place.  Returns ``(logits (1, 1, V), state, pstate, route_ids)``
-        with the routed ids of every MoE layer as host arrays."""
+    def decode(self, state, tokens, pstate, active=None):
+        """One decode step of B rows: tokens (B, 1) int on the device.
+        ``state`` is a dense ring state (the rows in lock-step) or a paged
+        one (``"pages"``), where ``active`` (B,) numpy bool marks the rows
+        that write KV, go through the expert pool and advance ``pos``;
+        the others compute nothing that is kept.  Speculative staging
+        runs only for a single row.  KV and ``pstate`` are updated in
+        place.  Returns ``(logits (B, 1, V), state, pstate, route_ids)``
+        with every row's routed ids of every MoE layer as host arrays."""
         B, C = tokens.shape
-        if B * C != 1:
+        if C != 1:
             raise NotImplementedError(
-                "the port decodes batch-1 rows only; T > 1 decode rows "
-                "(verify chunks, continuous batching) are ROADMAP queue 1 "
-                "items 8 and 9")
+                "C > 1 decode rows (speculative verify chunks) are ROADMAP "
+                "queue 1 item 9")
         cfg, spec = self.cfg, self.spec
+        paged = "pages" in state
+        step = self._paged_step(state, active, C) if paged else None
+        rows_dev = step.rows if paged else None
+        n_spec = spec.num_speculative if B * C == 1 else 0
         x = T.embed_tokens(self.params, cfg, tokens)
         pos = state["pos"]
         route_ids = []
@@ -79,16 +107,20 @@ class Executor:
             p = T.layer_params(self.params, cfg, l)
             st_l = state["layers"][l]
             x, st_l, h2 = T.decode_block_packed_mixer(p, cfg, kind, x, st_l,
-                                                      pos)
+                                                      pos, step=step)
             x, pstate, info = T.decode_block_packed_moe(
                 p, cfg, x, h2, self.store, pstate, self.moe_ordinal[l],
-                self.routers, lookahead=spec.lookahead,
-                n_spec=spec.num_speculative)
+                self.routers, lookahead=spec.lookahead, n_spec=n_spec,
+                active=active, rows_dev=rows_dev)
             route_ids.append(info["route"]["ids"])
             state["layers"][l] = st_l
         logits = T.apply_head(self.params, cfg, x)
-        state["pos"] = pos + C
-        return logits, state, pstate, route_ids
+        if paged:
+            adv = C if active is None else np.where(active, C, 0)
+            pos = (pos + adv).astype(np.int32)
+        else:
+            pos = pos + C
+        return logits, dict(state, pos=pos), pstate, route_ids
 
     # ------------------------------------------------------------------
     def prefill_chunk(self, state, tokens):
@@ -109,6 +141,32 @@ class Executor:
         logits = T.apply_head(self.params, cfg, x)
         state["pos"] = pos + int(tokens.shape[1])
         return logits, state
+
+    def prefill_chunk_row(self, state, tokens, slot: int):
+        """One slot's prompt chunk against the shared page pools: tokens
+        (1, C) write KV straight into the pages ``slot`` owns at its
+        position, MoE runs store-direct through the prefill tier, and
+        only that row's ``pos`` advances.  Returns ``(logits (1, C, V),
+        state)``; there is no install step, the running batch reads the
+        pools the chunk wrote."""
+        if "pages" not in state:
+            raise ValueError("prefill_chunk_row needs a paged-KV state")
+        cfg = self.cfg
+        C = int(tokens.shape[1])
+        step = self._paged_step(state, None, C, slice(slot, slot + 1))
+        x = T.embed_tokens(self.params, cfg, tokens)
+        for l, kind in enumerate(self.kinds):
+            p = T.layer_params(self.params, cfg, l)
+            x, st_l, h2 = T.decode_block_packed_mixer(
+                p, cfg, kind, x, state["layers"][l], None, step=step)
+            x, _ = T.prefill_block_packed_moe(p, cfg, x, h2, self.store,
+                                              self.moe_ordinal[l],
+                                              self.prefill_tier)
+            state["layers"][l] = st_l
+        logits = T.apply_head(self.params, cfg, x)
+        pos = state["pos"].copy()
+        pos[slot] += C
+        return logits, dict(state, pos=pos)
 
     def prefill(self, tokens, max_len: int, *, chunk: Optional[int] = None):
         """Whole-prompt prefill = chunked prefill over a fresh state.

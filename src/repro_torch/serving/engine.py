@@ -1,0 +1,343 @@
+"""Continuous batching over the offloaded expert pool on paged KV (port
+of the reference's ``serving/engine.py`` ``ContinuousEngine``, in the
+scope of its offloaded, block-paged mode).
+
+Requests join and leave a *running* batch.  A :class:`PagedKVManager`
+holds ``max_slots`` sequences at independent positions in per-layer page
+pools; admission prefill writes each prompt chunk straight into the
+slot's pages (``Executor.prefill_chunk_row``, MoE store-direct through
+the prefill tier), one whole prompt per step by default or budgeted
+chunks with ``prefill_chunk`` (``runtime.TokenBudgetPolicy``); every step
+then decodes one token for every running row in one batched
+``Executor.decode`` whose experts come from the offload engine's device
+pool, shared by the whole batch.  Which waiting request joins next is the
+scheduler policy's call (FCFS or expert overlap).
+
+Each step's positions, page table and ragged work list are built on the
+host from the manager's tables, so nothing is read back from the device
+but the routed ids (one read per MoE layer) and the sampled tokens.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.offload_engine import ExpertUsageTracker
+from repro_torch.runtime.plan import (Admission, ChunkTask, StepPlan,
+                                      TokenBudgetPolicy)
+from repro_torch.serving.kv_manager import StateManager
+from repro_torch.serving.sampler import SamplerConfig, sample
+from repro_torch.serving.scheduler import (GenRequest, Scheduler,
+                                           admission_cost)
+
+EOS = 258  # the reference's byte tokenizer: PAD, BOS, EOS = 256, 257, 258
+
+
+def _not_ported(what: str, item: int):
+    return NotImplementedError(
+        f"ContinuousEngine: {what} is not ported yet (ROADMAP queue 1, "
+        f"item {item})")
+
+
+class ContinuousEngine:
+    """Continuous-batching decode loop over paged KV and the offloaded
+    expert pool (module docstring).
+
+    ``offload``: the port's packed ``OffloadEngine``; its executor, store,
+    device and executable weights are used (``params`` is ignored, as in
+    the reference's offloaded mode).  ``kv_page``: page size (required:
+    only the paged plane is ported); ``kv_pages_total`` defaults to full
+    provisioning, ``max_slots * ceil(slot_len / kv_page)``.
+    ``ragged_bucket=False`` pins the plain path's table to full width.
+    ``prefill_chunk``/``token_budget``: budgeted chunked admission."""
+
+    def __init__(self, params, cfg: ModelConfig, *, max_slots: int = 4,
+                 slot_len: int = 256, sampler: Optional[SamplerConfig] = None,
+                 policy=None, eos_id: Optional[int] = EOS,
+                 prefill_chunk: Optional[int] = None,
+                 token_budget: Optional[int] = None,
+                 seed: int = 0, offload=None,
+                 kv_page: Optional[int] = None,
+                 kv_pages_total: Optional[int] = None,
+                 ragged_bucket: bool = True,
+                 prefix_cache_pages: int = 0,
+                 preemption: bool = False,
+                 kv_host_pages: int = 0,
+                 telemetry=None,
+                 draft_params=None, draft_cfg=None,
+                 num_draft_tokens: int = 0,
+                 faults=None,
+                 queue_cap: Optional[int] = None):
+        if offload is None:
+            raise _not_ported("the plain (non-offloaded) plane", 6)
+        if kv_page is None:
+            raise _not_ported("dense slot KV (kv_page=None)", 8)
+        if prefix_cache_pages or preemption or kv_host_pages:
+            raise _not_ported("prefix caching, preemption and host swap", 10)
+        if num_draft_tokens or draft_params is not None or draft_cfg is not None:
+            raise _not_ported("draft-and-verify decoding", 9)
+        if faults is not None:
+            raise _not_ported("fault injection", 10)
+        if telemetry is not None:
+            raise _not_ported("telemetry", 12)
+        if offload.cfg != cfg:
+            raise ValueError("offload engine config mismatch")
+        self.offload = offload
+        self.cfg = cfg
+        self.device = offload.device
+        self._exec = offload._exec
+        self._pstate = self._exec.init_pool_state(max_rows=max_slots)
+        self.params = offload.params
+        self.sampler = sampler or SamplerConfig(kind="greedy")
+        self._greedy = self.sampler.kind == "greedy"
+        self.max_slots = max_slots
+        self.eos_id = eos_id
+        self.kv = StateManager.create(
+            cfg, max_slots, slot_len, kv_page=kv_page,
+            kv_pages_total=kv_pages_total, bucket=ragged_bucket,
+            device=self.device)
+        self.slot_len = self.kv.slot_len  # per-request cap, page-rounded
+        self.sched = Scheduler(max_slots, policy, queue_cap=queue_cap)
+        self.prefill_chunk = prefill_chunk
+        self.budget: Optional[TokenBudgetPolicy] = None
+        if prefill_chunk is not None:
+            if prefill_chunk < 1:
+                raise ValueError("prefill_chunk must be >= 1")
+            if prefill_chunk > self.slot_len:
+                raise ValueError(f"prefill_chunk={prefill_chunk} exceeds "
+                                 f"slot_len={self.slot_len}")
+            self.budget = TokenBudgetPolicy(
+                chunk_size=prefill_chunk,
+                token_budget=token_budget or (max_slots + prefill_chunk),
+                max_rows=max_slots)
+        elif token_budget is not None:
+            raise ValueError("token_budget needs prefill_chunk (the budget "
+                             "schedules prompt chunks)")
+        self._admissions: List[Admission] = []
+        # the packed path reads every step's routing anyway
+        self.usage = ExpertUsageTracker.for_config(cfg)
+        self.tokens = np.zeros((max_slots, 1), np.int32)
+        self.step_count = 0
+        self._gen = torch.Generator(self.device)
+        self._gen.manual_seed(seed)
+
+    # ------------------------------------------------------------------
+    def submit(self, prompt, max_new_tokens: int = 32, on_token=None,
+               on_finish=None, temperature: Optional[float] = None
+               ) -> GenRequest:
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        assert prompt.size > 0, "empty prompt"
+        if temperature is not None and self._greedy:
+            raise ValueError(
+                "per-request temperature needs a stochastic sampler; this "
+                "engine decodes greedily")
+        if prompt.size + max_new_tokens > self.slot_len:
+            raise ValueError(
+                f"request needs {prompt.size + max_new_tokens} KV "
+                f"positions > slot_len={self.slot_len}")
+        req = GenRequest(prompt=prompt, max_new_tokens=max_new_tokens,
+                         arrival=self.step_count, on_token=on_token,
+                         on_finish=on_finish, temperature=temperature)
+        if not self.sched.submit(req):
+            req.finish("rejected")  # bounded queue full: backpressure
+        return req
+
+    # ------------------------------------------------------------------
+    def _sample_rows(self, logits, reqs: List[GenRequest]) -> np.ndarray:
+        """logits (B, V) for exactly ``reqs`` rows -> (B,) int32."""
+        if self._greedy:
+            return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        temps = None
+        if any(r.temperature is not None for r in reqs):
+            temps = [self.sampler.temperature if r.temperature is None
+                     else r.temperature for r in reqs]
+        return sample(self._gen, logits, self.sampler,
+                      temperature=temps).cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # admission
+    def _start_admissions(self) -> None:
+        """Move policy-selected waiting requests into free slots while the
+        page pool can reserve the pick's worst case (prompt + max_new);
+        else admission stalls until releases free pages (head of line on
+        memory: no preemption).  Prompts prefill as chunks."""
+        while self.kv.n_free and self.sched.has_waiting:
+            idx, cand = self.sched.peek_next(self.usage)
+            need = admission_cost(self.cfg, len(cand.prompt),
+                                  cand.max_new_tokens).kv_positions
+            if not self.kv.can_admit(need):
+                break
+            req = self.sched.pop_at(idx)
+            req.slot = self.kv.allocate(req.rid, need)
+            self._admissions.append(Admission(
+                rid=req.rid, slot=req.slot, total=len(req.prompt), req=req))
+
+    def _grow_running_rows(self, rows: List[int]) -> None:
+        """Cover every decoding row's next position with a page before the
+        step: the admission reservation guarantees it fits."""
+        for r in rows:
+            self.kv.ensure(r, self.kv.length(r) + 1)
+
+    def _run_chunks(self, chunks: List[ChunkTask]) -> List[GenRequest]:
+        """Run this step's prefill chunks into their slots' pages; an
+        admission whose final chunk ran samples its first token and joins
+        the decode rows (this step unchunked, next step under a budget)."""
+        finished = []
+        by_rid = {a.rid: a for a in self._admissions}
+        for task in chunks:
+            adm = by_rid[task.rid]
+            req: GenRequest = adm.req
+            tokens = torch.as_tensor(req.prompt[None, task.lo: task.hi],
+                                     device=self.device)
+            self.kv.ensure(adm.slot, task.hi)
+            logits, new_state = self._exec.prefill_chunk_row(
+                self.kv.view(), tokens, adm.slot)
+            self.kv.adopt(new_state)
+            self.kv.note_tokens(adm.slot, task.hi)
+            adm.next_lo = task.hi
+            if not task.last:
+                continue
+            self._admissions.remove(adm)
+            first = int(self._sample_rows(logits[:, -1], [req])[0])
+            req.emit(first)
+            if self._done(req, first):
+                self.kv.release(adm.slot)
+                self.sched.evict(req, self._reason(first))
+                finished.append(req)
+                continue
+            self.tokens[adm.slot, 0] = first
+        return finished
+
+    def _plan(self) -> StepPlan:
+        """This step's mixed batch: every decodable row + prompt chunks
+        under the token budget (unchunked: whole prompts this step)."""
+        self._start_admissions()
+        decode_rows = self._decode_rows()
+        if self.budget is not None:
+            return self.budget.plan(decode_rows, self._admissions)
+        plan = StepPlan(decode_rows=decode_rows)
+        for adm in self._admissions:
+            plan.chunks.append(ChunkTask(rid=adm.rid, slot=adm.slot,
+                                         lo=adm.next_lo, hi=adm.total,
+                                         last=True))
+        return plan
+
+    def _decode_rows(self) -> List[int]:
+        admitting = {a.rid for a in self._admissions}
+        return sorted(r.slot for r in self.sched.running
+                      if r.rid not in admitting)
+
+    def _done(self, req: GenRequest, tok: int) -> bool:
+        return (len(req.generated) >= req.max_new_tokens
+                or (self.eos_id is not None and tok == self.eos_id))
+
+    def _reason(self, tok: int) -> str:
+        return ("eos" if self.eos_id is not None and tok == self.eos_id
+                else "length")
+
+    # ------------------------------------------------------------------
+    def cancel(self, rid: int) -> bool:
+        """Client abandonment: terminal status ``cancelled``, wherever the
+        request is (waiting, mid-admission or running); its slot and pages
+        are released.  False when the rid is unknown or already ended."""
+        for req in self.sched.waiting:
+            if req.rid == rid:
+                self.sched.drop(req, "cancelled")
+                return True
+        self._admissions = [a for a in self._admissions if a.rid != rid]
+        for req in self.sched.running:
+            if req.rid == rid:
+                self.kv.release(req.slot)
+                self.sched.evict(req, "cancelled")
+                return True
+        return False
+
+    # ------------------------------------------------------------------
+    def step(self) -> List[GenRequest]:
+        """One engine step: the plan's prefill chunks, then one batched
+        decode over the planned rows.  Returns the requests finished this
+        step."""
+        plan = self._plan()
+        finished = self._run_chunks(plan.chunks)
+        # unchunked admission: a request admitted this step decodes this
+        # step; budgeted steps decode exactly the planned rows
+        rows = (self._decode_rows() if self.budget is None
+                else plan.decode_rows)
+        if not rows:
+            if plan.chunks:
+                self.step_count += 1
+            self.sched.check_invariants()
+            return finished
+        reqs = sorted((r for r in self.sched.running if r.slot in set(rows)),
+                      key=lambda r: r.slot)
+        active = np.zeros((self.max_slots,), bool)
+        active[rows] = True
+        self._grow_running_rows(rows)
+        logits, state, self._pstate, route_ids = self._exec.decode(
+            self.kv.view(self.kv.live_width(rows)),
+            torch.as_tensor(self.tokens, device=self.device), self._pstate,
+            active)
+        self.usage.update(route_ids, rows=rows)
+        self.kv.adopt(state)
+        for r in rows:
+            self.kv.note_tokens(r, self.kv.length(r) + 1)
+        if self._greedy:
+            nxt = self._sample_rows(logits[:, -1], reqs)  # every slot's row
+        else:
+            nxt = np.zeros((self.max_slots,), np.int32)
+            nxt[rows] = self._sample_rows(logits[rows, -1], reqs)
+        for req in reqs:
+            t = int(nxt[req.slot])
+            req.emit(t)
+            if self._done(req, t):
+                self.kv.release(req.slot)
+                self.sched.evict(req, self._reason(t))
+                finished.append(req)
+            else:
+                self.tokens[req.slot, 0] = t
+        self.step_count += 1
+        self.sched.check_invariants()
+        return finished
+
+    def run(self, max_steps: Optional[int] = None) -> List[GenRequest]:
+        """Drive until every submitted request finishes; returns them in
+        completion order."""
+        steps = 0
+        while self.sched.has_waiting or self.sched.n_running:
+            self.step()
+            steps += 1
+            if max_steps is not None and steps >= max_steps:
+                break
+        return self.sched.finished
+
+    # ------------------------------------------------------------------
+    def _engine_metrics(self) -> Dict[str, float]:
+        toks = sum(len(r.generated) for r in self.sched.finished)
+        out = self.sched.metrics()
+        out.update(steps=self.step_count, tokens=toks,
+                   tokens_per_step=toks / max(1, self.step_count),
+                   decode_tokens=toks + sum(len(r.generated)
+                                            for r in self.sched.running))
+        return out
+
+    def _offload_metrics(self) -> Dict[str, float]:
+        hits, spec_hits, demand, spec = (int(c) for c in self._pstate.counts)
+        bytes_h2d = (demand + spec) * self.offload.expert_bytes
+        emitted = sum(len(r.generated)
+                      for r in self.sched.finished + self.sched.running)
+        return {"hits": hits, "spec_hits": spec_hits,
+                "demand_loads": demand, "spec_loads": spec,
+                "bytes_h2d": bytes_h2d,
+                "bytes_per_token": bytes_h2d / max(1, emitted)}
+
+    def stats(self) -> Dict[str, float]:
+        """The reference's flat ``stats()`` keys: engine counters bare,
+        ``kv_*`` and ``offload_*``."""
+        out = dict(self._engine_metrics())
+        out.update(self.kv.stats())
+        out.update({f"offload_{k}": v
+                    for k, v in self._offload_metrics().items()})
+        return out

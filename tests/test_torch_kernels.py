@@ -59,4 +59,5 @@ def test_cpu_tensors_take_plain_version_and_do_not_count():
                                 torch.tensor([1, 2, 3], dtype=torch.int32))
     assert y.dtype == torch.float32 and tuple(y.shape) == (3, 1, 96)
     assert PO.launches() == {"dequant_matmul_batched": 0,
-                             "dequant_matmul_slots": 0}
+                             "dequant_matmul_slots": 0,
+                             "ragged_attention": 0}
