@@ -7,15 +7,18 @@ last line):
 
 1. device: a CUDA device or exit 1; print the card's name and power limit;
    build every kernel from the sources in this checkout (``nvcc``).
-2. kernels: each binding of the dequant-matmul kernel against its plain
-   PyTorch version on the card at the main path's shapes (2- and 3-bit
-   codes), with its time, the plain version's time and the bound.
+2. kernels: each binding of the dequant-matmul kernel (batched, slots
+   and the 2-D one) against its plain PyTorch version on the card at the
+   main path's shapes (2- and 3-bit codes), with its time, the plain
+   version's time and the bound.
 3. parity: ``tiny-moe`` generated on the card (kernels) and on the CPU
-   (plain versions) from the same seeded weights: equal tokens, routing
-   and counters, logits within tolerance.
+   (plain versions) from the same seeded weights, on each (pipelined,
+   vectorized, fused) combination the reference's offload benchmark
+   runs: equal tokens, routing and counters, logits within tolerance.
 4. main path: ``mixtral-offload`` at full width (depth cut to 8 of 32
    layers), weights from a seeded generator, quantized on the card; a
-   64-token prompt prefilled and 32 tokens generated greedily through
+   64-token prompt prefilled (one chunk, through the flash-attention
+   kernel) and 32 tokens generated greedily through
    ``OffloadEngine.generate``, with the kernel launch counts, the h2d
    bytes actually issued against the counters, and pool coherence.
 5. prefill kernel: the batched binding timed again at the shapes the main
@@ -36,6 +39,18 @@ last line):
    slot binding against its plain version (and timed) on the inputs of
    the decode launch that read farthest into the pool's overflow
    records, and a profiler window over a few decode steps.
+9. flash kernel: the flash-attention kernel against its plain version at
+   Mixtral's attention shapes (H 32, Hkv 8, hd 128, bf16): the main
+   path's 64-token prefill chunk, a 4096-token prompt and a windowed
+   1024-row chunk at position 7168 over 8192 keys (window 4096, the
+   KV-tile skip); time, plain time, bound and, where no window applies,
+   ``scaled_dot_product_attention`` as a yardstick.
+10. planes: the paper's three offload data planes (the reference's
+   ``offload_bench`` variants ``pr2_sync``, ``vectorized``, ``pipelined``)
+   on the main phase's model, weights and store: decode tokens/s with
+   p50/p95 ms per token, prefill s, counters, h2d bytes issued and the
+   launch counts of every binding; equal tokens and counters across the
+   three, and the 2-D dequant binding launched on ``pr2_sync`` only.
 
 The line before the card's line is ``{"kernels": [...]}``; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -60,8 +75,17 @@ LOGIT_ATOL = 1e-3            # tiny-moe f32 logits, card vs CPU
 RAGGED_BF16_RTOL = 2 ** -7   # of each row's max |plain in f32|: the kernel
                              # accumulates in f32 and rounds only its bf16
                              # output, by at most 2^-8 of the value
+FLASH_BF16_RTOL = 2 ** -7    # of each (head, row)'s max |plain in f32|: the
+                             # same reason as the ragged kernel's
 MAIN_LAYERS = 8              # depth cut of mixtral-offload
 PROMPT_LEN, NEW_TOKENS = 64, 32
+PLANES = {"pr2_sync": dict(pipelined=False, vectorized=False),
+          "vectorized": dict(pipelined=False, vectorized=True),
+          "pipelined": dict(pipelined=True, vectorized=True)}
+PARITY_PLANES = [dict(pipelined=True, vectorized=True, fused=True),
+                 dict(pipelined=False, vectorized=True, fused=True),
+                 dict(pipelined=False, vectorized=False, fused=True),
+                 dict(pipelined=False, vectorized=True, fused=False)]
 SERVE_REQUESTS, SERVE_NEW, SERVE_SLOTS = 8, 24, 4
 
 
@@ -139,12 +163,15 @@ SHAPES = ((4096, 14336), (14336, 4096), (4096, 14336))  # gate, down, up
 
 def phase_kernels(dev):
     """Each binding at the main path's shapes: decode (``slots``: B = 2
-    rows, M = 1, over a pool of 4 slots) and prefill (``batched``: B = 8
-    distinct experts, M = 16 rows each); gate/up (4096 x 14336) and down
-    (14336 x 4096); x bf16; 2- and 3-bit codes.  The kernels line reports
-    the 2-bit (mixtral-offload) figures summed over one layer's three
-    matrices; the batched figures there are replaced by phase 5's, taken
-    at the main run's own prefill shapes.  Returns (figures, the 8-expert
+    rows, M = 1, over a pool of 4 slots), prefill (``batched``: B = 8
+    distinct experts, M = 16 rows each) and the unrolled plane's decode
+    (the 2-D ``dequant_matmul``: one row, M = 1, against one record of
+    a stack, read in place); gate/up (4096 x 14336) and down (14336 x
+    4096); x bf16; 2- and 3-bit codes.  The kernels line reports the
+    2-bit (mixtral-offload) figures summed over the three matrices (of a
+    layer for the 3-D bindings, of one (token, k) expert for the 2-D
+    one); the batched figures there are replaced by phase 5's, taken at
+    the main run's own prefill shapes.  Returns (figures, the 8-expert
     tiers by (bits, K, N), the L2 flush buffer)."""
     import torch
     from repro_torch.kernels import ops, ref
@@ -154,7 +181,8 @@ def phase_kernels(dev):
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
     shapes = SHAPES
     cases = {"dequant_matmul_slots": dict(B=2, M=1, S=4),
-             "dequant_matmul_batched": dict(B=8, M=16, S=8)}
+             "dequant_matmul_batched": dict(B=8, M=16, S=8),
+             "dequant_matmul": dict(B=1, M=1, S=1)}
     acc = {n: dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0, err=0.0, rel=0.0)
            for n in cases}
     tiers = {}
@@ -167,22 +195,27 @@ def phase_kernels(dev):
         for name, c in cases.items():
             for K, N in shapes:
                 qt = tiers[bits, K, N]
-                if c["S"] < 8:
+                if 1 < c["S"] < 8:
                     qt = hqq.QTensor(qt.packed[:c["S"]], qt.scale[:c["S"]],
                                      qt.zero[:c["S"]],
                                      {k: v[:c["S"]] for k, v in qt.meta.items()},
                                      bits, qt.group_size, (c["S"], K, N))
                 x = torch.randn((c["B"], c["M"], K), generator=gen,
                                 device=dev).to(torch.bfloat16)
-                if name == "dequant_matmul_slots":
+                if name == "dequant_matmul":
+                    x, qt = x[0], hqq.slice_leading(tiers[bits, K, N], 5)
+                    run = lambda: ops.dequant_matmul(x, qt)
+                    plain = lambda: ref.dequant_matmul(x, qt)
+                    n_read, stack = 1, ref.stack_one(qt)
+                elif name == "dequant_matmul_slots":
                     slots = torch.tensor([3, 1], dtype=torch.int32, device=dev)
                     run = lambda: ops.dequant_matmul_slots(x, qt, slots)
                     plain = lambda: ref.dequant_matmul_slots(x, qt, slots)
-                    n_read = 2
+                    n_read, stack = 2, qt
                 else:
                     run = lambda: ops.dequant_matmul_batched(x, qt)
                     plain = lambda: ref.dequant_matmul_batched(x, qt)
-                    n_read = c["B"]
+                    n_read, stack = c["B"], qt
                 y, yp = run(), plain()
                 torch.cuda.synchronize()
                 err = (y - yp).abs().max().item()
@@ -192,7 +225,7 @@ def phase_kernels(dev):
                          f"{err:.3g} > {KERNEL_RTOL} x {scale:.3g}")
                 ms = _event_ms(run, 20, flush)
                 pms = _event_ms(plain, 3, flush)
-                nbytes = (_stored_bytes(qt, n_read) + x.numel() * x.element_size()
+                nbytes = (_stored_bytes(stack, n_read) + x.numel() * x.element_size()
                           + y.numel() * 4)
                 flops = 2 * c["B"] * c["M"] * K * N
                 log(f"[kernel] {name} {bits}-bit B={c['B']} M={c['M']} K={K} "
@@ -217,7 +250,9 @@ def phase_kernels(dev):
                 ("dequant_matmul_slots", ops.dequant_matmul_slots(x, qt, slots),
                  ref.dequant_matmul_slots(x, qt, slots)),
                 ("dequant_matmul_batched", ops.dequant_matmul_batched(x, qt),
-                 ref.dequant_matmul_batched(x, qt))):
+                 ref.dequant_matmul_batched(x, qt)),
+                ("dequant_matmul", ops.dequant_matmul(x[3], hqq.slice_leading(qt, 6)),
+                 ref.dequant_matmul(x[3], hqq.slice_leading(qt, 6)))):
             err = (y - yp).abs().max().item()
             scale = yp.abs().max().item()
             if not err <= KERNEL_RTOL * scale:
@@ -231,7 +266,8 @@ def phase_kernels(dev):
             "ms": a["ms"], "plain_ms": a["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "max_abs_err": a["err"], "max_rel_err": a["rel"]}
-        log(f"[kernel] {name} per MoE layer (3 matrices, 2-bit): "
+        per = "(token, k) expert" if name == "dequant_matmul" else "MoE layer"
+        log(f"[kernel] {name} per {per} (3 matrices, 2-bit): "
             f"{json.dumps(out[name])}")
     return out, tiers, flush
 
@@ -309,7 +345,8 @@ def _to(tree, dev):
 
 
 def phase_parity(dev):
-    """tiny-moe on the card against the same model on the CPU."""
+    """tiny-moe on the card against the same model on the CPU, on each
+    (pipelined, vectorized, fused) combination of ``PARITY_PLANES``."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import expert_pool as EP
@@ -321,26 +358,32 @@ def phase_parity(dev):
     params = T.init_model(cfg, seed=0, device="cpu")
     exec_params, store = quantize_for_offload(params, cfg, spec, device="cpu")
     prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 12))
-    runs = {}
-    for where in ("cpu", dev):
-        eng = OffloadEngine(_to(exec_params, where), cfg, spec,
-                            store=store if where == "cpu" else _cpu_store_to(store, where),
-                            device=where)
-        steps = []
-        toks, stats = eng.generate(prompt, 16, on_step=lambda lg, r: steps.append(
-            (lg.float().cpu().numpy(), r)))
-        runs[str(where)] = (toks, stats, steps, eng)
-    (tc, sc, stc, ec), (tg, sg, stg, eg) = runs["cpu"], runs[str(dev)]
-    gap = max(float(np.abs(a[0] - b[0]).max()) for a, b in zip(stc, stg))
-    same_routes = all((x == y).all() for a, b in zip(stc[1:], stg[1:])
-                      for x, y in zip(a[1], b[1]))
-    log(f"[parity] tiny-moe card vs cpu: tokens equal {bool((tc == tg).all())}, "
-        f"routes equal {same_routes}, counters {sg} vs {sc}, max logit gap {gap:.3g}")
-    if not (tc == tg).all() or not same_routes or sc != sg or not gap <= LOGIT_ATOL:
-        fail("tiny-moe on the card differs from the CPU run")
-    if not EP.pool_coherent(eg.store, eg._last_pool_state):
-        fail("tiny-moe pool incoherent on the card")
-    return {"tokens_equal": True, "max_logit_gap": gap}
+    card_params, card_store = _to(exec_params, dev), _cpu_store_to(store, dev)
+    gaps = []
+    for flags in PARITY_PLANES:
+        runs = {}
+        for where in ("cpu", dev):
+            eng = OffloadEngine(exec_params if where == "cpu" else card_params,
+                                cfg, spec,
+                                store=store if where == "cpu" else card_store,
+                                device=where, **flags)
+            steps = []
+            toks, stats = eng.generate(prompt, 16, on_step=lambda lg, r: steps.append(
+                (lg.float().cpu().numpy(), r)))
+            runs[str(where)] = (toks, stats, steps, eng)
+        (tc, sc, stc, ec), (tg, sg, stg, eg) = runs["cpu"], runs[str(dev)]
+        gap = max(float(np.abs(a[0] - b[0]).max()) for a, b in zip(stc, stg))
+        same_routes = all((x == y).all() for a, b in zip(stc[1:], stg[1:])
+                          for x, y in zip(a[1], b[1]))
+        log(f"[parity] tiny-moe {flags} card vs cpu: tokens equal "
+            f"{bool((tc == tg).all())}, routes equal {same_routes}, counters "
+            f"{sg} vs {sc}, max logit gap {gap:.3g}")
+        if not (tc == tg).all() or not same_routes or sc != sg or not gap <= LOGIT_ATOL:
+            fail(f"tiny-moe on the card differs from the CPU run ({flags})")
+        if not EP.pool_coherent(eg.store, eg._last_pool_state):
+            fail(f"tiny-moe pool incoherent on the card ({flags})")
+        gaps.append(gap)
+    return {"tokens_equal": True, "max_logit_gap": max(gaps)}
 
 
 # ----------------------------------------------------------------------
@@ -381,8 +424,11 @@ def phase_main(dev):
     timing = eng.last_timing
     steps = timing["decode_steps"]
     L = eng.n_moe_layers
-    expect = {"dequant_matmul_batched": 3 * L, "dequant_matmul_slots": 3 * L * steps,
-              "ragged_attention": 0}  # this path attends over the dense ring
+    # one 64-token prefill chunk: every attention layer through the flash
+    # kernel; decode attends over the dense ring (attention_core)
+    expect = {"dequant_matmul": 0, "dequant_matmul_batched": 3 * L,
+              "dequant_matmul_slots": 3 * L * steps,
+              "flash_attention": cfg.n_layers, "ragged_attention": 0}
     logits = torch.stack([lg.float() for lg in last])
     report = {
         "prefill_s": timing["prefill_s"], "decode_s": timing["decode_s"],
@@ -418,10 +464,9 @@ def phase_main(dev):
         again.append({"prefill_s": eng.last_timing["prefill_s"],
                       "decode_tok_s": steps / eng.last_timing["decode_s"]})
     log(f"[main] repeats: {json.dumps(again)}")
-    _profile_decode(eng, prompt, dev)
     if len(batches) != L:
         fail(f"{len(batches)} prefill kernel batches for {L} MoE layers")
-    return launches, batches, eng, cfg
+    return launches, batches, eng, cfg, prompt
 
 
 def _h2d_rate(store, dev):
@@ -809,8 +854,8 @@ def phase_serving(dev, eng, cfg):
         wall = time.perf_counter() - t0
     launches = ops.launches()
     L = eng.n_moe_layers
-    expect = {"dequant_matmul_batched": 3 * L * calls["chunks"],
-              "dequant_matmul_slots": 3 * L * calls["decode"],
+    expect = {"dequant_matmul": 0, "dequant_matmul_batched": 3 * L * calls["chunks"],
+              "dequant_matmul_slots": 3 * L * calls["decode"], "flash_attention": 0,
               "ragged_attention": cfg.n_layers * (calls["decode"] + calls["chunks"])}
     st = ce._pstate
     hits, spec_hits, demand, spec = (int(c) for c in st.counts)
@@ -831,7 +876,8 @@ def phase_serving(dev, eng, cfg):
         "launches": launches, "launches_expected": expect,
         "peak_device_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
     log(f"[serve] {json.dumps(report)}")
-    if launches != expect or min(launches.values()) < 1:
+    served_by = ("dequant_matmul_batched", "dequant_matmul_slots", "ragged_attention")
+    if launches != expect or min(launches[k] for k in served_by) < 1:
         fail(f"serving launches {launches} != expected {expect}")
     if st.h2d_bytes != counters_bytes:
         fail(f"serving h2d bytes issued {st.h2d_bytes} != counters {counters_bytes}")
@@ -861,15 +907,181 @@ def phase_serving(dev, eng, cfg):
 
 
 # ----------------------------------------------------------------------
+FLASH_CASES = (  # (name, Sq, Skv, q_offset, window)
+    ("prefill_chunk", PROMPT_LEN, PROMPT_LEN, 0, 4096),
+    ("long_prompt", 4096, 4096, 0, None),
+    ("windowed", 1024, 8192, 7168, 4096),
+)
+
+
+def _flash_work(Sq, Skv, q_offset, window, H, Hkv, hd):
+    """(bytes, operations) the function must move and do: q and out once,
+    the K/V rows some query can see once; 2 x 2 x hd operations per valid
+    (query head, query, key)."""
+    qpos = q_offset + np.arange(Sq)
+    lo = np.zeros(Sq, np.int64) if window is None else np.maximum(0, qpos - window + 1)
+    hi = np.minimum(Skv, qpos + 1)  # causal
+    pairs = int(np.maximum(hi - lo, 0).sum())
+    keys = int(hi.max() - lo.min())
+    nbytes = 2 * H * Sq * hd * 2 + 2 * Hkv * keys * hd * 2
+    return nbytes, 4 * hd * H * pairs
+
+
+def phase_flash(dev, flush):
+    """The flash-attention kernel against its plain version at Mixtral's
+    attention shapes (H 32, Hkv 8, hd 128, bf16), called through the
+    binding the model path calls (``ops.flash_attention``) on (B, H, S,
+    hd) views of (B, S, H, hd) tensors, as the prefill chunk passes its
+    queries and KV ring.  Each (head, row) is held against the plain
+    version run in f32 on the same (upcast) inputs, within
+    ``FLASH_BF16_RTOL`` of that row's own max |plain|.  One launch timed
+    alone after an L2 flush; ``scaled_dot_product_attention``
+    (``is_causal``, no window) is timed as a yardstick on the cases a
+    window does not cut; the port never calls it.  On the main path's
+    chunk, ``attention_core`` (what the chunk ran before it took the
+    kernel) is timed too.  Returns the figures of the main path's prefill
+    chunk (the kernels line's entry)."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA, ops
+    gen = torch.Generator(dev)
+    gen.manual_seed(4)
+    H, Hkv, hd = 32, 8, 128
+    out = {}
+    for name, Sq, Skv, q_offset, window in FLASH_CASES:
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        q, k, v = (t.transpose(1, 2) for t in (rnd(1, Sq, H, hd), rnd(1, Skv, Hkv, hd),
+                                               rnd(1, Skv, Hkv, hd)))
+        kw = dict(causal=True, window=window, q_offset=q_offset)
+        run = lambda: ops.flash_attention(q, k, v, **kw)
+        plain = lambda: FA.flash_attention_reference(q, k, v, **kw)
+        before = ops.flash_attention.launches
+        y = run()
+        y32 = FA.flash_attention_reference(q.float(), k.float(), v.float(), **kw)
+        torch.cuda.synchronize()
+        if ops.flash_attention.launches != before + 1:
+            fail(f"flash_attention {name}: the binding did not count its launch")
+        if not torch.isfinite(y).all():
+            fail(f"flash_attention {name}: non-finite output")
+        err = (y.float() - y32).abs().amax(-1)
+        tol = FLASH_BF16_RTOL * y32.abs().amax(-1)
+        if not bool((err <= tol).all()):
+            worst = int((err - tol).argmax())
+            fail(f"flash_attention {name}: (head, row) {divmod(worst, Sq)} max "
+                 f"|kernel - plain f32| {err.flatten()[worst]:.3g} > "
+                 f"{tol.flatten()[worst]:.3g}")
+        nbytes, flops = _flash_work(Sq, Skv, q_offset, window, H, Hkv, hd)
+        bound_ms, bound_by = _bound(nbytes, flops)
+        r = dict(Sq=Sq, Skv=Skv, q_offset=q_offset, window=window,
+                 ms=_event_ms(run, 10, flush), plain_ms=_event_ms(plain, 3, flush),
+                 bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
+                 max_abs_err=float(err.max()),
+                 max_err_over_tolerance=float((err / tol).max()))
+        r["library_ms"] = None
+        if window is None or window >= q_offset + Sq:
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)
+            r["library_ms"] = _event_ms(sdpa, 10, flush)
+        if name == "prefill_chunk":  # what the chunk ran before: the model's plain path
+            from repro_torch.models import layers as L
+            pos = torch.arange(Skv, dtype=torch.int32, device=dev)
+            r["attention_core_ms"] = _event_ms(lambda: L.attention_core(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), pos,
+                pos[None], causal=True, window=window), 10, flush)
+        r["tflop_s"] = flops / (r["ms"] * 1e-3) / 1e12
+        log(f"[flash] {name}: {json.dumps(r)}")
+        out[name] = r
+    main = dict(out["prefill_chunk"])
+    main["max_abs_err"] = max(o["max_abs_err"] for o in out.values())
+    return main, out
+
+
+def phase_planes(dev, eng, cfg):
+    """The reference's ``offload_bench`` variants on the main phase's
+    model, weights and store (``store=``, quantized once): ``pr2_sync``
+    (``pipelined=False, vectorized=False``), ``vectorized`` and
+    ``pipelined``, each prefilling the 64-token prompt (one chunk) and
+    generating ``NEW_TOKENS`` greedily after a warm-up.  Decode tokens/s
+    over the synchronised token loop, p50/p95 ms per token from the host
+    clock at each token (each token is read back, a synchronisation),
+    prefill s, counters, h2d bytes issued and the launch counts of every
+    binding, set to 0 just before each variant's run.  Fails unless the
+    three give equal tokens and counters, h2d bytes issued equal the
+    counters, the 2-D dequant binding runs 3 x top_k per MoE layer per
+    decode step on ``pr2_sync`` only (the slot binding 3 per MoE layer
+    per step on the others) and every prefill chunk took the flash kernel
+    in each.  Returns the reports by variant."""
+    import torch
+    from repro_torch.core import expert_pool as EP
+    from repro_torch.core.offload_engine import OffloadEngine
+    from repro_torch.kernels import ops
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, PROMPT_LEN))
+    L, K = eng.n_moe_layers, cfg.moe.top_k
+    reports, ref = {}, None
+    for name, flags in PLANES.items():
+        e = OffloadEngine(eng.params, cfg, eng.spec, store=eng.store,
+                          device=dev, **flags)
+        e.generate(prompt[:, :8], 3)  # warm-up (allocator, library handles)
+        torch.cuda.synchronize(dev)
+        stamps = []
+        ops.reset_launches()
+        toks, stats = e.generate(prompt, NEW_TOKENS,
+                                 on_step=lambda lg, r: stamps.append(time.perf_counter()))
+        launches = ops.launches()
+        ps, t = e._last_pool_state, e.last_timing
+        steps = t["decode_steps"]
+        ms = np.diff(stamps) * 1e3
+        pr2 = not flags["vectorized"]
+        expect = {"dequant_matmul": 3 * K * L * steps if pr2 else 0,
+                  "dequant_matmul_batched": 3 * L,
+                  "dequant_matmul_slots": 0 if pr2 else 3 * L * steps,
+                  "flash_attention": cfg.n_layers, "ragged_attention": 0}
+        counters = {k: getattr(stats, k) for k in
+                    ("hits", "spec_hits", "demand_loads", "spec_loads")}
+        r = {"prefill_s": t["prefill_s"], "decode_s": t["decode_s"],
+             "decode_tok_s": steps / t["decode_s"],
+             "p50_ms_per_token": float(np.percentile(ms, 50)),
+             "p95_ms_per_token": float(np.percentile(ms, 95)),
+             "counters": counters, "bytes_h2d_issued": ps.h2d_bytes,
+             "bytes_h2d_counters": stats.bytes_h2d, "host_reads": ps.host_reads,
+             "launches": launches, "launches_expected": expect,
+             "tokens": toks[0].tolist()}
+        log(f"[planes] {name} {flags}: {json.dumps(r)}")
+        if launches != expect or launches["flash_attention"] < 1:
+            fail(f"planes {name}: launches {launches} != expected {expect}")
+        if ps.h2d_bytes != stats.bytes_h2d:
+            fail(f"planes {name}: h2d bytes issued {ps.h2d_bytes} != counters "
+                 f"{stats.bytes_h2d}")
+        if not EP.pool_coherent(e.store, ps):
+            fail(f"planes {name}: pool incoherent")
+        if ref is not None and (r["tokens"] != ref["tokens"]
+                                or counters != ref["counters"]):
+            fail(f"planes {name}: tokens or counters differ from "
+                 f"{next(iter(reports))}: {r['tokens']} {counters} vs "
+                 f"{ref['tokens']} {ref['counters']}")
+        ref = ref or r
+        reports[name] = r
+        del e, ps
+        torch.cuda.empty_cache()
+    log(f"[planes] equal tokens and counters across {list(reports)}; decode "
+        f"tok/s " + ", ".join(f"{n} {r['decode_tok_s']:.2f}" for n, r in reports.items()))
+    return reports
+
+
+# ----------------------------------------------------------------------
 def main():
     card = phase_device()
     import torch
     dev = torch.device("cuda", 0)
     kern, tiers, flush = phase_kernels(dev)
     kern["ragged_attention"] = phase_ragged_kernel(dev, flush)
+    kern["flash_attention"], _ = phase_flash(dev, flush)
     phase_parity(dev)
     phase_continuous_parity(dev)
-    launches, batches, eng, cfg = phase_main(dev)
+    launches, batches, eng, cfg, prompt = phase_main(dev)
+    # the host-bound decode runs come before any profiler window
+    planes = phase_planes(dev, eng, cfg)
+    launches["dequant_matmul"] = planes["pr2_sync"]["launches"]["dequant_matmul"]
+    _profile_decode(eng, prompt, dev)
     batched = phase_prefill_kernel(dev, tiers, flush, batches)
     batched["max_abs_err"] = max(batched["max_abs_err"],
                                  kern["dequant_matmul_batched"]["max_abs_err"])
@@ -882,16 +1094,22 @@ def main():
     csrc = "src/repro_torch/kernels/csrc/"
     src = {"dequant_matmul_batched": csrc + "dequant_matmul.cu",
            "dequant_matmul_slots": csrc + "dequant_matmul.cu",
+           "dequant_matmul": csrc + "dequant_matmul.cu",
+           "flash_attention": csrc + "flash_attention.cu",
            "ragged_attention": csrc + "ragged_attention.cu"}
     replaces = {"dequant_matmul_batched": "src/repro/kernels/dequant_matmul.py:109",
                 "dequant_matmul_slots": "src/repro/kernels/dequant_matmul.py:145",
+                "dequant_matmul": "src/repro/kernels/dequant_matmul.py:57",
+                "flash_attention": "src/repro/kernels/flash_attention.py:92",
                 "ragged_attention": "src/repro/kernels/ragged_attention.py:206"}
     line = {"kernels": [
         {"name": n, "route": "cuda", "source": src[n], "replaces": replaces[n],
          "launches": launches[n], "max_abs_err": kern[n]["max_abs_err"],
          "ms": kern[n]["ms"], "plain_ms": kern[n]["plain_ms"],
          "bound_ms": kern[n]["bound_ms"], "bound_by": kern[n]["bound_by"],
-         "library_ms": None} for n in src]}
+         "library_ms": kern[n].get("library_ms")} for n in src]}
+    if any(k["launches"] < 1 for k in line["kernels"]):
+        fail(f"a kernel was not launched on its path: {line}")
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -22,10 +22,15 @@ The QTensors the kernel reads are views into a tier's buffer
 (``core/lru_cache``) and issue copies only where its plans say so: h2d for
 demand misses and ``StagePlan.loads``; d2d for speculative hits (staging
 -> pool slot) and the resident sources of a stage plan.  Demand copies go
-on the compute stream; staging copies on a side copy stream, fenced by a
-CUDA event the compute stream waits on at that layer's next
-:func:`acquire`.  Every h2d byte issued is counted in
-``PoolState.h2d_bytes``.
+on the compute stream; on the pipelined plane staging copies go on a side
+copy stream, fenced by a CUDA event the compute stream waits on at that
+layer's next :func:`acquire`, and on the others on the compute stream.
+Every h2d byte issued is counted in ``PoolState.h2d_bytes``.
+
+``vectorized=False`` selects the reference's sequential data plane, the
+baseline of its offload benchmark (``pr2_sync``): one row at a time, one
+copy per access into a **serve** tier of T*K records (and per staging
+buffer), the same counters, LRU state and h2d bytes.
 """
 from __future__ import annotations
 
@@ -273,23 +278,26 @@ class PoolState:
     stage_events: List[Optional[torch.cuda.Event]]
     slot_host: torch.Tensor        # pinned int32 staging of slot maps
     slot_dev: torch.Tensor
+    serve: Optional[Tier] = None   # (1, max_rows) records: the unrolled plane's
     h2d_bytes: int = 0             # bytes of h2d copies actually issued
     host_reads: int = 0            # device->host reads of routing decisions
     overflow_accesses: int = 0     # accesses served from the overflow tier
 
 
 def init_pool_state(store: Tier, spec: OffloadSpec, device: torch.device,
-                    max_rows: int) -> PoolState:
+                    max_rows: int, *, vectorized: bool = True) -> PoolState:
     """Zero-filled pool + staging tiers and cold LRU state for a store;
     ``max_rows`` bounds the (token, k) rows one acquire serves, and so
     the overflow tier: all but the last access of a batch can lose
     their slot to a later one.  A batch of at most ``cache_size``
     accesses loses none (each access is more recent than every slot the
     batch has not touched, and one of those is always the one evicted),
-    so such pools get no overflow records."""
+    so such pools get no overflow records.  A pool for the unrolled
+    plane (``vectorized=False``) needs no overflow: it copies every
+    access's record into a serve tier of ``max_rows`` records instead."""
     L, lay = store.n_layers, store.layout
     cuda = device.type == "cuda"
-    extra = 0 if max_rows <= spec.cache_size else max_rows - 1
+    extra = 0 if max_rows <= spec.cache_size or not vectorized else max_rows - 1
     return PoolState(
         lru=LC.init_model_state(L, spec.cache_size, spec.num_speculative),
         pool=Tier(lay, L, spec.cache_size, device, extra=extra),
@@ -300,6 +308,7 @@ def init_pool_state(store: Tier, spec: OffloadSpec, device: torch.device,
         stage_events=[None] * L,
         slot_host=torch.zeros((max_rows,), dtype=torch.int32, pin_memory=cuda),
         slot_dev=torch.zeros((max_rows,), dtype=torch.int32, device=device),
+        serve=None if vectorized else Tier(lay, 1, max_rows, device),
     )
 
 
@@ -314,13 +323,30 @@ def _h2d(st: PoolState, dst: torch.Tensor, src: torch.Tensor) -> None:
     st.h2d_bytes += src.numel()
 
 
+def _upload_slots(st: PoolState, index) -> torch.Tensor:
+    n = len(index)
+    st.slot_host[:n] = torch.as_tensor(index, dtype=torch.int32)
+    slots = st.slot_dev[:n]
+    slots.copy_(st.slot_host[:n], non_blocking=True)
+    return slots
+
+
+def served(st: PoolState, l: int, vectorized: bool = True) -> PackedExperts:
+    """The (S, ...) stack the slots :func:`acquire` returned index: layer
+    ``l``'s pool and overflow records, or the unrolled plane's serve tier."""
+    return st.pool.served(l) if vectorized else st.serve.layer(0)
+
+
 def acquire(store: Tier, st: PoolState, l: int, ids: np.ndarray,
-            active: Optional[np.ndarray] = None) -> torch.Tensor:
+            active: Optional[np.ndarray] = None, *,
+            vectorized: bool = True) -> torch.Tensor:
     """Serve layer ``l``'s routed experts ``ids`` (T, K) from its pool:
     run the batch plan, issue the copies it implies on the current stream
     and return, for every (token, k) access of the active rows in order,
     the record that holds its expert, as an int32 device tensor indexing
-    ``st.pool.served(l)`` for the kernel to read in place.
+    :func:`served` (the pool's ``served(l)``) for the kernel to read in
+    place.  ``vectorized=False`` runs the unrolled plane instead
+    (:func:`_acquire_unrolled`), on a pool state made for it.
 
     An access whose slot a later access of the batch takes over is served
     from the overflow tier instead, filled before the pool's writes land:
@@ -332,12 +358,14 @@ def acquire(store: Tier, st: PoolState, l: int, ids: np.ndarray,
     issued stay ``(demand_loads + spec_loads) * per_expert_nbytes``.
     Inactive rows (``active`` (T,) bool False) bypass the cache: no state
     change, no counter, no copy."""
+    ev = st.stage_events[l]  # staging copies issued on the side stream
+    if ev is not None:
+        torch.cuda.current_stream(st.pool.buf.device).wait_event(ev)
+    if not vectorized:
+        return _acquire_unrolled(store, st, l, ids, active)
     T, K = ids.shape
     new_lru, delta, plan = LC.access_plan_batch(st.lru[l], ids, active)
     rows = range(T) if active is None else np.flatnonzero(active)
-    ev = st.stage_events[l]
-    if ev is not None:
-        torch.cuda.current_stream(st.pool.buf.device).wait_event(ev)
     # walk the accesses in order; every insertion is an event whose bytes
     # come from a staging buffer (speculative hit) or the store (miss)
     content = [("pool", s) for s in range(st.pool.n_slots)]
@@ -379,35 +407,81 @@ def acquire(store: Tier, st: PoolState, l: int, ids: np.ndarray,
     st.lru[l] = new_lru
     st.counts += delta
     st.overflow_accesses += sum(i >= st.pool.n_slots for i in index)
-    n = len(index)
-    st.slot_host[:n] = torch.as_tensor(index, dtype=torch.int32)
-    slots = st.slot_dev[:n]
-    slots.copy_(st.slot_host[:n], non_blocking=True)
-    return slots
+    return _upload_slots(st, index)
 
 
-def stage(store: Tier, st: PoolState, tgt: int, predicted: np.ndarray) -> None:
+def _acquire_unrolled(store: Tier, st: PoolState, l: int, ids: np.ndarray,
+                      active: Optional[np.ndarray] = None) -> torch.Tensor:
+    """The sequential data plane (the reference's ``_acquire_unrolled``,
+    its offload benchmark's baseline): one token row at a time, in order, one
+    :func:`~repro_torch.core.lru_cache.access_plan` per row and one copy
+    per access, all on the current stream.  Access ``n`` of the active
+    rows is copied into serve record ``n`` (the reference's ``pe_stack``
+    of the served contents): from its pool slot on a hit, from its
+    staging buffer on a speculative hit, and on a miss from the store
+    (h2d, the counted demand load) into its pool slot first; every
+    inserted expert's slot is written as its access happens.  Returns
+    ``arange(n)`` indexing ``st.serve``; counters and LRU state are
+    exactly the vectorized plane's."""
+    if st.serve is None:
+        raise ValueError("the unrolled plane needs a pool state made with "
+                         "init_pool_state(..., vectorized=False)")
+    T, K = ids.shape
+    rows = range(T) if active is None else np.flatnonzero(active)
+    lru = st.lru[l]
+    n = 0
+    for t in rows:
+        lru, stats, plan = LC.access_plan(lru, ids[t])
+        for j in range(K):
+            s = int(plan.slots[j])
+            slot, dst = st.pool.record(l, s), st.serve.record(0, n)
+            if plan.in_cache[j]:
+                dst.copy_(slot, non_blocking=True)
+            elif plan.in_spec[j]:
+                dst.copy_(st.staging.record(l, int(plan.spec_slot[j])),
+                          non_blocking=True)
+                slot.copy_(dst, non_blocking=True)
+            else:
+                _h2d(st, slot, store.record(l, int(ids[t, j])))
+                dst.copy_(slot, non_blocking=True)
+            n += 1
+        st.counts += (stats.hits, stats.spec_hits, stats.demand_loads, 0)
+    st.lru[l] = lru
+    return _upload_slots(st, range(n))
+
+
+def stage(store: Tier, st: PoolState, tgt: int, predicted: np.ndarray, *,
+          vectorized: bool = True, overlap: bool = True) -> None:
     """Stage ``predicted`` (n_spec,) experts into layer ``tgt``'s staging
     buffers (the paper's speculative prefetch).  Sources follow
     :func:`~repro_torch.core.lru_cache.stage_plan`: predictions resident
     nowhere stream from the host store (and count as transfers); the rest
-    copy device-locally from the pool or the previous staging buffers.  On
-    the card the copies run on the side stream, after everything the
-    compute stream has queued so far, and an event marks their end for
-    :func:`acquire`.  ``predicted`` holds distinct expert ids (a top-k)."""
+    copy device-locally from the pool or the previous staging buffers.
+    With ``overlap`` (the pipelined plane) the copies run, on the card, on
+    the side stream after everything the compute stream has queued so
+    far, and an event marks their end for :func:`acquire`; without it
+    they run on the current stream, in its order.  ``predicted`` holds
+    distinct expert ids (a top-k).
+
+    ``vectorized=False`` (the unrolled plane) copies every buffer, as
+    the reference's per-buffer loop does: the previous staging
+    contents that are sources go aside first (read before any write),
+    then each buffer is filled from its pool slot, the set-aside old
+    buffer or the store (h2d, exactly the counted loads).  The vectorized
+    plane copies only what moves."""
     pred = [int(e) for e in predicted]
     if min(pred) < 0 or len(set(pred)) != len(pred):
         raise ValueError(f"predictions must be distinct expert ids: {pred}")
     new_lru, plan, transfers = LC.stage_plan(st.lru[tgt], predicted)
-    side = st.copy_stream
+    side = st.copy_stream if overlap else None
     if side is not None:
         side.wait_stream(torch.cuda.current_stream(side.device))
     with (torch.cuda.stream(side) if side is not None
           else contextlib.nullcontext()):
         n = len(pred)
         # previous staging contents about to be overwritten go aside first
-        moves = [j for j in range(n)
-                 if plan.in_old_spec[j] and plan.old_spec_slot[j] != j]
+        moves = [j for j in range(n) if plan.in_old_spec[j]
+                 and (not vectorized or plan.old_spec_slot[j] != j)]
         for j in moves:
             st.scratch.record(0, j).copy_(
                 st.staging.record(tgt, int(plan.old_spec_slot[j])),

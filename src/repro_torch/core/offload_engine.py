@@ -13,8 +13,14 @@ the CPU.
 decayed histogram of the experts a running batch routes to, which the
 serving scheduler's expert-overlap policy reads.
 
+``OffloadEngine(..., fused=, pipelined=, vectorized=)`` selects the
+packed plane as the reference does (:func:`PackedDecoder`): pipelined
+staging on a side stream or staging inside the block, the vectorized or
+the sequential baseline data plane, fused kernels or dequantize-and-einsum.
+
 Not ported yet (ROADMAP queue 1): accounting mode (``quantized=False``),
-samplers other than greedy in ``generate``, draft-and-verify, telemetry.
+``generate_plain`` and the plain plane, samplers other than greedy in
+``generate``, draft-and-verify, telemetry.
 """
 from __future__ import annotations
 
@@ -150,6 +156,17 @@ def quantize_for_offload(params, cfg: ModelConfig, spec: OffloadSpec, *,
 
 
 # ----------------------------------------------------------------------
+def PackedDecoder(params, cfg: ModelConfig, spec: OffloadSpec, store, *,
+                  fused: bool = True, pipelined: bool = True,
+                  vectorized: bool = True, device=None) -> Executor:
+    """The packed-plane executor for the reference's flags:
+    ``pipelined`` picks ``packed_pipelined`` over ``packed_vectorized``."""
+    plane = "packed_pipelined" if pipelined else "packed_vectorized"
+    return Executor(params, cfg, spec=spec, store=store, device=device,
+                    plane=plane, fused=fused, vectorized=vectorized)
+
+
+# ----------------------------------------------------------------------
 class OffloadEngine:
     """One model + offload configuration: the reference's
     ``OffloadEngine(quantized=True)`` (packed mode; accounting mode is not
@@ -157,12 +174,14 @@ class OffloadEngine:
 
     ``params`` are either raw weights (the engine quantizes them itself)
     or, with ``store=``, the ``exec_params`` of an already-quantized model
-    and its packed store.
+    and its packed store.  ``fused``/``pipelined``/``vectorized`` select
+    the packed plane (:func:`PackedDecoder`).
     """
 
     def __init__(self, params, cfg: ModelConfig,
                  spec: Optional[OffloadSpec] = None, *, store=None,
-                 device=None):
+                 device=None, fused: bool = True, pipelined: bool = True,
+                 vectorized: bool = True):
         assert cfg.moe is not None, "offloading targets MoE architectures"
         self.cfg = cfg
         self.spec = spec or cfg.offload or OffloadSpec()
@@ -172,8 +191,9 @@ class OffloadEngine:
                                                  device=self.device)
         self.params = params
         self.store = store
-        self._exec = Executor(params, cfg, spec=self.spec, store=store,
-                              device=self.device)
+        self._exec = PackedDecoder(params, cfg, self.spec, store,
+                                   fused=fused, pipelined=pipelined,
+                                   vectorized=vectorized, device=self.device)
         self.n_moe_layers = self._exec.n_moe_layers
         self.expert_bytes = EP.per_expert_nbytes(store)
         self._last_pool_state: Optional[EP.PoolState] = None

@@ -2,8 +2,8 @@
 //
 // Replaces the TPU kernels dequant_matmul_batched_pallas and
 // dequant_matmul_slots_pallas (src/repro/kernels/dequant_matmul.py:109 and
-// :145), together with the _meta_dequantize the reference runs before them
-// (src/repro/quant/hqq.py:194):
+// :145), and dequant_matmul_pallas (:57) as the B = 1 case, together with the
+// _meta_dequantize the reference runs before them (src/repro/quant/hqq.py:194):
 //
 //   out[b, m, n] = sum_k x[b, m, k] * W_s[k, n],   s = slots[b] (or b)
 //   W_s[k, n]    = (code_s[k, n] - zero_s[k/g, n]) * scale_s[k/g, n]

@@ -1,6 +1,7 @@
 """ctypes binding of ``csrc/dequant_matmul.cu``, the Hopper kernel that
-replaces the reference's ``dequant_matmul_batched_pallas`` and
-``dequant_matmul_slots_pallas`` (``src/repro/kernels/dequant_matmul.py``).
+replaces the reference's ``dequant_matmul_batched_pallas``,
+``dequant_matmul_slots_pallas`` and (as its B = 1 case)
+``dequant_matmul_pallas`` (``src/repro/kernels/dequant_matmul.py``).
 
 :func:`launch` checks every tensor it is given (device, dtype, shape,
 per-slot contiguity, alignment), allocates the output, launches on

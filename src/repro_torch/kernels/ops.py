@@ -1,9 +1,10 @@
 """The port's kernel bindings, dispatched on the device of the tensors
-they are given: the two bindings of the dequant-matmul kernel, and the
-ragged paged-attention kernel's (``kernels/ragged_attention.py``).
+they are given: the three bindings of the dequant-matmul kernel, the
+flash-attention kernel's (``kernels/flash_attention.py``) and the ragged
+paged-attention kernel's (``kernels/ragged_attention.py``).
 
 * A CPU tensor runs the plain PyTorch version (``kernels/ref.py``,
-  ``ragged_attention_reference``).
+  ``flash_attention_reference``, ``ragged_attention_reference``).
 * A CUDA tensor launches the Hopper kernel (``csrc/*.cu``) or raises;
   there is no fall back to the plain version.
 
@@ -16,8 +17,23 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ragged_attention import ragged_attention
 from repro_torch.quant import hqq
+
+
+def dequant_matmul(x: torch.Tensor, qt: hqq.QTensor) -> torch.Tensor:
+    """x (M, K) @ dequant(qt) for one 2-D packed weight (K, N); float32
+    out.  The kernel's B = 1 case: the leaves are read in place as a
+    one-record stack, so a pool slot's view is never copied.  Every M and
+    every bit width launches the kernel on the card."""
+    assert len(qt.shape) == 2, "2-D weights (reshape heads first)"
+    if x.device.type == "cpu":
+        return ref.dequant_matmul(x, qt)
+    from repro_torch.kernels import dequant_matmul as DM
+    out = DM.launch(x[None], ref.stack_one(qt), None)[0]
+    dequant_matmul.launches += 1
+    return out
 
 
 def dequant_matmul_batched(x: torch.Tensor, qt: hqq.QTensor) -> torch.Tensor:
@@ -45,9 +61,11 @@ def dequant_matmul_slots(x: torch.Tensor, qt: hqq.QTensor,
     return out
 
 
+dequant_matmul.launches = 0
 dequant_matmul_batched.launches = 0
 dequant_matmul_slots.launches = 0
-BINDINGS = (dequant_matmul_batched, dequant_matmul_slots, ragged_attention)
+BINDINGS = (dequant_matmul, dequant_matmul_batched, dequant_matmul_slots,
+            flash_attention, ragged_attention)
 
 
 def reset_launches() -> None:

@@ -1,7 +1,8 @@
-"""Plain PyTorch versions of the dequant-matmul kernel's two bindings.
+"""Plain PyTorch versions of the dequant-matmul kernel's three bindings.
 
-They mirror the reference's jnp path (``ops._dequant_rows`` and the
-batched einsum of ``ops.dequant_matmul_batched``/``_slots``):
+They mirror the reference's jnp path (``ref.dequant_matmul_ref``,
+``ops._dequant_rows`` and the batched einsum of
+``ops.dequant_matmul_batched``/``_slots``):
 ``_meta_dequantize`` + ``unpack_codes`` + ``(q - zero) * scale`` +
 ``einsum("bmk,bkn->bmn")`` in float32.  The CPU path of ``kernels/ops``
 runs these; on the card ``chip_smoke.py`` holds the kernel against them.
@@ -22,18 +23,36 @@ def dequant_rows(qt: hqq.QTensor) -> torch.Tensor:
     return w.reshape(B, G * qt.group_size, N)
 
 
+def dequant_matmul(x: torch.Tensor, qt: hqq.QTensor) -> torch.Tensor:
+    """x (M, K) @ dequant(qt) for one 2-D weight -> (M, N) f32."""
+    w = dequant_rows(stack_one(qt))[0]
+    return x.to(torch.float32) @ w
+
+
+def stack_one(qt: hqq.QTensor) -> hqq.QTensor:
+    """A 2-D QTensor as a one-record (1, K, N) stack of views."""
+    meta = None if qt.meta is None else {k: v[None] for k, v in qt.meta.items()}
+    return hqq.QTensor(qt.packed[None], qt.scale[None], qt.zero[None], meta,
+                       qt.bits, qt.group_size, (1,) + tuple(qt.shape))
+
+
 def dequant_matmul_batched(x: torch.Tensor, qt: hqq.QTensor) -> torch.Tensor:
     """x (B, M, K) @ dequant(qt[b]) per row -> (B, M, N) f32."""
     return torch.einsum("bmk,bkn->bmn", x.to(torch.float32), dequant_rows(qt))
+
+
+def gather_slots(qt: hqq.QTensor, slots: torch.Tensor) -> hqq.QTensor:
+    """The records ``slots`` (B,) of an (S, K, N) stack, copied into a
+    (B, K, N) stack."""
+    slots = slots.to(device=qt.packed.device, dtype=torch.long)
+    meta = None if qt.meta is None else {k: v[slots] for k, v in qt.meta.items()}
+    return hqq.QTensor(qt.packed[slots], qt.scale[slots], qt.zero[slots],
+                       meta, qt.bits, qt.group_size,
+                       (int(slots.shape[0]),) + tuple(qt.shape[1:]))
 
 
 def dequant_matmul_slots(x: torch.Tensor, qt: hqq.QTensor,
                          slots: torch.Tensor) -> torch.Tensor:
     """x (B, M, K) @ dequant(qt[slots[b]]) -> (B, M, N) f32: gathers the
     (small, CPU-side) packed leaves and runs the batched version."""
-    slots = slots.to(device=qt.packed.device, dtype=torch.long)
-    meta = None if qt.meta is None else {k: v[slots] for k, v in qt.meta.items()}
-    gathered = hqq.QTensor(qt.packed[slots], qt.scale[slots], qt.zero[slots],
-                           meta, qt.bits, qt.group_size,
-                           (int(slots.shape[0]),) + tuple(qt.shape[1:]))
-    return dequant_matmul_batched(x, gathered)
+    return dequant_matmul_batched(x, gather_slots(qt, slots))

@@ -5,9 +5,11 @@ The port of the reference's ``models/layers.py``.  Parameters are plain
 dicts of tensors with the reference's layouts (``wq: (D, H, hd)``,
 ``wo: (H, hd, D)``); norms, rotary and softmax run in float32 whatever the
 parameter dtype, and every cast sits where the reference puts it.
-Attention over the dense ring stays plain PyTorch (the reference's model
-path uses no Pallas kernel for it); attention over paged KV goes through
-the ragged paged-attention binding (``kernels/ops.ragged_attention``).
+A prefill chunk over a dense ring that has not wrapped attends through
+the flash-attention binding (``kernels/ops.flash_attention``); decode
+steps and chunks past the wrap stay plain PyTorch (``attention_core``,
+the reference's model path); attention over paged KV goes through the
+ragged paged-attention binding (``kernels/ops.ragged_attention``).
 KV rings and page pools are updated in place.
 """
 from __future__ import annotations
@@ -151,10 +153,24 @@ def attention_decode(p, cfg, x_t, cache, cur_pos, *, window=None,
     ``pages`` or ``step``, the paged KV plane.
 
     x_t: (B, C, D): the C tokens sit at positions ``cur_pos ..
-    cur_pos+C-1`` (the whole batch in lock-step); their K/V are written
-    into the ring at those positions modulo its width (wrapping like
-    decode writes do), and causal masking keeps intra-chunk attention
-    exact.  Requires C <= ring width.  The cache is updated in place.
+    cur_pos+C-1`` (the whole batch in lock-step, ``cur_pos`` an int);
+    their K/V are written into the ring at those positions modulo its
+    width (wrapping like decode writes do), and causal masking keeps
+    intra-chunk attention exact.  Requires C <= ring width.  The cache is
+    updated in place.
+
+    A prefill chunk (C > 1) whose last position still fits the ring
+    (``cur_pos + C <= W``) attends through the flash binding
+    (``ops.flash_attention``) over ring slots ``[0, cur_pos + C)`` with
+    ``q_offset = cur_pos``, reading the ring and the queries in place.
+    It keeps the softmax weights in float32 through P.V and rounds only
+    its output, where ``attention_core`` (the reference's model path)
+    rounds the weights to the model dtype first: the same result in
+    float32, one rounding of P apart in bfloat16.  A decode step (C = 1,
+    the reference's kernel gate sends it to jnp too) and a chunk past the
+    wrap, whose ring slots no longer hold positions ``j``, attend through
+    ``attention_core`` over whatever the ring holds, with its position
+    mask.
 
     ``pages`` (B, T) switches to the paged KV plane: ``cache`` is then an
     :func:`init_paged_attn_cache` pool, ``cur_pos`` (B,) per-row start
@@ -182,8 +198,17 @@ def attention_decode(p, cfg, x_t, cache, cur_pos, *, window=None,
     cache["k"][:, slots] = k_new
     cache["v"][:, slots] = v_new
     cache["pos"][:, slots] = posq
-    o = attention_core(q, cache["k"], cache["v"], posq, cache["pos"],
-                       causal=True, window=window)
+    n = int(cur_pos) + C
+    if C > 1 and n <= W:
+        # the ring has not wrapped: slot j holds position j for every j < n,
+        # the flash kernel's contiguous key positions
+        kv = lambda t: t[:, :n].transpose(1, 2)
+        o = ops.flash_attention(q.transpose(1, 2), kv(cache["k"]),
+                                kv(cache["v"]), causal=True, window=window,
+                                q_offset=int(cur_pos)).transpose(1, 2)
+    else:
+        o = attention_core(q, cache["k"], cache["v"], posq, cache["pos"],
+                           causal=True, window=window)
     return _out_proj(p, cfg, o), cache
 
 

@@ -7,17 +7,23 @@ reference's ``models/moe.py``, the paths offloaded generation runs).
   continuous batch).  The routed experts are served from the layer's
   device pool and its overflow records (``core/expert_pool.acquire``)
   and the kernel reads them in place, by slot
-  (``ops.dequant_matmul_slots``).
+  (``ops.dequant_matmul_slots``).  ``vectorized=False`` is the
+  reference's sequential baseline: the accesses are copied one by one
+  into a serve tier and each (token, k) pair runs its own three
+  ``ops.dequant_matmul`` calls, the only path of that 2-D binding.
 * :func:`moe_apply_packed_stream`: prefill.  Each distinct routed expert
   of the layer is copied once into a reusable device tier, the rows are
   grouped by expert, and the kernel runs over that tier as a batch
   (``ops.dequant_matmul_batched``); no pool state, no counter.
 
-Both compute paths keep the reference's cast points (``_packed_compute``):
-gate and up products cast to the model dtype, the activation in float32,
-the down product and the routing-weighted sum in float32.  The kernel
-computes every output row independently and in the same order, so a row
-gets the same bits whether it is served by slot or in a group.
+``fused=False`` (both) dequantizes each served record into the model
+dtype (``quant/hqq.dequantize``) and runs plain matrix products, the
+reference's gather einsums.  Every compute path keeps the reference's
+cast points (``_packed_compute``): gate and up products cast to the model
+dtype, the activation in float32, the down product and the
+routing-weighted sum in float32.  The kernel computes every output row
+independently and in the same order, so a row gets the same bits whether
+it is served by slot, in a group or alone.
 """
 from __future__ import annotations
 
@@ -29,7 +35,8 @@ import torch
 
 from repro_torch.core import expert_pool as EP
 from repro_torch.core import speculative
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
+from repro_torch.quant import hqq
 
 
 def init_moe(gen, cfg):
@@ -70,13 +77,20 @@ def moe_apply_gather(p, cfg, x2d):
     w, ids, probs = route_topk(p, cfg.moe, x2d)
     ex = p["experts"]
     idx = ids.to(torch.long)
-    wg, wu, wd = ex["w_gate"][idx], ex["w_up"][idx], ex["w_down"][idx]
+    y = _gather_ffn(x2d, ex["w_gate"][idx], ex["w_up"][idx],
+                    ex["w_down"][idx], w)
+    return y, {"ids": ids, "weights": w, "probs": probs}
+
+
+def _gather_ffn(x2d, wg, wu, wd, w):
+    """The gather einsums over per-(token, k) dense weights wg/wu (T, K,
+    D, F) and wd (T, K, F, D) in the model dtype."""
     g = torch.einsum("td,tkdf->tkf", x2d, wg)
     u = torch.einsum("td,tkdf->tkf", x2d, wu)
     h = torch.nn.functional.silu(g.to(torch.float32)).to(x2d.dtype) * u
     yk = torch.einsum("tkf,tkfd->tkd", h, wd)
     y = torch.einsum("tkd,tk->td", yk.to(torch.float32), w)
-    return y.to(x2d.dtype), {"ids": ids, "weights": w, "probs": probs}
+    return y.to(x2d.dtype)
 
 
 # ----------------------------------------------------------------------
@@ -95,25 +109,51 @@ def _expert_ffn(cfg, xk, mats: EP.PackedExperts, slots):
     return mm(h, mats.w_down)
 
 
-def _packed_compute(cfg, x2d, mats: EP.PackedExperts, slots, w):
-    """Every (token, k) expert matmul of a decode batch, straight from the
-    packed tier ``mats`` at ``slots`` (T*K,): the reference's fused
-    branch."""
+def _packed_compute(cfg, x2d, mats: EP.PackedExperts, slots, w, *,
+                    fused: bool = True, vectorized: bool = True):
+    """Every (token, k) expert matmul of a decode batch from the packed
+    tier ``mats`` at ``slots`` (T*K,): with ``fused``, straight from the
+    packed records, one kernel launch per matrix for the whole batch
+    (``vectorized``) or three 2-D launches per (token, k) pair (the
+    reference's unrolled branch, over records 0.. of the serve tier);
+    without it, each served record dequantized into the model dtype and
+    the gather einsums."""
     T, K = w.shape
-    xk = x2d.repeat_interleave(K, dim=0)[:, None, :]  # (T*K, 1, D)
-    yk = _expert_ffn(cfg, xk, mats, slots)            # (T*K, 1, D) f32
-    y = torch.einsum("tkd,tk->td", yk.reshape(T, K, -1), w)
-    return y.to(x2d.dtype)
+    dt = x2d.dtype
+    if not fused:
+        deq = lambda qt: hqq.dequantize(ref.gather_slots(qt, slots), dt
+                                        ).reshape((T, K) + tuple(qt.shape[1:]))
+        return _gather_ffn(x2d, deq(mats.w_gate), deq(mats.w_up),
+                           deq(mats.w_down), w)
+    if vectorized:
+        xk = x2d.repeat_interleave(K, dim=0)[:, None, :]  # (T*K, 1, D)
+        yk = _expert_ffn(cfg, xk, mats, slots)            # (T*K, 1, D) f32
+        yk = yk.reshape(T, K, -1)
+    else:
+        rows = []
+        for t in range(T):
+            xt = x2d[t:t + 1]
+            for k in range(K):
+                sl = mats.slice(t * K + k)
+                g = ops.dequant_matmul(xt, sl.w_gate).to(dt)
+                u = ops.dequant_matmul(xt, sl.w_up).to(dt)
+                h = torch.nn.functional.silu(g.to(torch.float32)).to(dt) * u
+                rows.append(ops.dequant_matmul(h, sl.w_down))
+        yk = torch.stack(rows).reshape(T, K, -1)          # (T, K, D) f32
+    y = torch.einsum("tkd,tk->td", yk, w)
+    return y.to(dt)
 
 
 def moe_apply_packed_stream(p, cfg, x2d, store: EP.Tier, l: int,
-                            tier: EP.PrefillTier):
+                            tier: EP.PrefillTier, *, fused: bool = True):
     """Prefill-chunk MoE over the packed host store: route, read the ids
     to the host (one read), copy each distinct routed expert once into
     ``tier``, group the (token, k) rows by expert into an (U, M, D) batch
-    (zero rows pad the short groups) and run the kernel over the tier.
-    No pool state is read or written and no offload counter moves.
-    Returns ``(y2d, route_info)``."""
+    (zero rows pad the short groups) and run the kernel over the tier
+    (``fused``), or dequantize the U experts into the model dtype and
+    run plain batched products (``fused=False``).  No pool state is read
+    or written and no offload counter moves.  Returns ``(y2d,
+    route_info)``."""
     w, ids, probs = route_topk(p, cfg.moe, x2d)
     T, K = ids.shape
     flat = EP.read_host(tier, ids.reshape(-1)).astype(np.int64)
@@ -130,7 +170,14 @@ def moe_apply_packed_stream(p, cfg, x2d, store: EP.Tier, l: int,
     tier.batches.append((len(experts), int(counts.max()), len(flat)))
     xg = x2d.new_zeros((len(experts), int(counts.max()), x2d.shape[1]))
     xg[g_t, p_t] = x2d.repeat_interleave(K, dim=0)
-    yg = _expert_ffn(cfg, xg, mats, None)              # (U, M, D) f32
+    if fused:
+        yg = _expert_ffn(cfg, xg, mats, None)          # (U, M, D) f32
+    else:
+        dt = x2d.dtype
+        wg, wu, wd = (hqq.dequantize(qt, dt) for qt in mats)
+        h = torch.nn.functional.silu(torch.matmul(xg, wg).to(torch.float32)
+                                     ).to(dt) * torch.matmul(xg, wu)
+        yg = torch.matmul(h, wd).to(torch.float32)
     yk = yg[g_t, p_t].reshape(T, K, -1)
     y = torch.einsum("tkd,tk->td", yk, w).to(x2d.dtype)
     return y, {"ids": ids, "weights": w, "probs": probs}
@@ -139,16 +186,22 @@ def moe_apply_packed_stream(p, cfg, x2d, store: EP.Tier, l: int,
 def moe_apply_packed(p, cfg, x2d, store: EP.Tier, pstate: EP.PoolState,
                      l: int, routers=None, *, lookahead: int = 1,
                      n_spec: int = 0, active: Optional[np.ndarray] = None,
-                     rows_dev: Optional[torch.Tensor] = None):
+                     rows_dev: Optional[torch.Tensor] = None,
+                     fused: bool = True, vectorized: bool = True,
+                     overlap: bool = True):
     """Offloaded-decode MoE of MoE layer ``l`` over T token rows.
 
     Routes, and (a single row with ``n_spec > 0`` and ``routers``)
     predicts the lookahead layer's experts from the same hidden state;
     both id sets reach the host in ONE read, the layer's only
-    synchronisation.  ``acquire`` then performs the pool swaps, the
-    lookahead layer's staging is issued on the side copy stream (so it
-    overlaps this layer's expert compute), and the kernel reads the pool
-    and its overflow records in place.
+    synchronisation.  ``acquire`` then performs the pool swaps and the
+    kernel reads the pool and its overflow records in place.  With
+    ``overlap`` (the pipelined plane) the lookahead layer's staging is
+    issued before the expert compute, on the side copy stream, so that it
+    overlaps that compute; without it, after the compute on the compute
+    stream (the reference's staging inside the block).  ``fused`` and
+    ``vectorized`` select the compute and data plane
+    (:func:`_packed_compute`, ``expert_pool.acquire``).
 
     ``active`` (T,) bool marks the rows whose output is used (the busy
     slots of a continuous batch); the others bypass the pool and get a
@@ -168,12 +221,15 @@ def moe_apply_packed(p, cfg, x2d, store: EP.Tier, pstate: EP.PoolState,
         read = torch.cat([read, pred])
     host = EP.read_host(pstate, read)
     ids_h = host[: T * K].reshape(T, K)
-    slots = EP.acquire(store, pstate, l, ids_h, active)
-    if speculate:
-        EP.stage(store, pstate, tgt, host[T * K:])
-    mats = pstate.pool.served(l)
+    slots = EP.acquire(store, pstate, l, ids_h, active, vectorized=vectorized)
+    stage = lambda: EP.stage(store, pstate, tgt, host[T * K:],
+                             vectorized=vectorized, overlap=overlap)
+    if speculate and overlap:
+        stage()
+    mats = EP.served(pstate, l, vectorized)
+    kw = dict(fused=fused, vectorized=vectorized)
     if active is None or active.all():
-        y = _packed_compute(cfg, x2d, mats, slots, w)
+        y = _packed_compute(cfg, x2d, mats, slots, w, **kw)
     else:
         y = torch.zeros_like(x2d)
         if active.any():
@@ -181,5 +237,7 @@ def moe_apply_packed(p, cfg, x2d, store: EP.Tier, pstate: EP.PoolState,
                 rows_dev = torch.as_tensor(np.flatnonzero(active),
                                            device=x2d.device)
             y[rows_dev] = _packed_compute(cfg, x2d[rows_dev], mats, slots,
-                                          w[rows_dev])
+                                          w[rows_dev], **kw)
+    if speculate and not overlap:
+        stage()
     return y, {"ids": ids_h, "weights": w, "probs": probs}, pstate

@@ -82,25 +82,29 @@ def decode_block_packed_mixer(p, cfg: ModelConfig, kind: str, x_t, state,
 
 def decode_block_packed_moe(p, cfg: ModelConfig, x_t, h2, store, pstate,
                             l_moe: int, routers=None, *, lookahead: int = 1,
-                            n_spec: int = 0, active=None, rows_dev=None):
+                            n_spec: int = 0, active=None, rows_dev=None,
+                            fused: bool = True, vectorized: bool = True,
+                            overlap: bool = True):
     """MoE half of a packed block's decode step: route + acquire (+ the
     lookahead layer's staging) + packed compute + residual, over the
-    active rows (C = 1).  Returns (x_t, pstate, info)."""
+    active rows (C = 1); ``fused``/``vectorized``/``overlap`` select the
+    plane (``moe.moe_apply_packed``).  Returns (x_t, pstate, info)."""
     B, S, D = h2.shape
     h2d = h2.reshape(B * S, D)
     y2d, route, pstate = M.moe_apply_packed(
         p["moe"], cfg, h2d, store, pstate, l_moe, routers,
-        lookahead=lookahead, n_spec=n_spec, active=active, rows_dev=rows_dev)
+        lookahead=lookahead, n_spec=n_spec, active=active, rows_dev=rows_dev,
+        fused=fused, vectorized=vectorized, overlap=overlap)
     return (x_t + y2d.reshape(B, S, D), pstate,
             {"route": route, "hidden_pre_moe": h2d})
 
 
 def prefill_block_packed_moe(p, cfg: ModelConfig, x_t, h2, store, l_moe: int,
-                             tier):
+                             tier, *, fused: bool = True):
     """MoE half of a prefill chunk: store-direct through the prefill tier."""
     B, C, D = h2.shape
     y2d, route = M.moe_apply_packed_stream(p["moe"], cfg, h2.reshape(B * C, D),
-                                           store, l_moe, tier)
+                                           store, l_moe, tier, fused=fused)
     return x_t + y2d.reshape(B, C, D), route
 
 

@@ -1,13 +1,24 @@
-"""Block execution for offloaded generation: the ``packed_pipelined``
-plane of the reference's ``runtime/executor.py``.
+"""Block execution for offloaded generation: the packed planes of the
+reference's ``runtime/executor.py``.
 
 Each layer runs its mixer (attention), then its MoE half, which routes,
 reads the routed ids (and, at batch-1 decode, the lookahead layer's
 predicted ids) to the host in ONE read, serves the routed experts from
-the device pool and issues the lookahead layer's staging on a side copy
-stream.  The compute stream waits on that copy's event at the lookahead
-layer's ``acquire``: the fence that lets staging overlap the compute in
-between (the reference's DESIGN.md §7 overlap, made real).
+the device pool and stages the lookahead layer's predicted experts.
+
+* ``packed_pipelined``: the staging copies are issued before the
+  layer's expert compute, on a side copy stream; the compute stream waits
+  on that copy's event at the lookahead layer's ``acquire``: the fence
+  that lets staging overlap the compute in between (the reference's
+  DESIGN.md §7 overlap, made real).
+* ``packed_vectorized``: the staging runs inside the layer, right after
+  its MoE, on the compute stream; no side stream, no event.
+
+``fused`` and ``vectorized`` select the data plane under either, as in
+the reference: ``vectorized=False`` is its sequential baseline
+(``expert_pool._acquire_unrolled``, three ``ops.dequant_matmul`` calls per
+(token, k)), ``fused=False`` dequantizes the served records and runs the
+gather einsums.
 
 Prefill is chunked prefill (one chunk by default): the same mixer, and
 MoE store-direct through a reusable device tier, with no pool traffic and
@@ -21,8 +32,8 @@ built once on the host and uploaded in one copy
 (``layers.paged_step``); :meth:`prefill_chunk_row` writes one slot's
 prompt chunk into its pages.
 
-Only this plane is ported; the plain and ``packed_vectorized`` planes
-and C > 1 verify chunks are ROADMAP queue-1 items.
+The ``plain`` plane (dense resident weights) and C > 1 verify chunks
+are not ported (ROADMAP queue 1, items 6 and 9).
 """
 from __future__ import annotations
 
@@ -38,14 +49,28 @@ from repro_torch.core.trace import stacked_routers
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
+PLANES = ("plain", "packed_vectorized", "packed_pipelined")
+
 
 class Executor:
     """Packed-plane executor (module docstring).  ``store`` is the packed
     host store of ``quantize_for_offload``."""
 
     def __init__(self, params, cfg: ModelConfig, *, spec: OffloadSpec,
-                 store: EP.Tier, device=None):
+                 store: EP.Tier, device=None,
+                 plane: str = "packed_pipelined", fused: bool = True,
+                 vectorized: bool = True):
+        if plane not in PLANES:
+            raise ValueError(f"unknown plane {plane!r}; one of {PLANES}")
+        if plane == "plain":
+            raise NotImplementedError(
+                "the plain plane (dense resident weights) is ROADMAP queue 1 "
+                "item 6")
         T.check_supported(cfg)
+        self.plane = plane
+        self.pipelined = plane == "packed_pipelined"
+        self.fused = fused
+        self.vectorized = vectorized
         self.params = params
         self.cfg = cfg
         self.spec = spec
@@ -71,7 +96,8 @@ class Executor:
     def init_pool_state(self, max_rows: int = 1) -> EP.PoolState:
         """Pool state for decode batches of up to ``max_rows`` rows."""
         return EP.init_pool_state(self.store, self.spec, self.device,
-                                  max_rows=max_rows * self.cfg.moe.top_k)
+                                  max_rows=max_rows * self.cfg.moe.top_k,
+                                  vectorized=self.vectorized)
 
     def _paged_step(self, state, active, C: int, rows=slice(None)):
         """The step's :class:`~repro_torch.models.layers.PagedStep` over
@@ -87,7 +113,8 @@ class Executor:
         one (``"pages"``), where ``active`` (B,) numpy bool marks the rows
         that write KV, go through the expert pool and advance ``pos``;
         the others compute nothing that is kept.  Speculative staging
-        runs only for a single row.  KV and ``pstate`` are updated in
+        runs only for a single row (on the side stream on the pipelined
+        plane, inside the layer otherwise).  KV and ``pstate`` are updated in
         place.  Returns ``(logits (B, 1, V), state, pstate, route_ids)``
         with every row's routed ids of every MoE layer as host arrays."""
         B, C = tokens.shape
@@ -111,7 +138,8 @@ class Executor:
             x, pstate, info = T.decode_block_packed_moe(
                 p, cfg, x, h2, self.store, pstate, self.moe_ordinal[l],
                 self.routers, lookahead=spec.lookahead, n_spec=n_spec,
-                active=active, rows_dev=rows_dev)
+                active=active, rows_dev=rows_dev, fused=self.fused,
+                vectorized=self.vectorized, overlap=self.pipelined)
             route_ids.append(info["route"]["ids"])
             state["layers"][l] = st_l
         logits = T.apply_head(self.params, cfg, x)
@@ -136,7 +164,8 @@ class Executor:
                 p, cfg, kind, x, state["layers"][l], pos)
             x, _ = T.prefill_block_packed_moe(p, cfg, x, h2, self.store,
                                               self.moe_ordinal[l],
-                                              self.prefill_tier)
+                                              self.prefill_tier,
+                                              fused=self.fused)
             state["layers"][l] = st_l
         logits = T.apply_head(self.params, cfg, x)
         state["pos"] = pos + int(tokens.shape[1])
@@ -161,7 +190,8 @@ class Executor:
                 p, cfg, kind, x, state["layers"][l], None, step=step)
             x, _ = T.prefill_block_packed_moe(p, cfg, x, h2, self.store,
                                               self.moe_ordinal[l],
-                                              self.prefill_tier)
+                                              self.prefill_tier,
+                                              fused=self.fused)
             state["layers"][l] = st_l
         logits = T.apply_head(self.params, cfg, x)
         pos = state["pos"].copy()

@@ -1,5 +1,6 @@
 """The dequant-matmul bindings of the port (``repro_torch.kernels.ops``)
-against the JAX reference's ``kernels/ops``.
+against the JAX reference's ``kernels/ops`` and, for the 2-D binding,
+its ``dequant_matmul_pallas`` (interpret mode) and ``ref.dequant_matmul_ref``.
 
 On the CPU the port's bindings run the plain version; the reference runs
 its Pallas kernel in interpret mode where ``ops`` admits the shape (M % 8
@@ -13,8 +14,11 @@ import pytest
 import torch
 
 from repro.kernels import ops as JO
+from repro.kernels import ref as JR
+from repro.kernels.dequant_matmul import dequant_matmul_pallas
 from repro.quant import hqq as J
 from repro_torch.kernels import ops as PO
+from repro_torch.quant import hqq as P
 
 from test_torch_hqq import to_port
 
@@ -52,12 +56,43 @@ def test_plain_slots_matches_reference(bits, M, K, N):
     np.testing.assert_allclose(yt, yj, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("M", [1, 8, 16])
+def test_plain_2d_matches_reference_kernel(bits, M):
+    """``ops.dequant_matmul`` (x (M, K) @ one 2-D weight) on the CPU
+    against the reference's Pallas kernel in interpret mode (2/4/8-bit;
+    the kernel has no 3-bit path) or its jnp oracle (3-bit), on a
+    record of a stack as the unrolled plane passes it.  Within 1e-5 of
+    max |reference|: float32 sums in another order."""
+    K, N = 256, 256
+    qj, x = _case(bits, M, K, N, seed=bits * 13 + M)
+    one = J.QTensor(qj.packed[2], qj.scale[2], qj.zero[2],
+                    {k: v[2] for k, v in qj.meta.items()}, bits,
+                    qj.group_size, (K, N))
+    scale, zero = J._meta_dequantize(one)
+    args = (jnp.asarray(x[0]), one.packed, scale, zero)
+    kw = dict(bits=bits, group_size=one.group_size)
+    yj = np.asarray(JR.dequant_matmul_ref(*args, **kw) if bits == 3 else
+                    dequant_matmul_pallas(*args, interpret=True, **kw))
+    qp = to_port(qj)
+    yt = PO.dequant_matmul(torch.from_numpy(x[0]),
+                           P.slice_leading(qp, 2)).numpy()
+    assert yt.shape == (M, N)
+    np.testing.assert_allclose(yt, yj, rtol=0,
+                               atol=1e-5 * float(np.abs(yj).max()))
+
+
 def test_cpu_tensors_take_plain_version_and_do_not_count():
     qj, x = _case(3, 1, 256, 96, seed=5)
     PO.reset_launches()
     y = PO.dequant_matmul_slots(torch.from_numpy(x), to_port(qj),
                                 torch.tensor([1, 2, 3], dtype=torch.int32))
     assert y.dtype == torch.float32 and tuple(y.shape) == (3, 1, 96)
-    assert PO.launches() == {"dequant_matmul_batched": 0,
+    y2 = PO.dequant_matmul(torch.from_numpy(x[0]),
+                           P.slice_leading(to_port(qj), 0))
+    assert y2.dtype == torch.float32 and tuple(y2.shape) == (1, 96)
+    assert PO.launches() == {"dequant_matmul": 0,
+                             "dequant_matmul_batched": 0,
                              "dequant_matmul_slots": 0,
+                             "flash_attention": 0,
                              "ragged_attention": 0}

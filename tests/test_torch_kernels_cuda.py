@@ -1,6 +1,7 @@
-"""The Hopper kernels (dequant-matmul, ragged paged attention) against
-their plain PyTorch versions, on the card.  Every test is marked ``cuda`` and skips without a GPU (the
-kernel has no CPU mode).  The file imports no JAX, so it also runs on a
+"""The Hopper kernels (dequant-matmul, flash attention, ragged paged
+attention) against their plain PyTorch versions, on the card.  Every
+test is marked ``cuda`` and skips without a GPU (the kernel has no CPU
+mode).  The file imports no JAX, so it also runs on a
 GPU machine without it:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_kernels_cuda.py
@@ -186,3 +187,132 @@ def test_ragged_kernel_refuses_what_it_cannot_read():
     kp48 = torch.randn(kp.shape[:3] + (48,), device=dev)
     with pytest.raises(ValueError):
         ops.ragged_attention(q48, kp48, kp48, ppos, pages, qpos, worklist=wl)
+
+
+# ----------------------------------------------------------------------
+# the 2-D binding of the dequant-matmul kernel (its B = 1 case)
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("M", [1, 5, 16])
+def test_dequant_matmul_2d_matches_plain_on_card(bits, M):
+    """``ops.dequant_matmul`` on one 2-D weight, and on a view of one
+    record of a stack (read in place), against the plain version; counts
+    one launch per call.  1e-4 of the output's scale: float32 sums in
+    another order."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev)
+    gen.manual_seed(bits * 10 + M)
+    K, N = 512, 320
+    stack = P.quantize(torch.randn((3, K, N), generator=gen, device=dev) * 0.05,
+                       bits)
+    one = P.quantize(torch.randn((K, N), generator=gen, device=dev) * 0.05, bits)
+    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    before = PO.dequant_matmul.launches
+    for qt in (one, P.slice_leading(stack, 2)):
+        y, yp = PO.dequant_matmul(x, qt), PR.dequant_matmul(x, qt)
+        torch.cuda.synchronize()
+        assert y.shape == (M, N) and y.dtype == torch.float32
+        assert float((y - yp).abs().max()) <= 1e-4 * float(yp.abs().max())
+    assert PO.dequant_matmul.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_dequant_matmul_2d_refuses_what_it_cannot_read():
+    """A stacked weight, a non-contiguous x and a float16 x raise."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    qt = P.quantize(torch.randn((256, 128), device=dev), 4)
+    with pytest.raises(AssertionError):
+        PO.dequant_matmul(torch.randn((1, 256), device=dev),
+                          P.quantize(torch.randn((2, 256, 128), device=dev), 4))
+    with pytest.raises(ValueError):
+        PO.dequant_matmul(torch.randn((2, 512), device=dev)[:, ::2], qt)
+    with pytest.raises(TypeError):
+        PO.dequant_matmul(torch.randn((2, 256), device=dev).half(), qt)
+
+
+# ----------------------------------------------------------------------
+# the flash-attention kernel
+FLASH_CASES = [  # (B, H, Hkv, Sq, Skv, hd, causal, window, q_offset)
+    (1, 4, 4, 64, 64, 32, True, None, 0),
+    (2, 8, 4, 70, 200, 64, True, None, 130),     # ragged edges, GQA 2
+    (1, 32, 8, 64, 64, 128, True, 4096, 0),      # the main path's chunk
+    (1, 8, 2, 130, 400, 128, True, 96, 270),     # window skips KV tiles
+    (2, 4, 1, 1, 37, 64, True, 8, 36),           # one query row
+    (1, 4, 2, 33, 90, 32, False, None, 0),       # not causal
+    (1, 4, 2, 40, 50, 32, True, 5, 100),         # rows with no valid key
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_kernel_matches_plain_on_card(dtype, case):
+    """``ops.flash_attention`` on (B, H, S, d) views of (B, S, H, d)
+    tensors (the model's layout, read through strides) against the plain
+    version run in float32 on the same (upcast) inputs.  float32 within
+    2e-5 of each (head, row)'s max |plain| (the same sums in another
+    order); bfloat16 within 2^-7 of it: the kernel accumulates in float32
+    and rounds only its output (the tensor-core instance keeps P to ~16
+    bits through P.V).  Rows without a valid key are 0.  The 3-D (BH, S,
+    d) layout gives the same bits; an unaligned q takes the other
+    instance and the same tolerance."""
+    _need_cuda()
+    from repro_torch.kernels import flash_attention as FA
+    B, H, Hkv, Sq, Skv, hd, causal, window, q_offset = case
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev)
+    gen.manual_seed(Sq * 7 + Skv)
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, Sq, H, hd), generator=gen, device=dev).to(dt)
+    k = torch.randn((B, Skv, Hkv, hd), generator=gen, device=dev).to(dt)
+    v = torch.randn((B, Skv, Hkv, hd), generator=gen, device=dev).to(dt)
+    qv, kv, vv = (t.transpose(1, 2) for t in (q, k, v))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = PO.flash_attention.launches
+    out = PO.flash_attention(qv, kv, vv, **kw)
+    plain = FA.flash_attention_reference(qv.float(), kv.float(), vv.float(), **kw)
+    flat = PO.flash_attention(qv.reshape(B * H, Sq, hd),
+                              kv.contiguous().reshape(B * Hkv, Skv, hd),
+                              vv.contiguous().reshape(B * Hkv, Skv, hd), **kw)
+    # q one element off its 16-byte alignment: bfloat16 takes the kernel's
+    # float32-FMA instance instead of the tensor-core one
+    qu = torch.empty(q.numel() + 1, dtype=dt, device=dev)[1:].view(q.shape)
+    qu.copy_(q)
+    off = PO.flash_attention(qu.transpose(1, 2), kv, vv, **kw)
+    torch.cuda.synchronize()
+    assert PO.flash_attention.launches == before + 3
+    assert out.shape == qv.shape and out.dtype == dt
+    assert out.transpose(1, 2).is_contiguous()  # written in q's layout
+    assert torch.equal(flat.reshape(B, H, Sq, hd), out)
+    rtol = 2e-5 if dtype == "float32" else 2 ** -7
+    scale = plain.abs().amax(-1)
+    for y in (out, off):
+        err = (y.float() - plain).abs().amax(-1)
+        assert bool((err <= rtol * scale).all()), float((err - rtol * scale).max())
+    empty = ~FA._valid(Sq, Skv, causal, window, q_offset, dev).any(-1)
+    assert bool((out[:, :, empty] == 0).all())
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_what_it_cannot_read():
+    """No quiet plain path on the card: float16, a head_dim without an
+    instance, a strided last dimension, heads that do not divide, mixed
+    dtypes."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    q = torch.randn((4, 8, 32), device=dev)
+    k = torch.randn((2, 16, 32), device=dev)
+    with pytest.raises(ValueError):
+        PO.flash_attention(q.half(), k.half(), k.half())
+    q48, k48 = torch.randn((4, 8, 48), device=dev), torch.randn((2, 16, 48), device=dev)
+    with pytest.raises(ValueError):
+        PO.flash_attention(q48, k48, k48)
+    with pytest.raises(ValueError):
+        PO.flash_attention(torch.randn((4, 8, 64), device=dev)[..., ::2], k, k)
+    with pytest.raises(ValueError):
+        PO.flash_attention(q, torch.randn((3, 16, 32), device=dev),
+                           torch.randn((3, 16, 32), device=dev))
+    with pytest.raises(ValueError):
+        PO.flash_attention(q, k.to(torch.bfloat16), k.to(torch.bfloat16))

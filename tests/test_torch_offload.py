@@ -35,10 +35,10 @@ N_NEW = 12
 LOGIT_ATOL = 1e-4
 
 
-def reference_run(eng, prompt, n):
-    """The reference's ``_generate_packed`` loop on its executor, keeping
-    the per-step logits and routing ids (what ``generate`` discards)."""
-    dec = eng._decoder
+def reference_run(dec, prompt, n):
+    """The reference's ``_generate_packed`` loop on its executor ``dec``,
+    keeping the per-step logits and routing ids (what ``generate``
+    discards)."""
     ps = dec.init_pool_state()
     pre, st, _ = dec.prefill(jnp.asarray(prompt), prompt.shape[1] + n)
     logits, routes = [np.asarray(pre[0, -1])], [None]
@@ -68,7 +68,7 @@ def runs(request):
                   expert_bits=bits, attn_bits=4)
     jeng = JEngine(JT.init_model(jax.random.key(0), jcfg), jcfg, jspec,
                    quantized=True)
-    ref = reference_run(jeng, PROMPT, N_NEW)
+    ref = reference_run(jeng._decoder, PROMPT, N_NEW)
     jtoks, jstats = jeng.generate(PROMPT, N_NEW)
 
     pcfg = pget("tiny-moe").replace(n_layers=2)
