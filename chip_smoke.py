@@ -20,10 +20,14 @@ last line):
    64-token prompt prefilled (one chunk, through the flash-attention
    kernel) and 32 tokens generated greedily through
    ``OffloadEngine.generate``, with the kernel launch counts, the h2d
-   bytes actually issued against the counters, and pool coherence.
-5. prefill kernel: the batched binding timed again at the shapes the main
-   run's prefill launched (experts x rows padded to the largest group),
-   beside the same rows spread evenly, so the padding's cost shows.
+   bytes actually issued against the counters, and pool coherence; one
+   prefill profiled, split into the prefill tier's h2d copies and the
+   kernels' time.
+5. prefill kernel: the batched binding (the grouped tensor-core kernel)
+   timed again at the main run's prefill's per-expert row counts, as
+   ragged groups, beside the FMA kernel it replaced on the same rows
+   zero-padded to the largest group; then a 4096-token prompt's 8192
+   routed rows over 8 experts (operation-bound), with its TFLOP/s.
 6. ragged kernel: the paged-attention kernel against its plain version at
    Mixtral's attention shapes (H 32, Hkv 8, hd 128, pages of 16, bf16):
    a decode step of 4 rows (live lengths 37, 300, 1500, 4200, window
@@ -44,7 +48,7 @@ last line):
    path's 64-token prefill chunk, a 4096-token prompt and a windowed
    1024-row chunk at position 7168 over 8192 keys (window 4096, the
    KV-tile skip); time, plain time, bound and, where no window applies,
-   ``scaled_dot_product_attention`` as a yardstick.
+   ``scaled_dot_product_attention`` as a yardstick (``kernel_over_library``).
 10. planes: the paper's three offload data planes (the reference's
    ``offload_bench`` variants ``pr2_sync``, ``vectorized``, ``pipelined``)
    on the main phase's model, weights and store: decode tokens/s with
@@ -272,59 +276,88 @@ def phase_kernels(dev):
     return out, tiers, flush
 
 
+def _grouped_case(dev, tiers, flush, counts, gen, *, previous=False):
+    """The batched binding over U = len(counts) experts of the 2-bit
+    tiers with ragged row groups of ``counts`` rows, for gate, down and up,
+    x bf16: checked against the plain version at ``KERNEL_RTOL`` and timed.
+    With ``previous`` the FMA kernel (``csrc/dequant_matmul.cu``, what this
+    binding launched before the grouped kernel) is timed beside it on the
+    same rows zero-padded to the largest group.  The bound counts the U
+    experts' stored bytes, x and the output, and the operations of the
+    routed rows."""
+    import torch
+    from repro_torch.kernels import dequant_matmul as DM, ops, ref
+    from repro_torch.quant import hqq
+    U, rows = len(counts), int(sum(counts))
+    off = np.concatenate([[0], np.cumsum(counts)])
+    t = dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0, err=0.0, rel=0.0)
+    if previous:
+        t["previous_padded_ms"] = 0.0
+    for K, N in SHAPES:
+        full = tiers[2, K, N]
+        qt = hqq.QTensor(full.packed[:U], full.scale[:U], full.zero[:U],
+                         {k: v[:U] for k, v in full.meta.items()},
+                         2, full.group_size, (U, K, N))
+        x = torch.randn((rows, K), generator=gen, device=dev).to(torch.bfloat16)
+        y, yp = ops.dequant_matmul_batched(x, qt, off), ref.dequant_matmul_grouped(x, qt, off)
+        err = (y - yp).abs().max().item()
+        scale = yp.abs().max().item()
+        if not (err <= KERNEL_RTOL * scale) or not torch.isfinite(y).all():
+            fail(f"grouped at counts {list(counts)} K={K}: {err:.3g} > "
+                 f"{KERNEL_RTOL} x {scale:.3g}")
+        t["err"], t["rel"] = max(t["err"], err), max(t["rel"], err / scale)
+        t["ms"] += _event_ms(lambda: ops.dequant_matmul_batched(x, qt, off), 10, flush)
+        t["row_tile"] = DM.launch_grouped.last_bm
+        del y, yp
+        t["plain_ms"] += _event_ms(lambda: ref.dequant_matmul_grouped(x, qt, off), 1, flush)
+        if previous:
+            xp = torch.zeros((U, int(max(counts)), K), dtype=x.dtype, device=dev)
+            for u in range(U):
+                xp[u, :counts[u]] = x[off[u]:off[u + 1]]
+            t["previous_padded_ms"] += _event_ms(lambda: DM.launch(xp, qt, None), 5, flush)
+        t["bytes"] += (_stored_bytes(qt, U) + x.numel() * x.element_size()
+                       + rows * N * 4)
+        t["flops"] += 2 * rows * K * N
+    t["bound_ms"], t["bound_by"] = _bound(t["bytes"], t["flops"])
+    t["tflop_s"] = t["flops"] / (t["ms"] * 1e-3) / 1e12
+    t["bound_share"] = t["bound_ms"] / t["ms"]
+    return t
+
+
 def phase_prefill_kernel(dev, tiers, flush, batches):
     """The batched binding at the shapes the main run's prefill launched:
-    per MoE layer, U distinct experts with their routed rows grouped and
-    zero-padded to the largest group (U, Mmax), for gate, down and up at
-    2 bits, x bf16.  Beside it the same rows spread evenly over the
-    experts, (U, ceil(rows / U)): the gap is what the padding costs.  The
-    bound counts the U experts' stored bytes, x as launched and the output,
-    and the operations of the routed rows only.  Returns the per-layer
-    means (the kernels line's ``dequant_matmul_batched`` entry)."""
+    per MoE layer the per-expert row counts of the routed rows, as ragged
+    groups (no padding: ``padded_over_routed_rows`` is 1.0), gate, down and
+    up at 2 bits, x bf16; the FMA kernel on the same rows padded to the
+    largest group beside it (the previous design, same run).  Then one
+    long case: a 4096-token prompt's 8192 routed rows over 8 experts,
+    counts from a seeded multinomial, operation-bound.  Returns the
+    per-layer means (the kernels line's ``dequant_matmul_batched``
+    entry)."""
     import torch
-    from repro_torch.kernels import ops, ref
-    from repro_torch.quant import hqq
     gen = torch.Generator(dev)
     gen.manual_seed(2)
     per_layer = []
-    err_max = rel_max = 0.0
-    for l, (U, Mmax, rows) in enumerate(batches):
-        even = -(-rows // U)
-        t = dict(ms=0.0, even_ms=0.0, plain_ms=0.0, bytes=0, flops=0)
-        for K, N in SHAPES:
-            full = tiers[2, K, N]
-            qt = hqq.QTensor(full.packed[:U], full.scale[:U], full.zero[:U],
-                             {k: v[:U] for k, v in full.meta.items()},
-                             2, full.group_size, (U, K, N))
-            x = torch.randn((U, Mmax, K), generator=gen,
-                            device=dev).to(torch.bfloat16)
-            xe = x[:, :even].contiguous()
-            y, yp = ops.dequant_matmul_batched(x, qt), ref.dequant_matmul_batched(x, qt)
-            err = (y - yp).abs().max().item()
-            scale = yp.abs().max().item()
-            if not (err <= KERNEL_RTOL * scale) or not torch.isfinite(y).all():
-                fail(f"batched at prefill shape U={U} M={Mmax} K={K}: {err:.3g}")
-            err_max, rel_max = max(err_max, err), max(rel_max, err / scale)
-            t["ms"] += _event_ms(lambda: ops.dequant_matmul_batched(x, qt), 10, flush)
-            t["even_ms"] += _event_ms(lambda: ops.dequant_matmul_batched(xe, qt), 10, flush)
-            t["plain_ms"] += _event_ms(lambda: ref.dequant_matmul_batched(x, qt), 2, flush)
-            t["bytes"] += (_stored_bytes(qt, U) + x.numel() * x.element_size()
-                           + y.numel() * 4)
-            t["flops"] += 2 * rows * K * N
-        t["bound_ms"], t["bound_by"] = _bound(t["bytes"], t["flops"])
-        log(f"[prefill-kernel] layer {l}: {U} experts, {rows} routed rows, "
-            f"{U * Mmax} launched (max group {Mmax}, even {even}): kernel "
-            f"{t['ms']:.4f} ms, evenly spread {t['even_ms']:.4f} ms, plain "
+    for l, counts in enumerate(batches):
+        t = _grouped_case(dev, tiers, flush, counts, gen, previous=True)
+        log(f"[prefill-kernel] layer {l}: {len(counts)} experts, counts "
+            f"{list(counts)}, row tile {t['row_tile']}: kernel {t['ms']:.4f} ms, "
+            f"previous kernel padded {t['previous_padded_ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
         per_layer.append(t)
     mean = lambda k: float(np.mean([t[k] for t in per_layer]))
-    out = {"ms": mean("ms"), "even_ms": mean("even_ms"),
+    out = {"ms": mean("ms"), "previous_padded_ms": mean("previous_padded_ms"),
            "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
-           "bound_by": per_layer[0]["bound_by"],
-           "padded_over_routed_rows": sum(U * M for U, M, _ in batches)
-           / sum(r for _, _, r in batches),
-           "max_abs_err": err_max, "max_rel_err": rel_max}
+           "bound_by": per_layer[0]["bound_by"], "padded_over_routed_rows": 1.0,
+           "max_abs_err": max(t["err"] for t in per_layer),
+           "max_rel_err": max(t["rel"] for t in per_layer)}
     log(f"[prefill-kernel] per MoE layer, mean of {len(batches)}: {json.dumps(out)}")
+    counts = np.random.default_rng(8).multinomial(2 * 4096, [1 / 8] * 8)
+    long = _grouped_case(dev, tiers, flush, [int(c) for c in counts], gen)
+    log(f"[prefill-kernel] long prompt (4096 tokens x top-2 = 8192 routed rows, "
+        f"counts {counts.tolist()}), per MoE layer: {json.dumps(long)}")
+    out["max_abs_err"] = max(out["max_abs_err"], long["err"])
+    out["long"] = long
     return out
 
 
@@ -437,7 +470,7 @@ def phase_main(dev):
                   ("n_tokens", "hits", "spec_hits", "demand_loads", "spec_loads")},
         "bytes_h2d_counters": stats.bytes_h2d, "bytes_h2d_issued": ps.h2d_bytes,
         "prefill_h2d_bytes": tier.h2d_bytes,
-        "prefill_batches_experts_maxrows_rows": batches,
+        "prefill_group_counts": batches,
         "host_reads_per_token": ps.host_reads / steps,
         "h2d_probe_gb_s": link,
         "pool_staging_gib": (ps.pool.nbytes() + ps.staging.nbytes()) / 2**30,
@@ -502,7 +535,8 @@ def _union_ms(spans):
 def _device_split(prof, steps, label, trace_name):
     """The union of device activity by kind over a profiled window of
     ``steps`` steps (expert copies h2d, device-local copies, the dequant
-    kernel, the ragged kernel, other kernels) beside the window's wall
+    kernels, the ragged kernel, the flash kernel, other kernels) beside
+    the window's wall
     time, so the idle share of the card follows; the Chrome trace goes to
     the git-ignored output directory beside this script."""
     import torch
@@ -515,8 +549,9 @@ def _device_split(prof, steps, label, trace_name):
     kinds = {
         "h2d_copy": [e for e in cuda if "HtoD" in e.name],
         "d2d_copy": [e for e in cuda if "DtoD" in e.name],
-        "dequant_kernel": [e for e in cuda if "dequant_matmul" in e.name],
+        "dequant_kernel": [e for e in cuda if "dequant_" in e.name],
         "ragged_kernel": [e for e in cuda if "ragged_" in e.name],
+        "flash_kernel": [e for e in cuda if "flash_" in e.name],
     }
     used = {id(e) for es in kinds.values() for e in es}
     kinds["other_kernels"] = [e for e in cuda if id(e) not in used
@@ -526,7 +561,7 @@ def _device_split(prof, steps, label, trace_name):
     window = (t1 - t0) / 1e3
     out = {k: _union_ms(span(v)) for k, v in kinds.items()}
     compute = _union_ms(span(kinds["dequant_kernel"] + kinds["ragged_kernel"]
-                             + kinds["other_kernels"]))
+                             + kinds["flash_kernel"] + kinds["other_kernels"]))
     busy = _union_ms(span(cuda))
     host_launches = sum(e.name.startswith("cudaLaunchKernel") for e in evs)
     out.update(window_ms=window, per_step_ms=window / steps,
@@ -560,6 +595,32 @@ def _profile_decode(eng, prompt, dev, steps=8):
             int(tok[0, 0])
         torch.cuda.synchronize(dev)
     return _device_split(prof, steps, "profile", "decode_trace.json")
+
+
+def _profile_prefill(eng, prompt, dev):
+    """Where the 64-token prefill's time goes: one prefill (the main run's
+    prompt) under ``torch.profiler``: the prefill tier's h2d expert copies,
+    the grouped dequant kernel, the flash kernel and the rest, beside the
+    prefill's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    dec = eng._exec
+    x = torch.as_tensor(prompt, dtype=torch.int32)
+    dec.prefill(x, prompt.shape[1] + 2)  # warm (allocator)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dec.prefill(x, prompt.shape[1] + 2)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    split = _device_split(prof, 1, "prefill-profile", "prefill_trace.json")
+    if split is not None:
+        log(f"[main] prefill split (profiled, {wall * 1e3:.1f} ms wall): tier h2d "
+            f"{split['h2d_copy']:.2f} ms, dequant kernel {split['dequant_kernel']:.2f} ms, "
+            f"flash kernel {split['flash_kernel']:.3f} ms, other kernels "
+            f"{split['other_kernels']:.2f} ms, device idle share "
+            f"{split['device_idle_share']:.3f}")
+    return split
 
 
 # ----------------------------------------------------------------------
@@ -988,6 +1049,8 @@ def phase_flash(dev, flush):
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), pos,
                 pos[None], causal=True, window=window), 10, flush)
         r["tflop_s"] = flops / (r["ms"] * 1e-3) / 1e12
+        r["kernel_over_library"] = (None if r["library_ms"] is None
+                                    else r["ms"] / r["library_ms"])
         log(f"[flash] {name}: {json.dumps(r)}")
         out[name] = r
     main = dict(out["prefill_chunk"])
@@ -1082,6 +1145,7 @@ def main():
     planes = phase_planes(dev, eng, cfg)
     launches["dequant_matmul"] = planes["pr2_sync"]["launches"]["dequant_matmul"]
     _profile_decode(eng, prompt, dev)
+    _profile_prefill(eng, prompt, dev)
     batched = phase_prefill_kernel(dev, tiers, flush, batches)
     batched["max_abs_err"] = max(batched["max_abs_err"],
                                  kern["dequant_matmul_batched"]["max_abs_err"])
@@ -1092,7 +1156,7 @@ def main():
     slots = kern["dequant_matmul_slots"]
     slots["max_abs_err"] = max(slots["max_abs_err"], serve_slots["err"])
     csrc = "src/repro_torch/kernels/csrc/"
-    src = {"dequant_matmul_batched": csrc + "dequant_matmul.cu",
+    src = {"dequant_matmul_batched": csrc + "dequant_grouped.cu",
            "dequant_matmul_slots": csrc + "dequant_matmul.cu",
            "dequant_matmul": csrc + "dequant_matmul.cu",
            "flash_attention": csrc + "flash_attention.cu",

@@ -526,14 +526,14 @@ class PrefillTier:
     """Reusable device tier of up to E expert slots that prefill fills,
     per layer, with the distinct experts its chunk routes to (h2d, never
     counted in the offload counters; ``h2d_bytes`` tracks them apart).
-    ``batches`` keeps the (experts, rows per expert as launched, routed
-    rows) of the most recent kernel batches: rows are grouped by expert
-    and padded to the largest group."""
+    ``batches`` keeps the per-expert row counts of the most recent kernel
+    batches (one tuple per MoE layer call, in the tier's slot order): the
+    ragged groups the grouped kernel ran."""
 
     tier: Tier
     h2d_bytes: int = 0
     host_reads: int = 0
-    batches: Deque[Tuple[int, int, int]] = dataclasses.field(
+    batches: Deque[Tuple[int, ...]] = dataclasses.field(
         default_factory=lambda: collections.deque(maxlen=256))
 
     @classmethod

@@ -29,8 +29,11 @@
 // slot map are.
 //
 // Simple first: no cp.async/TMA pipeline, no split-K across blocks, no
-// regrouping of rows into tensor-core tiles.  Launches on the caller's
-// stream, allocates nothing, and returns cudaGetLastError().
+// tensor cores.  It serves decode (M = 1, by slot) and float32 activations;
+// bfloat16 prefill groups run csrc/dequant_grouped.cu.  Ragged row groups
+// (dequant_matmul_ragged) take the same code, one block row per group.
+// Launches on the caller's stream, allocates nothing, and returns
+// cudaGetLastError().
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -124,17 +127,16 @@ __device__ __forceinline__ void group_fma(const uint8_t* __restrict__ p, int N, 
   }
 }
 
+// The M rows of xb (M, K) times record s of the weights into ob (M, N), for
+// this block's TILE_N columns.
 template <int BITS, int MT, typename XT>
-__global__ void __launch_bounds__(TX * TY)
-dequant_matmul_kernel(const XT* __restrict__ x, float* __restrict__ out,
-                      const int* __restrict__ slots, Leaves w,
-                      int M, int K, int N, int gs, int sg) {
+__device__ __forceinline__ void dequant_rows(const XT* __restrict__ xb, float* __restrict__ ob,
+                                             long long s, const Leaves& w, int M, int K, int N,
+                                             int gs, int sg) {
   __shared__ float red[TY][MT][TILE_N];
   const int tx = threadIdx.x, ty = threadIdx.y;
-  const int b = blockIdx.y;
   const int n0 = blockIdx.x * TILE_N + tx * CPT;
   const bool col_ok = n0 < N;  // N % CPT == 0: a thread's columns are all in or all out
-  const long long s = slots ? static_cast<long long>(slots[b]) : static_cast<long long>(b);
   const int G = K / gs;
   const int pg = gs * BITS / 8;
 
@@ -145,8 +147,6 @@ dequant_matmul_kernel(const XT* __restrict__ x, float* __restrict__ out,
   const __half* SM = w.s_min + s * w.meta_stride;
   const __half* ZS = w.z_scale + s * w.meta_stride;
   const __half* ZM = w.z_min + s * w.meta_stride;
-  const XT* xb = x + static_cast<long long>(b) * M * K;
-  float* ob = out + static_cast<long long>(b) * M * N;
 
   for (int m0 = 0; m0 < M; m0 += MT) {
     float acc[MT][CPT];
@@ -194,6 +194,42 @@ dequant_matmul_kernel(const XT* __restrict__ x, float* __restrict__ out,
     }
     __syncthreads();
   }
+}
+
+template <int BITS, int MT, typename XT>
+__global__ void __launch_bounds__(TX * TY)
+dequant_matmul_kernel(const XT* __restrict__ x, float* __restrict__ out,
+                      const int* __restrict__ slots, Leaves w,
+                      int M, int K, int N, int gs, int sg) {
+  const int b = blockIdx.y;
+  const long long s = slots ? static_cast<long long>(slots[b]) : static_cast<long long>(b);
+  dequant_rows<BITS, MT>(x + static_cast<long long>(b) * M * K,
+                         out + static_cast<long long>(b) * M * N, s, w, M, K, N, gs, sg);
+}
+
+// Ragged row groups (float32 x): group u, rows off[u] .. off[u + 1] of x
+// and out, reads record u.
+constexpr int MAX_GROUPS = 256;
+struct Offsets {
+  int v[MAX_GROUPS + 1];  // passed by value
+};
+
+template <int BITS, int MT>
+__global__ void __launch_bounds__(TX * TY)
+dequant_ragged_kernel(const float* __restrict__ x, float* __restrict__ out, const Offsets off,
+                      Leaves w, int K, int N, int gs, int sg) {
+  const int u = blockIdx.y, r0 = off.v[u], M = off.v[u + 1] - r0;
+  if (M <= 0) return;
+  dequant_rows<BITS, MT>(x + static_cast<long long>(r0) * K, out + static_cast<long long>(r0) * N,
+                         u, w, M, K, N, gs, sg);
+}
+
+template <int BITS, int MT>
+void launch_ragged(const float* x, float* out, const Offsets& off, const Leaves& w, int U, int K,
+                   int N, int gs, int sg, cudaStream_t stream) {
+  const dim3 block(TX, TY);
+  const dim3 grid((N + TILE_N - 1) / TILE_N, U);
+  dequant_ragged_kernel<BITS, MT><<<grid, block, 0, stream>>>(x, out, off, w, K, N, gs, sg);
 }
 
 template <int BITS, int MT, typename XT>
@@ -259,5 +295,50 @@ extern "C" int dequant_matmul(const void* x, int x_dtype, float* out, const int*
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   if (rc) return rc;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x: (R, K) float32 contiguous, rows sorted by group; offsets: U + 1 row
+// offsets in host memory (offsets[0] = 0); out: (R, N) float32.  Group u
+// reads record u of the leaves, laid out as for dequant_matmul.
+extern "C" int dequant_matmul_ragged(const float* x, float* out, const int* offsets, int U, int K,
+                                     int N, int bits, int group_size, int scale_group,
+                                     const uint8_t* packed, long long packed_stride,
+                                     const uint8_t* scale, long long scale_stride,
+                                     const uint8_t* zero, long long zero_stride,
+                                     const void* s_scale, const void* s_min, const void* z_scale,
+                                     const void* z_min, long long meta_stride, void* stream) {
+  if (U <= 0 || U > MAX_GROUPS || N <= 0 || N % CPT || group_size <= 0 || K % group_size ||
+      scale_group <= 0 || (K / group_size) % scale_group || offsets[0] != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if ((bits == 3 && group_size % 8) || (bits != 3 && group_size % (8 / bits)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Offsets off;
+  int max_rows = 0;
+  off.v[0] = 0;
+  for (int u = 0; u < U; ++u) {
+    off.v[u + 1] = offsets[u + 1];
+    const int c = off.v[u + 1] - off.v[u];
+    if (c < 0) return static_cast<int>(cudaErrorInvalidValue);
+    max_rows = c > max_rows ? c : max_rows;
+  }
+  if (max_rows == 0) return 0;
+  const Leaves w{packed, packed_stride, scale, scale_stride, zero, zero_stride,
+                 static_cast<const __half*>(s_scale), static_cast<const __half*>(s_min),
+                 static_cast<const __half*>(z_scale), static_cast<const __half*>(z_min),
+                 meta_stride};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool one = max_rows == 1;
+  switch (bits) {
+    case 2: one ? launch_ragged<2, 1>(x, out, off, w, U, K, N, group_size, scale_group, st)
+                : launch_ragged<2, 8>(x, out, off, w, U, K, N, group_size, scale_group, st); break;
+    case 3: one ? launch_ragged<3, 1>(x, out, off, w, U, K, N, group_size, scale_group, st)
+                : launch_ragged<3, 8>(x, out, off, w, U, K, N, group_size, scale_group, st); break;
+    case 4: one ? launch_ragged<4, 1>(x, out, off, w, U, K, N, group_size, scale_group, st)
+                : launch_ragged<4, 8>(x, out, off, w, U, K, N, group_size, scale_group, st); break;
+    case 8: one ? launch_ragged<8, 1>(x, out, off, w, U, K, N, group_size, scale_group, st)
+                : launch_ragged<8, 8>(x, out, off, w, U, K, N, group_size, scale_group, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

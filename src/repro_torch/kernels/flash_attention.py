@@ -14,9 +14,11 @@ H, d) activations and KV ring without a copy.
   rounded once to q's dtype), except that a row without a valid key
   gives 0, as the TPU kernel's ``l == 0 -> 1`` rule means it to.  The
   CPU path runs it.
-* :func:`launch`, the Hopper kernel (``csrc/flash_attention.cu``): one
-  block per (query tile, query head, batch) loops over the KV tiles that
-  can intersect its window, with the online softmax in registers.
+* :func:`launch`, the Hopper kernel (``csrc/flash_attention.cu``): a
+  block loops over the KV tiles that can intersect its query tile's
+  window, with the online softmax in registers; bf16 (head_dim 64 / 128)
+  on ``wgmma`` with one block per (query tile, KV head, batch) and that
+  KV head's query heads stacked as rows, K/V tiles loaded by TMA.
 * :func:`flash_attention`, the dispatch: a CPU tensor takes the plain
   version; a CUDA tensor launches the kernel (or raises) and counts the
   launch in ``flash_attention.launches``.

@@ -14,6 +14,9 @@ main path went through the kernel.  Plain-version calls do not count.
 """
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
+import numpy as np
 import torch
 
 from repro_torch.kernels import ref
@@ -36,14 +39,28 @@ def dequant_matmul(x: torch.Tensor, qt: hqq.QTensor) -> torch.Tensor:
     return out
 
 
-def dequant_matmul_batched(x: torch.Tensor, qt: hqq.QTensor) -> torch.Tensor:
-    """x (B, M, K) @ dequant(qt[b]) per row, ``qt`` stacked (B, K, N)
-    packed; float32 out.  The kernel binding with ``slots = arange(B)``."""
+def dequant_matmul_batched(x: torch.Tensor, qt: hqq.QTensor,
+                           offsets: Optional[Sequence[int]] = None
+                           ) -> torch.Tensor:
+    """Group-wise x @ dequant(qt[u]) over a stacked packed tier (S, K, N);
+    float32 out.  With ``offsets`` (U + 1 host row offsets), x (R, K)
+    holds U ragged row groups sorted by group and group u reads record u
+    -> (R, N).  Without, x (B, M, K) is B groups of M rows (``offsets =
+    arange(B + 1) * M``) -> (B, M, N).  On the card one launch of the
+    grouped kernel (``kernels/dequant_matmul.launch_grouped``)."""
     assert len(qt.shape) == 3, "expect (B,)-stacked 2-D weights"
     if x.device.type == "cpu":
-        return ref.dequant_matmul_batched(x, qt)
+        if offsets is None:
+            return ref.dequant_matmul_batched(x, qt)
+        return ref.dequant_matmul_grouped(x, qt, offsets)
     from repro_torch.kernels import dequant_matmul as DM
-    out = DM.launch(x, qt, None)
+    if offsets is None:
+        DM._check_x(x, 3, "(B, M, K)")
+        B, M, K = x.shape
+        out = DM.launch_grouped(x.reshape(B * M, K), qt,
+                                np.arange(B + 1) * M).reshape(B, M, -1)
+    else:
+        out = DM.launch_grouped(x, qt, offsets)
     dequant_matmul_batched.launches += 1
     return out
 

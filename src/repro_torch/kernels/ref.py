@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the dequant-matmul kernel's three bindings.
+"""Plain PyTorch versions of the dequant-matmul kernels' bindings.
 
 They mirror the reference's jnp path (``ref.dequant_matmul_ref``,
 ``ops._dequant_rows`` and the batched einsum of
@@ -39,6 +39,21 @@ def stack_one(qt: hqq.QTensor) -> hqq.QTensor:
 def dequant_matmul_batched(x: torch.Tensor, qt: hqq.QTensor) -> torch.Tensor:
     """x (B, M, K) @ dequant(qt[b]) per row -> (B, M, N) f32."""
     return torch.einsum("bmk,bkn->bmn", x.to(torch.float32), dequant_rows(qt))
+
+
+def dequant_matmul_grouped(x: torch.Tensor, qt: hqq.QTensor,
+                           offsets) -> torch.Tensor:
+    """x (R, K), rows sorted into U ragged groups at the host row
+    ``offsets`` (U + 1), group u @ dequant(qt[u]) -> (R, N) f32."""
+    off = [int(o) for o in offsets]
+    U = len(off) - 1
+    head = hqq.QTensor(qt.packed[:U], qt.scale[:U], qt.zero[:U],
+                       None if qt.meta is None else
+                       {k: v[:U] for k, v in qt.meta.items()},
+                       qt.bits, qt.group_size, (U,) + tuple(qt.shape[1:]))
+    w = dequant_rows(head)
+    xf = x.to(torch.float32)
+    return torch.cat([xf[off[u]:off[u + 1]] @ w[u] for u in range(U)])
 
 
 def gather_slots(qt: hqq.QTensor, slots: torch.Tensor) -> hqq.QTensor:

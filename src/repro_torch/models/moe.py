@@ -13,8 +13,9 @@ reference's ``models/moe.py``, the paths offloaded generation runs).
   ``ops.dequant_matmul`` calls, the only path of that 2-D binding.
 * :func:`moe_apply_packed_stream`: prefill.  Each distinct routed expert
   of the layer is copied once into a reusable device tier, the rows are
-  grouped by expert, and the kernel runs over that tier as a batch
-  (``ops.dequant_matmul_batched``); no pool state, no counter.
+  sorted into ragged groups by expert, and the grouped kernel runs over
+  that tier (``ops.dequant_matmul_batched`` with row offsets); no pool
+  state, no counter.
 
 ``fused=False`` (both) dequantizes each served record into the model
 dtype (``quant/hqq.dequantize``) and runs plain matrix products, the
@@ -94,12 +95,13 @@ def _gather_ffn(x2d, wg, wu, wd, w):
 
 
 # ----------------------------------------------------------------------
-def _expert_ffn(cfg, xk, mats: EP.PackedExperts, slots):
-    """xk (B, M, D) through the packed experts: row b reads slot
-    ``slots[b]`` of the (S, ...) tier ``mats``, or slot b when ``slots``
-    is None.  Returns (B, M, D) float32."""
-    if slots is None:
-        mm = ops.dequant_matmul_batched
+def _expert_ffn(cfg, xk, mats: EP.PackedExperts, slots=None, offsets=None):
+    """xk through the packed experts of the (S, ...) tier ``mats``: (B, M,
+    D) rows, row b reading slot ``slots[b]``; or, with the host row
+    ``offsets`` of U ragged groups, (R, D) rows sorted by group, group u
+    reading slot u.  Returns float32 in xk's shape."""
+    if offsets is not None:
+        mm = lambda x, qt: ops.dequant_matmul_batched(x, qt, offsets)
     else:
         mm = lambda x, qt: ops.dequant_matmul_slots(x, qt, slots)
     dt = xk.dtype
@@ -148,37 +150,42 @@ def moe_apply_packed_stream(p, cfg, x2d, store: EP.Tier, l: int,
                             tier: EP.PrefillTier, *, fused: bool = True):
     """Prefill-chunk MoE over the packed host store: route, read the ids
     to the host (one read), copy each distinct routed expert once into
-    ``tier``, group the (token, k) rows by expert into an (U, M, D) batch
-    (zero rows pad the short groups) and run the kernel over the tier
-    (``fused``), or dequantize the U experts into the model dtype and
-    run plain batched products (``fused=False``).  No pool state is read
-    or written and no offload counter moves.  Returns ``(y2d,
+    ``tier``, gather the (token, k) rows sorted by expert into ragged
+    groups (no padding) and run the grouped kernel over the tier
+    (``fused``), or dequantize the U experts into the model dtype and run
+    one plain product per group (``fused=False``); the outputs return to
+    (token, k) order by the inverse permutation.  The order, its inverse
+    and the group offsets come from the counts already on the host; one
+    upload carries the two permutations.  No pool state is read or
+    written and no offload counter moves.  Returns ``(y2d,
     route_info)``."""
     w, ids, probs = route_topk(p, cfg.moe, x2d)
     T, K = ids.shape
     flat = EP.read_host(tier, ids.reshape(-1)).astype(np.int64)
     experts, group = np.unique(flat, return_inverse=True)  # row -> group
-    order = np.argsort(group, kind="stable")
+    order = np.argsort(group, kind="stable")  # routed rows, grouped by expert
     counts = np.bincount(group, minlength=len(experts))
-    pos = np.empty_like(group)
-    pos[order] = np.arange(len(flat)) - np.repeat(np.cumsum(counts) - counts,
-                                                   counts)
+    offsets = np.concatenate([[0], np.cumsum(counts)])
+    inverse = np.empty_like(order)
+    inverse[order] = np.arange(len(order))
     mats = tier.load(store, l, experts)
-    dev = x2d.device
-    g_t = torch.as_tensor(group, device=dev)
-    p_t = torch.as_tensor(pos, device=dev)
-    tier.batches.append((len(experts), int(counts.max()), len(flat)))
-    xg = x2d.new_zeros((len(experts), int(counts.max()), x2d.shape[1]))
-    xg[g_t, p_t] = x2d.repeat_interleave(K, dim=0)
+    R = len(flat)
+    idx = torch.as_tensor(np.concatenate([order // K, inverse]),
+                          device=x2d.device)
+    tier.batches.append(tuple(int(c) for c in counts))
+    xs = x2d[idx[:R]]                                   # (R, D) by expert
     if fused:
-        yg = _expert_ffn(cfg, xg, mats, None)          # (U, M, D) f32
+        ys = _expert_ffn(cfg, xs, mats, offsets=offsets)  # (R, D) f32
     else:
         dt = x2d.dtype
         wg, wu, wd = (hqq.dequantize(qt, dt) for qt in mats)
-        h = torch.nn.functional.silu(torch.matmul(xg, wg).to(torch.float32)
-                                     ).to(dt) * torch.matmul(xg, wu)
-        yg = torch.matmul(h, wd).to(torch.float32)
-    yk = yg[g_t, p_t].reshape(T, K, -1)
+        spans = list(zip(offsets[:-1], offsets[1:]))
+        mm = lambda a, wt: torch.cat([a[o0:o1] @ wt[u]
+                                      for u, (o0, o1) in enumerate(spans)])
+        h = torch.nn.functional.silu(mm(xs, wg).to(torch.float32)
+                                     ).to(dt) * mm(xs, wu)
+        ys = mm(h, wd).to(torch.float32)
+    yk = ys[idx[R:]].reshape(T, K, -1)
     y = torch.einsum("tkd,tk->td", yk, w).to(x2d.dtype)
     return y, {"ids": ids, "weights": w, "probs": probs}
 

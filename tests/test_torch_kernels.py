@@ -15,7 +15,8 @@ import torch
 
 from repro.kernels import ops as JO
 from repro.kernels import ref as JR
-from repro.kernels.dequant_matmul import dequant_matmul_pallas
+from repro.kernels.dequant_matmul import (dequant_matmul_batched_pallas,
+                                          dequant_matmul_pallas)
 from repro.quant import hqq as J
 from repro_torch.kernels import ops as PO
 from repro_torch.quant import hqq as P
@@ -80,6 +81,55 @@ def test_plain_2d_matches_reference_kernel(bits, M):
     assert yt.shape == (M, N)
     np.testing.assert_allclose(yt, yj, rtol=0,
                                atol=1e-5 * float(np.abs(yj).max()))
+
+
+GROUP_COUNTS = [0, 1, 15, 16, 17, 64]  # empty, one row, tile +- 1, a full group
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+def test_plain_grouped_matches_reference_kernel(bits):
+    """``ops.dequant_matmul_batched`` with row offsets (ragged groups, the
+    plain ``ref.dequant_matmul_grouped`` on the CPU) against the
+    reference's ``dequant_matmul_batched_pallas`` in interpret mode, each
+    group zero-padded to the largest for the reference and compared on
+    its real rows only.  Within 1e-5 of max |reference|: float32 sums in
+    another order."""
+    K, N, U = 256, 128, len(GROUP_COUNTS)
+    rng = np.random.default_rng(bits)
+    w = rng.standard_normal((U, K, N)).astype(np.float32) * 0.05
+    qj = J.quantize(jnp.asarray(w), bits)
+    off = np.concatenate([[0], np.cumsum(GROUP_COUNTS)])
+    x = rng.standard_normal((int(off[-1]), K)).astype(np.float32)
+    xpad = np.zeros((U, max(GROUP_COUNTS), K), np.float32)
+    for u, c in enumerate(GROUP_COUNTS):
+        xpad[u, :c] = x[off[u]:off[u + 1]]
+    scale, zero = J._meta_dequantize(qj)
+    yj = np.asarray(dequant_matmul_batched_pallas(
+        jnp.asarray(xpad), qj.packed, scale, zero, bits=bits,
+        group_size=qj.group_size, bm=8, interpret=True))
+    PO.reset_launches()
+    yt = PO.dequant_matmul_batched(torch.from_numpy(x), to_port(qj), off).numpy()
+    assert yt.shape == (off[-1], N) and PO.launches()["dequant_matmul_batched"] == 0
+    atol = 1e-5 * float(np.abs(yj).max())
+    for u, c in enumerate(GROUP_COUNTS):
+        np.testing.assert_allclose(yt[off[u]:off[u + 1]], yj[u, :c], rtol=0,
+                                   atol=atol)
+
+
+def test_plain_uniform_batch_is_the_grouped_case():
+    """Without offsets the batched binding is the grouped one with
+    ``offsets = arange(B + 1) * M``: the same values."""
+    qj, x = _case(4, 8, 256, 128, seed=3)
+    qj = J.QTensor(qj.packed[:3], qj.scale[:3], qj.zero[:3],
+                   {k: v[:3] for k, v in qj.meta.items()}, 4, qj.group_size,
+                   (3, 256, 128))
+    qp = to_port(qj)
+    xt = torch.from_numpy(x)
+    uniform = PO.dequant_matmul_batched(xt, qp)
+    grouped = PO.dequant_matmul_batched(xt.reshape(24, 256), qp,
+                                        np.arange(4) * 8)
+    torch.testing.assert_close(grouped.reshape(3, 8, 128), uniform,
+                               rtol=1e-6, atol=1e-6)
 
 
 def test_cpu_tensors_take_plain_version_and_do_not_count():

@@ -46,6 +46,70 @@ def test_kernel_matches_plain_on_card(bits, xdtype, M):
         assert float((y - yp).abs().max()) <= tol
 
 
+# ragged row groups (empty, one row, each row tile 16 / 32 / 64 +- 1,
+# groups above 128 rows) and the row tile the kernel picks for them
+GROUPED_COUNTS = {"small": ([0, 1, 15, 16, 17, 31, 33, 63], 32),
+                  "large": ([130, 0, 200, 1, 64, 129, 65, 256], 64),
+                  "tiny": ([3, 5, 1, 2, 0, 4, 7, 1], 16)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("xdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(GROUPED_COUNTS))
+def test_grouped_kernel_matches_plain_on_card(bits, xdtype, case):
+    """``ops.dequant_matmul_batched`` with row offsets (bfloat16: the
+    tensor-core kernel, whose row tile follows the group sizes; float32:
+    the FMA kernel's ragged entry) against ``ref.dequant_matmul_grouped``
+    on the same card tensors, N = 320 (a half-empty last column tile);
+    one launch counted per call.  Float32 sums in another order (the
+    tensor-core kernel also reassociates (code - zero) * scale), so 1e-4
+    of the output's scale."""
+    _need_cuda()
+    import numpy as np
+    from repro_torch.kernels import dequant_matmul as DM
+    counts, bm = GROUPED_COUNTS[case]
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev)
+    gen.manual_seed(bits * 1000 + sum(counts))
+    K, N = 512, 320
+    qt = P.quantize(torch.randn((9, K, N), generator=gen, device=dev) * 0.05,
+                    bits)
+    off = np.concatenate([[0], np.cumsum(counts)])
+    x = torch.randn((int(off[-1]), K), generator=gen, device=dev).to(getattr(torch, xdtype))
+    before = PO.dequant_matmul_batched.launches
+    y = PO.dequant_matmul_batched(x, qt, off)
+    yp = PR.dequant_matmul_grouped(x, qt, off)
+    torch.cuda.synchronize()
+    assert PO.dequant_matmul_batched.launches == before + 1
+    assert y.shape == (off[-1], N) and y.dtype == torch.float32
+    assert float((y - yp).abs().max()) <= 1e-4 * float(yp.abs().max())
+    if xdtype == "bfloat16":
+        assert DM.launch_grouped.last_bm == bm
+
+
+@pytest.mark.cuda
+def test_grouped_kernel_refuses_what_it_cannot_read():
+    """Offsets that do not rise from 0 to the row count, more groups than
+    records, and shapes outside the tensor-core kernel's scope raise."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    qt = P.quantize(torch.randn((2, 256, 128), device=dev), 4)
+    x = torch.randn((6, 256), device=dev).to(torch.bfloat16)
+    for off in ([0, 4, 5], [1, 3, 6], [0, 4, 2, 6], [0, 2, 4, 6]):
+        with pytest.raises(ValueError):
+            PO.dequant_matmul_batched(x, qt, off)
+    odd = P.quantize(torch.randn((2, 256, 96), device=dev), 4)  # N % 64
+    with pytest.raises(ValueError):
+        PO.dequant_matmul_batched(x, odd, [0, 3, 6])
+    g32 = P.quantize(torch.randn((2, 256, 128), device=dev), 4, group_size=32)
+    with pytest.raises(ValueError):
+        PO.dequant_matmul_batched(x, g32, [0, 3, 6])
+    y = PO.dequant_matmul_batched(x.float(), odd, [0, 3, 6])  # float32: FMA kernel
+    torch.cuda.synchronize()
+    assert y.shape == (6, 96)
+
+
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_cannot_read():
     """On the card there is no fall back: a QTensor without meta, a
@@ -242,6 +306,18 @@ FLASH_CASES = [  # (B, H, Hkv, Sq, Skv, hd, causal, window, q_offset)
     (2, 4, 1, 1, 37, 64, True, 8, 36),           # one query row
     (1, 4, 2, 33, 90, 32, False, None, 0),       # not causal
     (1, 4, 2, 40, 50, 32, True, 5, 100),         # rows with no valid key
+    # the wgmma instance (head_dim 64 / 128): G = 1, 4, 8 query heads per KV
+    # head stacked as rows, Sq off the tile, one row, windows, q_offset, and
+    # both 64-row (few blocks) and 128-row blocks
+    (1, 8, 8, 100, 300, 128, True, None, 200),   # G 1
+    (1, 16, 4, 77, 77, 64, True, None, 0),       # G 4
+    (1, 16, 2, 45, 180, 128, True, 64, 135),     # G 8, window
+    (2, 32, 8, 1, 500, 128, True, 4096, 499),    # one row
+    (1, 32, 8, 300, 300, 128, True, None, 0),    # Sq off the tile
+    (1, 8, 1, 90, 90, 64, False, None, 0),       # G 8, not causal
+    (1, 32, 8, 700, 700, 128, True, None, 0),    # 128-row blocks
+    (1, 32, 8, 600, 2000, 128, True, 256, 1400), # 128-row blocks, window
+    (1, 4, 4, 40, 50, 64, True, 5, 100),         # rows with no valid key
 ]
 
 
@@ -254,8 +330,8 @@ def test_flash_kernel_matches_plain_on_card(dtype, case):
     version run in float32 on the same (upcast) inputs.  float32 within
     2e-5 of each (head, row)'s max |plain| (the same sums in another
     order); bfloat16 within 2^-7 of it: the kernel accumulates in float32
-    and rounds only its output (the tensor-core instance keeps P to ~16
-    bits through P.V).  Rows without a valid key are 0.  The 3-D (BH, S,
+    and rounds only its output (the wgmma instance keeps P to ~16 bits
+    through P.V).  Rows without a valid key are 0.  The 3-D (BH, S,
     d) layout gives the same bits; an unaligned q takes the other
     instance and the same tolerance."""
     _need_cuda()

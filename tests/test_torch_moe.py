@@ -76,8 +76,9 @@ def test_moe_gather_oracle_matches(model):
 
 @pytest.mark.parametrize("bits", [3, 2])
 def test_moe_packed_stream_matches(model, stores, bits):
-    """Prefill MoE: distinct experts into the tier, rows grouped by
-    expert, the batched binding over the tier."""
+    """Prefill MoE: distinct experts into the tier, rows sorted into
+    ragged groups by expert (no padding), the grouped binding over the
+    tier."""
     jcfg, pcfg, params, pparams = model
     _, _, jstore, pstore = stores[bits]
     tier = PEP.PrefillTier.for_store(pstore, "cpu")
@@ -92,6 +93,21 @@ def test_moe_packed_stream_matches(model, stores, bits):
         np.testing.assert_array_equal(rp["ids"].numpy(), np.asarray(rj["ids"]))
         np.testing.assert_allclose(yp.numpy(), np.asarray(yj), **TOL)
     assert tier.host_reads == 2
+
+
+def test_prefill_tier_records_group_counts(model, stores):
+    """``PrefillTier.batches`` keeps, per MoE call, the rows of each
+    distinct routed expert in the tier's slot order (ascending expert
+    id): the ragged groups the grouped kernel ran, unpadded."""
+    jcfg, pcfg, params, pparams = model
+    _, _, _, pstore = stores[2]
+    tier = PEP.PrefillTier.for_store(pstore, "cpu")
+    x = _x(13, jcfg.d_model, 7)
+    _, rp = PM.moe_apply_packed_stream(pparams["layers"][0]["moe"], pcfg,
+                                       torch.from_numpy(x), pstore, 0, tier)
+    _, counts = np.unique(rp["ids"].numpy(), return_counts=True)
+    assert list(tier.batches) == [tuple(counts.tolist())]
+    assert sum(tier.batches[0]) == 13 * pcfg.moe.top_k
 
 
 @pytest.mark.parametrize("bits", [3, 2])
