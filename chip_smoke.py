@@ -7,10 +7,12 @@ last line):
 
 1. device: a CUDA device or exit 1; print the card's name and power limit;
    build every kernel from the sources in this checkout (``nvcc``).
-2. kernels: each binding of the dequant-matmul kernel (batched, slots
+2. kernels: each binding of the dequant-matmul kernels (batched, slots
    and the 2-D one) against its plain PyTorch version on the card at the
    main path's shapes (2- and 3-bit codes), with its time, the plain
-   version's time and the bound.
+   version's time and the bound; the slot and 2-D bindings must take the
+   tensor-core GEMV (``csrc/dequant_gemv.cu``), and the FMA kernel they
+   ran before is checked and timed beside it on the same inputs.
 3. parity: ``tiny-moe`` generated on the card (kernels) and on the CPU
    (plain versions) from the same seeded weights, on each (pipelined,
    vectorized, fused) combination the reference's offload benchmark
@@ -31,15 +33,18 @@ last line):
 6. ragged kernel: the paged-attention kernel against its plain version at
    Mixtral's attention shapes (H 32, Hkv 8, hd 128, pages of 16, bf16):
    a decode step of 4 rows (live lengths 37, 300, 1500, 4200, window
-   4096) and a 128-token admission chunk; time, plain time, bound.
+   4096) and a 128-token admission chunk, on the tensor-core kernel
+   (``csrc/ragged_mma.cu``); time, plain time, bound, and the
+   warp-reduction kernel it replaced checked and timed beside it.
 7. continuous parity: ``tiny-moe`` served by ``ContinuousEngine`` over the
    offloaded pool on paged KV, four requests through two slots, on the
    card (kernels) and on the CPU (plain versions): equal tokens, emit
    steps and counters.
 8. serving: ``mixtral-offload`` (the main phase's 8 layers) serving 8
    requests through 4 slots on paged KV, greedy, FCFS: tokens/s, active
-   rows per step, the pool's counters against the h2d bytes issued, the
-   launch counts of all three kernel bindings against the expected, the
+   rows per step, the pool's counters against the h2d bytes issued (and
+   beside the previous decode kernels' run), the launch counts of all
+   kernel bindings and of each route against the expected, the
    slot binding against its plain version (and timed) on the inputs of
    the decode launch that read farthest into the pool's overflow
    records, and a profiler window over a few decode steps.
@@ -53,8 +58,12 @@ last line):
    ``offload_bench`` variants ``pr2_sync``, ``vectorized``, ``pipelined``)
    on the main phase's model, weights and store: decode tokens/s with
    p50/p95 ms per token, prefill s, counters, h2d bytes issued and the
-   launch counts of every binding; equal tokens and counters across the
-   three, and the 2-D dequant binding launched on ``pr2_sync`` only.
+   launch counts of every binding and route; equal tokens and counters
+   across the three, and the 2-D dequant binding launched on ``pr2_sync``
+   only.  Where ``[main]``'s or ``[serve]``'s counters differ from the
+   previous decode kernels' (``PREVIOUS_MAIN``/``PREVIOUS_SERVE``), the run
+   is repeated on the FMA decode kernel and the first router decision that
+   differs is printed with its top-k probability gap.
 
 The line before the card's line is ``{"kernels": [...]}``; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -91,6 +100,13 @@ PARITY_PLANES = [dict(pipelined=True, vectorized=True, fused=True),
                  dict(pipelined=False, vectorized=False, fused=True),
                  dict(pipelined=False, vectorized=True, fused=False)]
 SERVE_REQUESTS, SERVE_NEW, SERVE_SLOTS = 8, 24, 4
+# the counters the previous decode kernels (the FMA GEMV, the warp-reduction
+# ragged kernel) gave at these seeds on an NVIDIA H100 80GB HBM3: a new
+# summation order may flip a near-tie, which the run then explains
+PREVIOUS_MAIN = {"hits": 348, "spec_hits": 73, "demand_loads": 75,
+                 "spec_loads": 128, "bytes_h2d": 13_549_928_448}
+PREVIOUS_SERVE = {"hits": 1358, "demand_loads": 1586, "overflow_accesses": 726,
+                  "bytes_h2d": 105_862_987_776}
 
 
 def log(*a):
@@ -119,7 +135,7 @@ def phase_device():
     reports = build.compile_all()  # one nvcc per source, all at once
     for name, report in reports.items():
         regs = sorted({ln.strip() for ln in report.splitlines()
-                       if "registers" in ln or "spill" in ln})
+                       if "registers" in ln or "spill" in ln or "C75" in ln})
         log(f"[build] {name}.cu: " + " | ".join(regs))
     log(f"[build] {len(reports)} sources in {time.perf_counter() - t0:.1f} s")
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
@@ -128,6 +144,63 @@ def phase_device():
 
 
 # ----------------------------------------------------------------------
+def _routes():
+    """Launches by route of the slot/2-D dequant and the ragged bindings
+    (the tensor-core kernels or the ones they replaced)."""
+    from repro_torch.kernels import dequant_matmul as DM, ragged_attention as RA
+    return {**{f"dequant_{k}": v for k, v in DM.launch.routes.items()},
+            **{f"ragged_{k}": v for k, v in RA.launch.routes.items()}}
+
+
+def _routes_since(before):
+    return {k: v - before[k] for k, v in _routes().items()}
+
+
+def _routing_trace(run, previous):
+    """Every router decision of ``run()``: (top-k ids, probabilities in
+    descending order) per ``route_topk`` call, copied to the host; with
+    ``previous`` the slot and 2-D dequant bindings run the FMA kernel (the
+    previous decode kernel) instead of the tensor-core GEMV."""
+    import torch
+    from repro_torch.kernels import dequant_matmul as DM
+    from repro_torch.models import moe
+    route_topk, launch = moe.route_topk, DM.launch
+    calls = []
+
+    def traced(p, spec, x2d):
+        w, ids, probs = route_topk(p, spec, x2d)
+        calls.append((np.sort(ids.cpu().numpy(), -1), torch.sort(
+            probs.float(), -1, descending=True).values.cpu().numpy()))
+        return w, ids, probs
+
+    moe.route_topk = traced
+    if previous:
+        DM.launch = DM._launch_fma
+    try:
+        run()
+    finally:
+        moe.route_topk, DM.launch = route_topk, launch
+    return calls
+
+
+def _explain_difference(label, run, k):
+    """``run()`` on the tensor-core GEMV and on the previous decode kernel:
+    the first router decision that differs, with the gap between the k-th
+    and (k+1)-th expert probabilities in each (a near-tie, not a fault)."""
+    new, old = _routing_trace(run, False), _routing_trace(run, True)
+    for i, ((ia, pa), (ib, pb)) in enumerate(zip(new, old)):
+        if ia.shape != ib.shape or (ia != ib).any():
+            row = 0 if ia.shape != ib.shape else int(np.flatnonzero((ia != ib).any(-1))[0])
+            log(f"[{label}] first router decision that differs from the previous "
+                f"decode kernel's run: call {i} of {len(new)}, row {row}: experts "
+                f"{ia[row].tolist()} vs {ib[row].tolist()}; top-{k} probability gap "
+                f"{pa[row, k - 1] - pa[row, k]:.3g} (new) / "
+                f"{pb[row, k - 1] - pb[row, k]:.3g} (previous)")
+            return
+    log(f"[{label}] router decisions equal to the previous decode kernel's run "
+        f"over {len(new)} calls")
+
+
 def _event_ms(fn, n, flush):
     """Mean device time of ``fn``, each launch timed alone after the L2
     cache is overwritten (the main path finds its weights cold).  A spin
@@ -178,7 +251,7 @@ def phase_kernels(dev):
     the main run's own prefill shapes.  Returns (figures, the 8-expert
     tiers by (bits, K, N), the L2 flush buffer)."""
     import torch
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import dequant_matmul as DM, ops, ref
     from repro_torch.quant import hqq
     gen = torch.Generator(dev)
     gen.manual_seed(1)
@@ -189,6 +262,8 @@ def phase_kernels(dev):
              "dequant_matmul": dict(B=1, M=1, S=1)}
     acc = {n: dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0, err=0.0, rel=0.0)
            for n in cases}
+    for n in ("dequant_matmul_slots", "dequant_matmul"):
+        acc[n].update(previous_ms=0.0, previous_err=0.0)
     tiers = {}
     for bits in (2, 3):
         for K, N in sorted(set(shapes)):
@@ -206,22 +281,29 @@ def phase_kernels(dev):
                                      bits, qt.group_size, (c["S"], K, N))
                 x = torch.randn((c["B"], c["M"], K), generator=gen,
                                 device=dev).to(torch.bfloat16)
+                previous = None  # the FMA kernel, what the binding ran before
                 if name == "dequant_matmul":
                     x, qt = x[0], hqq.slice_leading(tiers[bits, K, N], 5)
                     run = lambda: ops.dequant_matmul(x, qt)
                     plain = lambda: ref.dequant_matmul(x, qt)
                     n_read, stack = 1, ref.stack_one(qt)
+                    previous = lambda: DM._launch_fma(x[None], stack, None)[0]
                 elif name == "dequant_matmul_slots":
                     slots = torch.tensor([3, 1], dtype=torch.int32, device=dev)
                     run = lambda: ops.dequant_matmul_slots(x, qt, slots)
                     plain = lambda: ref.dequant_matmul_slots(x, qt, slots)
                     n_read, stack = 2, qt
+                    previous = lambda: DM._launch_fma(x, qt, slots)
                 else:
                     run = lambda: ops.dequant_matmul_batched(x, qt)
                     plain = lambda: ref.dequant_matmul_batched(x, qt)
                     n_read, stack = c["B"], qt
+                gemv = DM.launch.routes["gemv"]
                 y, yp = run(), plain()
                 torch.cuda.synchronize()
+                if previous is not None and DM.launch.routes["gemv"] != gemv + 1:
+                    fail(f"{name} {bits}-bit K={K} N={N}: bfloat16 x at M = 1 did "
+                         f"not take the tensor-core GEMV")
                 err = (y - yp).abs().max().item()
                 scale = yp.abs().max().item()
                 if not (err <= KERNEL_RTOL * scale) or not torch.isfinite(y).all():
@@ -232,11 +314,21 @@ def phase_kernels(dev):
                 nbytes = (_stored_bytes(stack, n_read) + x.numel() * x.element_size()
                           + y.numel() * 4)
                 flops = 2 * c["B"] * c["M"] * K * N
+                prev = ""
+                a = acc[name]
+                if previous is not None:
+                    perr = (previous() - yp).abs().max().item()
+                    if not perr <= KERNEL_RTOL * scale:
+                        fail(f"previous {name} kernel {bits}-bit K={K}: {perr:.3g}")
+                    prev_ms = _event_ms(previous, 20, flush)
+                    prev = f" previous (FMA) kernel {prev_ms:.4f} ms err {perr:.3g}"
+                    a["previous_err"] = max(a["previous_err"], perr)
+                    if bits == 2:
+                        a["previous_ms"] += prev_ms
                 log(f"[kernel] {name} {bits}-bit B={c['B']} M={c['M']} K={K} "
                     f"N={N}: max_abs_err {err:.3g} (max |y| {scale:.3g}) "
-                    f"kernel {ms:.4f} ms plain {pms:.4f} ms "
+                    f"kernel {ms:.4f} ms plain {pms:.4f} ms{prev} "
                     f"bytes {nbytes} -> {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
-                a = acc[name]
                 a["err"] = max(a["err"], err)
                 a["rel"] = max(a["rel"], err / scale)
                 if bits == 2:
@@ -270,6 +362,10 @@ def phase_kernels(dev):
             "ms": a["ms"], "plain_ms": a["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "max_abs_err": a["err"], "max_rel_err": a["rel"]}
+        if "previous_ms" in a:
+            out[name].update(previous_ms=a["previous_ms"],
+                             previous_max_abs_err=a["previous_err"],
+                             bound_share=bound_ms / a["ms"])
         per = "(token, k) expert" if name == "dequant_matmul" else "MoE layer"
         log(f"[kernel] {name} per {per} (3 matrices, 2-bit): "
             f"{json.dumps(out[name])}")
@@ -314,7 +410,7 @@ def _grouped_case(dev, tiers, flush, counts, gen, *, previous=False):
             xp = torch.zeros((U, int(max(counts)), K), dtype=x.dtype, device=dev)
             for u in range(U):
                 xp[u, :counts[u]] = x[off[u]:off[u + 1]]
-            t["previous_padded_ms"] += _event_ms(lambda: DM.launch(xp, qt, None), 5, flush)
+            t["previous_padded_ms"] += _event_ms(lambda: DM._launch_fma(xp, qt, None), 5, flush)
         t["bytes"] += (_stored_bytes(qt, U) + x.numel() * x.element_size()
                        + rows * N * 4)
         t["flops"] += 2 * rows * K * N
@@ -449,9 +545,11 @@ def phase_main(dev):
     tier.h2d_bytes = 0
     tier.batches.clear()
     ops.reset_launches()
+    before = _routes()
     toks, stats = eng.generate(prompt, NEW_TOKENS,
                                on_step=lambda lg, r: last.append(lg))
     launches = ops.launches()
+    routes = _routes_since(before)
     batches = list(tier.batches)
     ps = eng._last_pool_state
     timing = eng.last_timing
@@ -474,12 +572,21 @@ def phase_main(dev):
         "host_reads_per_token": ps.host_reads / steps,
         "h2d_probe_gb_s": link,
         "pool_staging_gib": (ps.pool.nbytes() + ps.staging.nbytes()) / 2**30,
-        "launches": launches, "launches_expected": expect,
+        "launches": launches, "launches_expected": expect, "routes": routes,
         "peak_device_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
         "tokens": toks[0].tolist()}
     log(f"[main] {json.dumps(report)}")
     if launches != expect:
         fail(f"kernel launches {launches} != expected {expect}")
+    if routes["dequant_gemv"] != expect["dequant_matmul_slots"] or routes["dequant_fma"]:
+        fail(f"decode did not run the tensor-core GEMV on every slot launch: {routes}")
+    counters = {**{k: getattr(stats, k) for k in PREVIOUS_MAIN if k != "bytes_h2d"},
+                "bytes_h2d": stats.bytes_h2d}
+    log(f"[main] counters {counters} beside the previous decode kernel's "
+        f"{PREVIOUS_MAIN}: equal {counters == PREVIOUS_MAIN}")
+    if counters != PREVIOUS_MAIN:
+        _explain_difference("main", lambda: eng.generate(prompt, NEW_TOKENS),
+                            cfg.moe.top_k)
     if ps.h2d_bytes != stats.bytes_h2d:
         fail(f"issued h2d bytes {ps.h2d_bytes} != counters {stats.bytes_h2d}")
     if not torch.isfinite(logits).all() or logits.shape[-1] != cfg.padded_vocab:
@@ -694,28 +801,40 @@ def phase_ragged_kernel(dev, flush):
                                            worklist=c["work"])
         plain = lambda: RA.ragged_attention_reference(
             *args, c["pages"], c["qpos"], window=c["window"])
-        before = ops.ragged_attention.launches
+        # the warp-reduction kernel, what the binding ran before
+        previous = lambda: RA._launch_warp(*args, c["qpos"], c["work"],
+                                           window=c["window"])
+        before, mma = ops.ragged_attention.launches, RA.launch.routes["mma"]
         y = run()
+        route = "mma" if RA.launch.routes["mma"] == mma + 1 else "warp"
         y32 = RA.ragged_attention_reference(  # the same sums in f32
             *(a.float() for a in args[:3]), c["ppos"], c["pages"], c["qpos"],
             window=c["window"])
+        yprev = previous()
         torch.cuda.synchronize()
         if ops.ragged_attention.launches != before + 1:
             fail(f"ragged_attention {case}: the binding did not count its launch")
-        err, tol, row_errs = 0.0, 0.0, []
+        if route != "mma":
+            fail(f"ragged_attention {case}: bfloat16 took the {route} route, "
+                 f"not the tensor-core kernel")
+        err, tol, row_errs, prev_err = 0.0, 0.0, [], 0.0
         for b in range(len(lens)):
             e = (y[b].float() - y32[b]).abs().max().item()
             t = RAGGED_BF16_RTOL * y32[b].abs().max().item()
+            pe = (yprev[b].float() - y32[b]).abs().max().item()
             row_errs.append((e, t))
-            if not e <= t:
+            if not e <= t or not pe <= t:
                 fail(f"ragged_attention {case} row {b} (live {lens[b]}): max "
-                     f"|kernel - plain f32| {e:.3g} > {t:.3g}")
-            err, tol = max(err, e), max(tol, t)
+                     f"|kernel - plain f32| {e:.3g} (previous kernel {pe:.3g}) "
+                     f"> {t:.3g}")
+            err, tol, prev_err = max(err, e), max(tol, t), max(prev_err, pe)
         if not torch.isfinite(y).all():
             fail(f"ragged_attention {case}: non-finite output")
         bound_ms, bound_by = _bound(c["nbytes"], c["flops"])
         r = dict(ms=_event_ms(run, 20, flush), plain_ms=_event_ms(plain, 3, flush),
+                 previous_ms=_event_ms(previous, 20, flush),
                  bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                 previous_max_abs_err=prev_err,
                  row_err_and_tolerance=row_errs, bytes=c["nbytes"],
                  pages_visited=c["visited"],
                  table_pages=c["listed"], segments=c["segments"], B=len(lens), C=C)
@@ -730,6 +849,9 @@ def phase_ragged_kernel(dev, flush):
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
             qs, ks, vs, attn_mask=mask)
         r["sdpa_dense_ms"] = _event_ms(sdpa, 10, flush)
+        r["kernel_over_sdpa"] = r["ms"] / r["sdpa_dense_ms"]
+        r["previous_over_sdpa"] = r["previous_ms"] / r["sdpa_dense_ms"]
+        r["bound_share"] = bound_ms / r["ms"]
         log(f"[ragged] {case} B={len(lens)} C={C} lens={lens}: {json.dumps(r)}")
         log(f"[yardstick] scaled_dot_product_attention on the gathered dense "
             f"view ({case}, {ks.shape[2]} keys per row, not paged, not used "
@@ -854,22 +976,33 @@ def _check_serving_slots(capture):
     (CUDA events, flushed L2).  The bound reads each distinct record
     once."""
     import torch
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import dequant_matmul as DM, ref
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     fn = capture.fn
     record_bytes = capture.ce._pstate.pool.layout.record_bytes
-    out = dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0, err=0.0, rel=0.0)
+    out = dict(ms=0.0, plain_ms=0.0, previous_ms=0.0, bytes=0, flops=0, err=0.0,
+               rel=0.0, previous_err=0.0)
     for (max_index, rows), x, qt, slots, S in capture.best:
+        gemv = DM.launch.routes["gemv"]
         y, yp = fn(x, qt, slots), ref.dequant_matmul_slots(x, qt, slots)
+        route = "gemv" if DM.launch.routes["gemv"] == gemv + 1 else "fma"
+        yprev = DM._launch_fma(x, qt, slots)  # the FMA kernel, the previous route
         torch.cuda.synchronize()
         err = (y - yp).abs().max().item()
+        perr = (yprev - yp).abs().max().item()
         scale = yp.abs().max().item()
-        if not (err <= KERNEL_RTOL * scale) or not torch.isfinite(y).all():
+        if route != "gemv":
+            fail(f"dequant_matmul_slots at serving shape took the {route} route")
+        if (not (err <= KERNEL_RTOL * scale) or not torch.isfinite(y).all()
+                or not perr <= KERNEL_RTOL * scale):
             fail(f"dequant_matmul_slots at serving shape ({rows} rows, slot "
-                 f"index up to {max_index}): {err:.3g} > {KERNEL_RTOL} x {scale:.3g}")
+                 f"index up to {max_index}): {err:.3g} (previous kernel "
+                 f"{perr:.3g}) > {KERNEL_RTOL} x {scale:.3g}")
         K, N = qt.shape[1:]
         distinct = len(set(slots.tolist()))
         out["ms"] += _event_ms(lambda: fn(x, qt, slots), 20, flush)
+        out["previous_ms"] += _event_ms(lambda: DM._launch_fma(x, qt, slots), 20, flush)
+        out["previous_err"] = max(out["previous_err"], perr)
         out["plain_ms"] += _event_ms(lambda: ref.dequant_matmul_slots(x, qt, slots),
                                      3, flush)
         out["bytes"] += (_stored_bytes(qt, distinct) + x.numel() * x.element_size()
@@ -883,6 +1016,7 @@ def _check_serving_slots(capture):
         out["max_offset_gib"] = max(out.get("max_offset_gib", 0.0),
                                     max_index * record_bytes / 2**30)
     out["bound_ms"], out["bound_by"] = _bound(out["bytes"], out["flops"])
+    out["bound_share"] = out["bound_ms"] / out["ms"]
     log(f"[serve-kernel] dequant_matmul_slots at the serving run's shapes, "
         f"per MoE layer (3 matrices): {json.dumps(out)}")
     return out
@@ -906,6 +1040,7 @@ def phase_serving(dev, eng, cfg):
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launches()
+    before = _routes()
     with _SlotCapture(ops) as capture:
         t0 = time.perf_counter()
         ce, toks, steps, calls = _serve(
@@ -914,6 +1049,7 @@ def phase_serving(dev, eng, cfg):
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
     launches = ops.launches()
+    routes = _routes_since(before)
     L = eng.n_moe_layers
     expect = {"dequant_matmul": 0, "dequant_matmul_batched": 3 * L * calls["chunks"],
               "dequant_matmul_slots": 3 * L * calls["decode"], "flash_attention": 0,
@@ -934,12 +1070,22 @@ def phase_serving(dev, eng, cfg):
         "spec_loads": spec, "overflow_accesses": st.overflow_accesses,
         "bytes_h2d_issued": st.h2d_bytes, "bytes_h2d_counters": counters_bytes,
         "host_reads": st.host_reads,
-        "launches": launches, "launches_expected": expect,
+        "launches": launches, "launches_expected": expect, "routes": routes,
         "peak_device_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
     log(f"[serve] {json.dumps(report)}")
     served_by = ("dequant_matmul_batched", "dequant_matmul_slots", "ragged_attention")
     if launches != expect or min(launches[k] for k in served_by) < 1:
         fail(f"serving launches {launches} != expected {expect}")
+    if (routes["dequant_gemv"] != expect["dequant_matmul_slots"] or routes["dequant_fma"]
+            or routes["ragged_mma"] != expect["ragged_attention"] or routes["ragged_warp"]):
+        fail(f"serving did not run the tensor-core kernels on every launch: {routes}")
+    counters = {"hits": hits, "demand_loads": demand,
+                "overflow_accesses": st.overflow_accesses, "bytes_h2d": st.h2d_bytes}
+    log(f"[serve] counters {counters} beside the previous decode kernels' "
+        f"{PREVIOUS_SERVE}: equal {counters == PREVIOUS_SERVE}")
+    if counters != PREVIOUS_SERVE:
+        _explain_difference("serve", lambda: _serve(eng, cfg, prompts, news, **kw),
+                            cfg.moe.top_k)
     if st.h2d_bytes != counters_bytes:
         fail(f"serving h2d bytes issued {st.h2d_bytes} != counters {counters_bytes}")
     if spec != 0:
@@ -1087,9 +1233,11 @@ def phase_planes(dev, eng, cfg):
         torch.cuda.synchronize(dev)
         stamps = []
         ops.reset_launches()
+        before = _routes()
         toks, stats = e.generate(prompt, NEW_TOKENS,
                                  on_step=lambda lg, r: stamps.append(time.perf_counter()))
         launches = ops.launches()
+        routes = _routes_since(before)
         ps, t = e._last_pool_state, e.last_timing
         steps = t["decode_steps"]
         ms = np.diff(stamps) * 1e3
@@ -1106,11 +1254,14 @@ def phase_planes(dev, eng, cfg):
              "p95_ms_per_token": float(np.percentile(ms, 95)),
              "counters": counters, "bytes_h2d_issued": ps.h2d_bytes,
              "bytes_h2d_counters": stats.bytes_h2d, "host_reads": ps.host_reads,
-             "launches": launches, "launches_expected": expect,
+             "launches": launches, "launches_expected": expect, "routes": routes,
              "tokens": toks[0].tolist()}
         log(f"[planes] {name} {flags}: {json.dumps(r)}")
         if launches != expect or launches["flash_attention"] < 1:
             fail(f"planes {name}: launches {launches} != expected {expect}")
+        decode_launches = expect["dequant_matmul"] + expect["dequant_matmul_slots"]
+        if routes["dequant_gemv"] != decode_launches or routes["dequant_fma"]:
+            fail(f"planes {name}: decode did not run the tensor-core GEMV: {routes}")
         if ps.h2d_bytes != stats.bytes_h2d:
             fail(f"planes {name}: h2d bytes issued {ps.h2d_bytes} != counters "
                  f"{stats.bytes_h2d}")
@@ -1157,10 +1308,10 @@ def main():
     slots["max_abs_err"] = max(slots["max_abs_err"], serve_slots["err"])
     csrc = "src/repro_torch/kernels/csrc/"
     src = {"dequant_matmul_batched": csrc + "dequant_grouped.cu",
-           "dequant_matmul_slots": csrc + "dequant_matmul.cu",
-           "dequant_matmul": csrc + "dequant_matmul.cu",
+           "dequant_matmul_slots": csrc + "dequant_gemv.cu",
+           "dequant_matmul": csrc + "dequant_gemv.cu",
            "flash_attention": csrc + "flash_attention.cu",
-           "ragged_attention": csrc + "ragged_attention.cu"}
+           "ragged_attention": csrc + "ragged_mma.cu"}
     replaces = {"dequant_matmul_batched": "src/repro/kernels/dequant_matmul.py:109",
                 "dequant_matmul_slots": "src/repro/kernels/dequant_matmul.py:145",
                 "dequant_matmul": "src/repro/kernels/dequant_matmul.py:57",

@@ -21,7 +21,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 
-SOURCES = ("dequant_matmul", "dequant_grouped", "flash_attention", "ragged_attention")
+SOURCES = ("dequant_matmul", "dequant_gemv", "dequant_grouped", "flash_attention",
+           "ragged_attention", "ragged_mma")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

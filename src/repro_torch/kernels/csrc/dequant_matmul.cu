@@ -29,8 +29,9 @@
 // slot map are.
 //
 // Simple first: no cp.async/TMA pipeline, no split-K across blocks, no
-// tensor cores.  It serves decode (M = 1, by slot) and float32 activations;
-// bfloat16 prefill groups run csrc/dequant_grouped.cu.  Ragged row groups
+// tensor cores.  It serves float32 activations, more than 8 rows per record
+// and shapes outside the tensor-core kernels' scope: bfloat16 decode runs
+// csrc/dequant_gemv.cu and bfloat16 prefill groups csrc/dequant_grouped.cu.  Ragged row groups
 // (dequant_matmul_ragged) take the same code, one block row per group.
 // Launches on the caller's stream, allocates nothing, and returns
 // cudaGetLastError().

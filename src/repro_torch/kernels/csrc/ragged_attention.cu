@@ -41,8 +41,11 @@
 // before one online-softmax update per chunk.  Masking is per key, so pages
 // the window skip keeps are still masked inside.
 //
-// Launches on the caller's stream, allocates nothing (the caller passes the
-// scratch), and returns cudaGetLastError().
+// The binding's bfloat16 route (head_dim 64/128, pages of a multiple of 16
+// positions) runs csrc/ragged_mma.cu on the tensor cores; this kernel
+// serves float32, head_dim 32 and other page sizes.  Launches on the
+// caller's stream, allocates nothing (the caller passes the scratch), and
+// returns cudaGetLastError().
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>

@@ -3,8 +3,12 @@
 its B = 1 case) ``dequant_matmul_pallas``
 (``src/repro/kernels/dequant_matmul.py``):
 
-* :func:`launch`: ``csrc/dequant_matmul.cu`` over a (B, M, K) batch, by
-  slot or row b -> record b: decode and the 2-D binding.
+* :func:`launch`: a (B, M, K) batch, by slot or row b -> record b: decode
+  and the 2-D binding.  Two routes: bfloat16 x with at most 8 rows per
+  record, in the tensor-core kernel's scope (:func:`gemv_scope`), runs
+  ``csrc/dequant_gemv.cu`` (:func:`launch_gemv`); float32 x, more rows,
+  or other shapes run the FMA kernel of ``csrc/dequant_matmul.cu``.
+  ``launch.routes`` counts the launches of each route ("gemv", "fma").
 * :func:`launch_grouped`: rows sorted into ragged groups, group u against
   record u: ``csrc/dequant_grouped.cu`` (tensor cores) for bfloat16 x,
   the ragged entry of ``csrc/dequant_matmul.cu`` for float32 x.
@@ -18,6 +22,7 @@ it without a device round trip.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -118,11 +123,9 @@ def _check_x(x: torch.Tensor, dims: int, what: str) -> None:
                          f"{tuple(x.shape)}")
 
 
-def launch(x: torch.Tensor, qt: hqq.QTensor,
-           slots: Optional[torch.Tensor]) -> torch.Tensor:
-    """x (B, M, K) @ dequant(qt[slots[b]]) -> (B, M, N) float32, where
-    ``qt`` stacks (S, K, N) meta-quantized weights; ``slots=None`` reads
-    slot b for row b."""
+def _slot_args(x: torch.Tensor, qt: hqq.QTensor, slots):
+    """Checks shared by both routes: (B, M, K, N, group size, meta group,
+    leaf strides, slot pointer or None)."""
     _check_x(x, 3, "(B, M, K)")
     B, M, K = x.shape
     dev = x.device
@@ -137,13 +140,125 @@ def launch(x: torch.Tensor, qt: hqq.QTensor,
             raise ValueError("slots must be a contiguous (B,) int32 tensor "
                              "on the card")
         slot_ptr = slots.data_ptr()
-    out = torch.empty((B, M, N), dtype=torch.float32, device=dev)
+    return B, M, K, N, gs, sg, strides, slot_ptr
+
+
+def _fma(x, qt, args) -> torch.Tensor:
+    B, M, K, N, gs, sg, strides, slot_ptr = args
+    out = torch.empty((B, M, N), dtype=torch.float32, device=x.device)
     rc = _lib()(x.data_ptr(), _X_DTYPES[x.dtype], out.data_ptr(), slot_ptr,
                 B, M, K, N, qt.bits, gs, sg, *_leaf_args(qt, strides),
-                torch.cuda.current_stream(dev).cuda_stream)
+                torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"dequant_matmul launch failed: CUDA error {rc}")
     return out
+
+
+def _launch_fma(x: torch.Tensor, qt: hqq.QTensor,
+                slots: Optional[torch.Tensor]) -> torch.Tensor:
+    """The FMA kernel of ``csrc/dequant_matmul.cu`` alone (float32 or
+    bfloat16 x, any M, any group size): the route outside the GEMV's
+    scope, and the previous decode kernel, timed beside it."""
+    return _fma(x, qt, _slot_args(x, qt, slots))
+
+
+GEMV_KS = 64          # k per stage of the tensor-core GEMV
+GEMV_WARPS = 4        # warps of a block, each a run of stages
+GEMV_BN = 128         # columns per block
+GEMV_MAX_ROWS = 8     # x rows per record (the n8 of mma.sync)
+GEMV_MAX_CLUSTER = 2  # larger clusters measured slower at B >= 2 (PERF.md)
+
+
+def gemv_cluster(K: int, N: int, n_sm: int = 132) -> int:
+    """Blocks of a thread block cluster that split K in the tensor-core
+    GEMV: 2 where the column tiles alone are fewer than the SMs and every
+    warp keeps at least two 64-k stages, else 1.  A function of (K, N)
+    only, so an output row never depends on B or the slot map."""
+    tiles, stages, cl = -(-N // GEMV_BN), K // GEMV_KS, 1
+    while (cl < GEMV_MAX_CLUSTER and tiles * cl < n_sm
+           and stages >= 2 * (2 * cl) * GEMV_WARPS):
+        cl *= 2
+    return cl
+
+
+def gemv_parts(K: int, cl: int):
+    """The 64-k stages [lo, hi) of each (cluster rank, warp), as the kernel
+    cuts them: part p = rank * 4 + warp of cl * 4 takes stages
+    [p * S // P, (p + 1) * S // P)."""
+    S, P = K // GEMV_KS, cl * GEMV_WARPS
+    return [(p // GEMV_WARPS, p % GEMV_WARPS, p * S // P, (p + 1) * S // P)
+            for p in range(P)]
+
+
+def gemv_scope(x: torch.Tensor, qt: hqq.QTensor, strides) -> Optional[str]:
+    """None when the tensor-core GEMV reads ``x`` (B, M, K) against the
+    checked stack ``qt`` (its leaf strides ``strides``, from
+    :func:`_leaf_strides`), else why not (the FMA kernel's case)."""
+    B, M, K = x.shape
+    gs, sg = qt.group_size, qt.scale.shape[2]
+    if x.dtype != torch.bfloat16:
+        return f"x is {x.dtype}, the tensor-core GEMV reads bfloat16"
+    if not 1 <= M <= GEMV_MAX_ROWS:
+        return f"{M} rows per record, the tensor-core GEMV takes 1-8"
+    if K % GEMV_KS or qt.shape[-1] % 16:
+        return f"K={K} not a multiple of 64 or N={qt.shape[-1]} of 16"
+    if gs != (16 if qt.bits == 2 else 64) or sg % (GEMV_KS // gs):
+        return (f"group size {gs} / meta group {sg} at {qt.bits} bits: the "
+                f"tensor-core GEMV takes hqq.quantize's (16 at 2 bits, 64 "
+                f"otherwise, meta groups covering whole 64-k stages)")
+    ptrs = [x.data_ptr(), qt.packed.data_ptr(), qt.scale.data_ptr(),
+            qt.zero.data_ptr()] + [qt.meta[k].data_ptr() for k in hqq.META_KEYS]
+    ps, ss, zs, ms = strides
+    if any(p % 16 for p in ptrs) or any(s % 16 for s in (ps, ss, zs, 2 * ms)):
+        return "the tensor-core GEMV reads 16-byte aligned leaves and records"
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _gemv(x, qt, args) -> torch.Tensor:
+    B, M, K, N, gs, sg, strides, slot_ptr = args
+    cl = gemv_cluster(K, N, _n_sm(x.device.index or 0))
+    out = torch.empty((B, M, N), dtype=torch.float32, device=x.device)
+    fn = _fn("dequant_gemv", "dequant_gemv",
+             [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+              _P, _L, _P, _L, _P, _L, _P, _P, _P, _P, _L, _P])
+    rc = fn(x.data_ptr(), out.data_ptr(), slot_ptr, B, M, K, N, qt.bits, gs,
+            sg, cl, *_leaf_args(qt, strides),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"dequant_gemv launch failed: CUDA error {rc}")
+    return out
+
+
+def launch_gemv(x: torch.Tensor, qt: hqq.QTensor,
+                slots: Optional[torch.Tensor]) -> torch.Tensor:
+    """The tensor-core GEMV (``csrc/dequant_gemv.cu``) alone: raises
+    ValueError outside its scope (:func:`gemv_scope`)."""
+    args = _slot_args(x, qt, slots)
+    why = gemv_scope(x, qt, args[6])
+    if why is not None:
+        raise ValueError(why)
+    return _gemv(x, qt, args)
+
+
+def launch(x: torch.Tensor, qt: hqq.QTensor,
+           slots: Optional[torch.Tensor]) -> torch.Tensor:
+    """x (B, M, K) @ dequant(qt[slots[b]]) -> (B, M, N) float32, where
+    ``qt`` stacks (S, K, N) meta-quantized weights; ``slots=None`` reads
+    slot b for row b.  The tensor-core GEMV where :func:`gemv_scope`
+    admits the inputs, else the FMA kernel."""
+    args = _slot_args(x, qt, slots)
+    route = "gemv" if gemv_scope(x, qt, args[6]) is None else "fma"
+    out = (_gemv if route == "gemv" else _fma)(x, qt, args)
+    launch.routes[route] += 1
+    return out
+
+
+launch.routes = {"gemv": 0, "fma": 0}  # launches by route, never reset here
 
 
 MAX_GROUPS = 256  # the kernels take the offsets by value

@@ -11,13 +11,17 @@ lives at page ``pages[b, p // page_size]``, offset ``p % page_size``.
 * :func:`ragged_attention_reference`, the plain version: gathers each
   row's pages into a dense view (:func:`ragged_gather`) and runs the
   model's ``attention_core`` on it.  The CPU path runs it.
-* :func:`launch`, the Hopper kernel (``csrc/ragged_attention.cu``): a
-  flat (row, page) work list built on the host
-  (:func:`build_page_worklist`) says which pages each row reads, so
-  pages beyond a row's live length or wholly outside the window are
-  never read; :func:`pack_worklist` cuts each row's pages into segments
-  of at most ``SEG_PAGES``, one block each, and a combine pass merges a
-  row's segments.
+* :func:`launch`, the Hopper kernels: a flat (row, page) work list built
+  on the host (:func:`build_page_worklist`) says which pages each row
+  reads, so pages beyond a row's live length or wholly outside the
+  window are never read; :func:`pack_worklist` cuts each row's pages
+  into segments of at most ``SEG_PAGES``, one block each.  Two routes:
+  bfloat16 with head_dim 64/128 and pages of a multiple of 16 positions
+  (:func:`mma_scope`) run the tensor-core kernel ``csrc/ragged_mma.cu``
+  (:func:`launch_mma`: query tiles x heads as ``mma.sync`` rows, one
+  launch); float32, head_dim 32 and other pages the warp-reduction
+  kernel ``csrc/ragged_attention.cu`` and its combine pass.
+  ``launch.routes`` counts the launches of each route ("mma", "warp").
 * :func:`ragged_attention`, the dispatch: a CPU tensor takes the plain
   version; a CUDA tensor with a work list launches the kernel and counts
   the launch in ``ragged_attention.launches``; a CUDA tensor without a
@@ -173,16 +177,8 @@ def _check(t: torch.Tensor, what: str, shape, dtype, device) -> None:
                          f"got {tuple(t.shape)} with strides {t.stride()}")
 
 
-def launch(q, kp, vp, ppos, qpos, work: DeviceWorklist, *,
-           window: Optional[int] = None) -> torch.Tensor:
-    """Launch ``csrc/ragged_attention.cu`` (the segment kernel and its
-    combine pass) on PyTorch's current stream: q (B, C, H, hd) against
-    kp/vp (P, ps, Hkv, hd) through a packed work list on the card;
-    returns out (B, C, H, hd) in q's dtype (zeros for rows without
-    work).  Allocates the output and the segments' scratch.  Checks every
-    input and raises on what the kernel cannot read (the page ids in the
-    list index the pool: the kernel cannot check them without a device
-    round trip); never synchronises."""
+def _checked(q, kp, vp, ppos, qpos, work: DeviceWorklist):
+    """Checks shared by both routes; returns (B, C, H, hd, P, ps, Hkv)."""
     if not q.is_cuda:
         raise ValueError("the CUDA kernel takes tensors on the card")
     if q.dtype not in _DTYPES:
@@ -205,16 +201,26 @@ def launch(q, kp, vp, ppos, qpos, work: DeviceWorklist, *,
     if hd not in _HEAD_DIMS or H % Hkv or H // Hkv > 32:
         raise ValueError(f"head_dim {hd} not in {_HEAD_DIMS}, or {H} heads "
                          f"over {Hkv} KV heads")
+    if kp.data_ptr() % 16 or vp.data_ptr() % 16:
+        raise ValueError("kp/vp must start on 16-byte boundaries")
+    return B, C, H, hd, P, ps, Hkv
+
+
+def _launch_warp(q, kp, vp, ppos, qpos, work: DeviceWorklist, *,
+                 window: Optional[int] = None) -> torch.Tensor:
+    """``csrc/ragged_attention.cu`` alone (the segment kernel, dot products
+    as warp reductions, and its combine pass): the route outside
+    :func:`mma_scope`, and the previous kernel, timed beside the new one."""
+    B, C, H, hd, P, ps, Hkv = _checked(q, kp, vp, ppos, qpos, work)
     if 3 * (2 * ps * hd * q.element_size() + 4 * ps) > _SMEM_LIMIT:  # 3 stages
         raise ValueError(f"a page of {ps} x {hd} does not fit the kernel's "
                          f"shared memory")
-    if kp.data_ptr() % 16 or vp.data_ptr() % 16:
-        raise ValueError("kp/vp must start on 16-byte boundaries")
+    dev, n_seg = q.device, work.n_seg
     out = torch.empty_like(q)
     part_acc = torch.empty((n_seg, C, H, hd), dtype=torch.float32, device=dev)
     part_ml = torch.empty((n_seg, C, H, 2), dtype=torch.float32, device=dev)
     rc = _lib()(q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ppos.data_ptr(),
-                qpos.data_ptr(), buf.data_ptr(), n_seg, part_acc.data_ptr(),
+                qpos.data_ptr(), work.buf.data_ptr(), n_seg, part_acc.data_ptr(),
                 part_ml.data_ptr(), out.data_ptr(),
                 _DTYPES[q.dtype], B, C, H, Hkv, hd, ps,
                 0 if window is None else int(window),
@@ -222,6 +228,126 @@ def launch(q, kp, vp, ppos, qpos, work: DeviceWorklist, *,
     if rc != 0:
         raise RuntimeError(f"ragged_attention launch failed: CUDA error {rc}")
     return out
+
+
+MMA_ROWS = 64    # rows (queries x heads of a KV head) per block
+MMA_WARPS = 4
+MMA_STAGES = 3
+
+
+def mma_tiles(C: int, G: int) -> Tuple[int, int, int]:
+    """(queries per block ct, m16 row tiles, warps sharing a tile) of the
+    tensor-core kernel: ct * G <= 64 rows; a block of one tile (decode)
+    splits its pages over the 4 warps, one of two tiles over 2."""
+    ct = min(C, max(1, MMA_ROWS // G))
+    tiles = -(-ct * G // 16)
+    return ct, tiles, max(1, MMA_WARPS // tiles) if tiles != 3 else 1
+
+
+def mma_pages(start: int, end: int, ksplit: int):
+    """(stage, warp of the tile, listed entry) in the order the kernel
+    reads a segment [start, end): stage i stages entries start + i *
+    ksplit .. + ksplit - 1, warp j of a tile scores entry start + i *
+    ksplit + j."""
+    n = -(-(end - start) // ksplit)
+    return [(i, j, start + i * ksplit + j) for i in range(n)
+            for j in range(ksplit) if start + i * ksplit + j < end]
+
+
+def _mma_smem(ps: int, hd: int, ksplit: int) -> int:
+    """The kernel's dynamic shared memory: its page ring or, after the
+    loop, the warps' merge area, whichever is larger."""
+    krow = 2 * hd + 16
+    ring = MMA_STAGES * ksplit * (2 * ps * krow + 4 * ps)
+    return max(ring, MMA_WARPS * 32 * (4 + hd // 2) * 4)
+
+
+def mma_scope(q, kp, ppos) -> Optional[str]:
+    """None when the tensor-core kernel reads q against the pages of kp
+    and ppos, else why not (the warp-reduction kernel's case)."""
+    B, C, H, hd = q.shape
+    ps, Hkv = kp.shape[1], kp.shape[2]
+    if q.dtype != torch.bfloat16:
+        return f"q is {q.dtype}, the tensor-core kernel reads bfloat16"
+    if hd not in (64, 128) or ps % 16 or H % Hkv or H // Hkv > MMA_ROWS:
+        return (f"head_dim {hd} (64 or 128), page size {ps} (a multiple of "
+                f"16) or {H} heads over {Hkv}")
+    if _mma_smem(ps, hd, mma_tiles(C, H // Hkv)[2]) > _SMEM_LIMIT:
+        return f"pages of {ps} x {hd} do not fit the kernel's shared memory"
+    if any(t.data_ptr() % 16 for t in (q, kp, ppos)):
+        return "the tensor-core kernel reads 16-byte aligned rows"
+    return None
+
+
+_COUNTERS: dict = {}
+
+
+def _counters(dev, n: int) -> torch.Tensor:
+    """The kernel's per-(row, KV head, query tile) arrival counters on
+    ``dev``: zero, and left zero by every launch."""
+    buf = _COUNTERS.get(dev)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[dev] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                           device=dev)
+    return buf
+
+
+def _mma(q, kp, vp, ppos, qpos, work, window, dims) -> torch.Tensor:
+    B, C, H, hd, P, ps, Hkv = dims
+    dev, n_seg = q.device, work.n_seg
+    ct, tiles, ksplit = mma_tiles(C, H // Hkv)
+    out = torch.empty_like(q)
+    part_acc = torch.empty((n_seg, C, H, hd), dtype=torch.float32, device=dev)
+    part_ml = torch.empty((n_seg, C, H, 2), dtype=torch.float32, device=dev)
+    counters = _counters(dev, B * Hkv * -(-C // ct))
+    fn = build.load("ragged_mma").ragged_mma
+    if fn.argtypes is None:
+        fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I,
+                       _I, _I, _I, _I, _I, _I, _I, _P]
+        fn.restype = _I
+    rc = fn(q.data_ptr(), kp.data_ptr(), vp.data_ptr(), ppos.data_ptr(),
+            qpos.data_ptr(), work.buf.data_ptr(), n_seg, part_acc.data_ptr(),
+            part_ml.data_ptr(), counters.data_ptr(), out.data_ptr(),
+            B, C, H, Hkv, hd, ps, ct, ksplit,
+            0 if window is None else int(window),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"ragged_mma launch failed: CUDA error {rc}")
+    return out
+
+
+def launch_mma(q, kp, vp, ppos, qpos, work: DeviceWorklist, *,
+               window: Optional[int] = None) -> torch.Tensor:
+    """``csrc/ragged_mma.cu`` alone: raises ValueError outside
+    :func:`mma_scope`."""
+    dims = _checked(q, kp, vp, ppos, qpos, work)
+    why = mma_scope(q, kp, ppos)
+    if why is not None:
+        raise ValueError(why)
+    return _mma(q, kp, vp, ppos, qpos, work, window, dims)
+
+
+def launch(q, kp, vp, ppos, qpos, work: DeviceWorklist, *,
+           window: Optional[int] = None) -> torch.Tensor:
+    """Ragged attention on the card: q (B, C, H, hd) against kp/vp (P,
+    ps, Hkv, hd) through a packed work list on the card; returns out (B,
+    C, H, hd) in q's dtype (zeros for rows without work).  The
+    tensor-core kernel where :func:`mma_scope` admits the inputs, else
+    the warp-reduction kernel.  Allocates the output and the segments'
+    scratch; checks every input and raises on what the kernels cannot
+    read (the page ids in the list index the pool: the kernel cannot
+    check them without a device round trip); never synchronises."""
+    dims = _checked(q, kp, vp, ppos, qpos, work)
+    if mma_scope(q, kp, ppos) is None:
+        out = _mma(q, kp, vp, ppos, qpos, work, window, dims)
+        launch.routes["mma"] += 1
+    else:
+        out = _launch_warp(q, kp, vp, ppos, qpos, work, window=window)
+        launch.routes["warp"] += 1
+    return out
+
+
+launch.routes = {"mma": 0, "warp": 0}  # launches by route, never reset here
 
 
 # ----------------------------------------------------------------------

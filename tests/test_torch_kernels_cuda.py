@@ -392,3 +392,234 @@ def test_flash_kernel_refuses_what_it_cannot_read():
                            torch.randn((3, 16, 32), device=dev))
     with pytest.raises(ValueError):
         PO.flash_attention(q, k.to(torch.bfloat16), k.to(torch.bfloat16))
+
+
+# ----------------------------------------------------------------------
+# the tensor-core decode GEMV (csrc/dequant_gemv.cu): the slot and 2-D
+# bindings' route for bfloat16 x with at most 8 rows per record
+def _gemv_case(bits, S, K, N, seed):
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev)
+    gen.manual_seed(seed)
+    qt = P.quantize(torch.randn((S, K, N), generator=gen, device=dev) * 0.05, bits)
+    return dev, gen, qt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("B", [1, 2, 8])
+@pytest.mark.parametrize("M", [1, 2, 8, 9])
+def test_gemv_matches_plain_on_card(bits, B, M):
+    """``ops.dequant_matmul_slots`` with bfloat16 x against the plain
+    version, repeated slots, N = 320 (a half-empty last column tile):
+    M <= 8 takes the tensor-core GEMV, M = 9 the FMA kernel; one launch
+    counted per call.  1e-4 of the output's scale: float32 sums in
+    another order (the GEMV also reassociates (code - zero) * scale)."""
+    _need_cuda()
+    from repro_torch.kernels import dequant_matmul as DM
+    dev, gen, qt = _gemv_case(bits, 5, 512, 320, bits * 1000 + B * 10 + M)
+    x = torch.randn((B, M, 512), generator=gen, device=dev).to(torch.bfloat16)
+    slots = torch.tensor([4, 0, 4, 2, 1, 1, 3, 4][:B], dtype=torch.int32, device=dev)
+    before, routes = PO.dequant_matmul_slots.launches, dict(DM.launch.routes)
+    y = PO.dequant_matmul_slots(x, qt, slots)
+    yp = PR.dequant_matmul_slots(x, qt, slots)
+    torch.cuda.synchronize()
+    assert PO.dequant_matmul_slots.launches == before + 1
+    assert DM.launch.routes["gemv" if M <= 8 else "fma"] == routes["gemv" if M <= 8 else "fma"] + 1
+    assert y.shape == (B, M, 320) and y.dtype == torch.float32
+    assert float((y - yp).abs().max()) <= 1e-4 * float(yp.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [2, 3])
+def test_gemv_cluster_split_at_mixtral_shape(bits):
+    """The down projection's shape (K = 14336, N = 4096): K split over a
+    cluster of 2 blocks, the partial sums met through distributed shared
+    memory; the 2-D binding on one record of the stack agrees."""
+    _need_cuda()
+    from repro_torch.kernels import dequant_matmul as DM
+    dev, gen, qt = _gemv_case(bits, 3, 14336, 4096, bits)
+    assert DM.gemv_cluster(14336, 4096) == 2
+    x = torch.randn((2, 1, 14336), generator=gen, device=dev).to(torch.bfloat16)
+    slots = torch.tensor([2, 0], dtype=torch.int32, device=dev)
+    gemv = DM.launch.routes["gemv"]
+    y = PO.dequant_matmul_slots(x, qt, slots)
+    yp = PR.dequant_matmul_slots(x, qt, slots)
+    y2 = PO.dequant_matmul(x[1], P.slice_leading(qt, 0))
+    torch.cuda.synchronize()
+    assert DM.launch.routes["gemv"] == gemv + 2
+    assert float((y - yp).abs().max()) <= 1e-4 * float(yp.abs().max())
+    assert torch.equal(y2, y[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+def test_gemv_rows_do_not_depend_on_batch_or_slot_map(bits):
+    """A record's output row is the same bits whatever B, the slot map
+    and the row's place in the batch are, and the 2-D binding gives the
+    same bits: the planes' tokens depend on it."""
+    _need_cuda()
+    dev, gen, qt = _gemv_case(bits, 6, 4096, 1024, 7 * bits)
+    x = torch.randn((1, 1, 4096), generator=gen, device=dev).to(torch.bfloat16)
+    ys = []
+    for slot_list in ([3], [1, 3], [5, 0, 2, 3, 3, 1, 4, 0]):
+        B = len(slot_list)
+        xb = torch.randn((B, 1, 4096), generator=gen, device=dev).to(torch.bfloat16)
+        i = slot_list.index(3)
+        xb[i] = x[0]
+        slots = torch.tensor(slot_list, dtype=torch.int32, device=dev)
+        ys.append(PO.dequant_matmul_slots(xb, qt, slots)[i])
+    ys.append(PO.dequant_matmul(x[0], P.slice_leading(qt, 3)))
+    torch.cuda.synchronize()
+    for y in ys[1:]:
+        assert torch.equal(y, ys[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [2, 3])
+def test_gemv_reads_overflow_records_in_place(bits):
+    """Slots into the overflow records of a pool's served view (one
+    buffer, records after the layer's own slots, read in place through
+    the per-leaf record stride), repeated, against the plain version."""
+    _need_cuda()
+    from repro_torch.core import expert_pool as EP
+    from repro_torch.kernels import dequant_matmul as DM
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev)
+    gen.manual_seed(11 * bits)
+    D, F = 256, 320
+    experts = {"w_gate": torch.randn((4, D, F), generator=gen, device=dev) * 0.05,
+               "w_up": torch.randn((4, D, F), generator=gen, device=dev) * 0.05,
+               "w_down": torch.randn((4, F, D), generator=gen, device=dev) * 0.05}
+    qts = EP.quantize_experts(experts, bits)
+    layout = EP.RecordLayout.of(qts, 1)
+    src = EP.Tier(layout, 1, 4, dev)
+    EP.write_layer(src, 0, qts)
+    tier = EP.Tier(layout, 2, 2, dev, extra=4)
+    for i in range(tier.flat.shape[0]):
+        tier.flat[i].copy_(src.flat[i % 4])
+    view = tier.served(1)  # records 0, 1: layer 1's slots; 2 .. 5: overflow
+    slots = torch.tensor([5, tier.extra_index(1, 0), 5, 1], dtype=torch.int32, device=dev)
+    x = torch.randn((4, 1, D), generator=gen, device=dev).to(torch.bfloat16)
+    for qt in (view.w_gate, view.w_up):
+        gemv = DM.launch.routes["gemv"]
+        y, yp = PO.dequant_matmul_slots(x, qt, slots), PR.dequant_matmul_slots(x, qt, slots)
+        torch.cuda.synchronize()
+        assert DM.launch.routes["gemv"] == gemv + 1
+        assert float((y - yp).abs().max()) <= 1e-4 * float(yp.abs().max())
+
+
+@pytest.mark.cuda
+def test_gemv_refuses_what_it_cannot_read():
+    """``launch_gemv`` alone raises outside its scope: float32 x, 9 rows
+    per record, K off the 64-k stage, N off 16 columns, a group size the
+    kernel has no instance for, an x off its 16-byte alignment."""
+    _need_cuda()
+    from repro_torch.kernels import dequant_matmul as DM
+    dev = torch.device("cuda")
+    qt = P.quantize(torch.randn((2, 256, 128), device=dev), 4)
+    x = torch.randn((2, 1, 256), device=dev).to(torch.bfloat16)
+    DM.launch_gemv(x, qt, None)
+    for bad in (x.float(), torch.randn((2, 9, 256), device=dev).to(torch.bfloat16)):
+        with pytest.raises(ValueError):
+            DM.launch_gemv(bad, qt, None)
+    with pytest.raises(ValueError):  # K = 80: 2-bit groups of 16, not whole stages
+        DM.launch_gemv(torch.randn((2, 1, 80), device=dev).to(torch.bfloat16),
+                       P.quantize(torch.randn((2, 80, 128), device=dev), 2), None)
+    with pytest.raises(ValueError):  # N = 40
+        DM.launch_gemv(x, P.quantize(torch.randn((2, 256, 40), device=dev), 4), None)
+    with pytest.raises(ValueError):  # group size 32
+        DM.launch_gemv(x, P.quantize(torch.randn((2, 256, 128), device=dev), 4,
+                                     group_size=32), None)
+    xu = torch.empty(2 * 256 + 1, dtype=torch.bfloat16, device=dev)[1:].view(2, 1, 256)
+    xu.copy_(x)
+    with pytest.raises(ValueError):
+        DM.launch_gemv(xu, qt, None)
+    y = PO.dequant_matmul_batched(xu.float(), qt)  # the binding still serves it elsewhere
+    torch.cuda.synchronize()
+    assert y.shape == (2, 1, 128)
+
+
+# ----------------------------------------------------------------------
+# the tensor-core ragged kernel (csrc/ragged_mma.cu): bfloat16, head_dim
+# 64/128, pages of a multiple of 16 positions
+RAGGED_MMA_CASES = {  # name: (lens, C, H, Hkv, hd, ps, window)
+    "decode_g4": ([37, 300, 1500, 4200], 1, 32, 8, 128, 16, 4096),
+    "decode_idle_rows": ([0, 700, 0, 45], 1, 32, 8, 128, 16, None),
+    "admission": ([200], 128, 32, 8, 128, 16, 4096),
+    "admission_window": ([300, 0, 180], 70, 16, 4, 64, 16, 40),
+    "g1_pages32": ([90, 600], 3, 8, 8, 128, 32, None),
+    "g8_hd64": ([33, 250], 5, 16, 2, 64, 16, 100),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", sorted(RAGGED_MMA_CASES))
+def test_ragged_mma_matches_plain_on_card(dtype, case):
+    """``ops.ragged_attention``: bfloat16 takes the tensor-core kernel,
+    float32 the warp-reduction kernel; active rows against the plain
+    version run in float32 on the same (upcast) inputs: bfloat16 within
+    2^-7 of each row's own max |plain| (float32 sums, P kept to ~16 bits,
+    the output rounded once), float32 within 2e-5.  Idle rows are 0.  A
+    second call gives the same bits (the merge counters are left zero),
+    and rows cut into segments of 3 pages agree too."""
+    _need_cuda()
+    from repro_torch.kernels import ops, ragged_attention as RA
+    lens, C, H, Hkv, hd, ps, window = RAGGED_MMA_CASES[case]
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev)
+    gen.manual_seed(sum(lens) + C)
+    dt = getattr(torch, dtype)
+    q, kp, vp, ppos, pages, qpos, lens = _paged_case(gen, dev, dt, lens, C, H, Hkv, hd, ps)
+    qp = qpos.cpu().numpy()
+    n_live = [n if n > 0 else 0 for n in lens]
+    wl = RA.build_page_worklist(pages.numpy(), n_live, qp[:, 0], qp[:, -1], ps,
+                                window=window)
+    work = _device_worklist(wl, len(lens), dev)
+    before, routes = ops.ragged_attention.launches, dict(RA.launch.routes)
+    out = ops.ragged_attention(q, kp, vp, ppos, pages, qpos, window=window, worklist=work)
+    route = next(r for r, n in RA.launch.routes.items() if n == routes[r] + 1)
+    again = ops.ragged_attention(q, kp, vp, ppos, pages, qpos, window=window, worklist=work)
+    split = RA.launch(q, kp, vp, ppos, qpos, _device_worklist(wl, len(lens), dev, seg_pages=3),
+                      window=window)
+    plain = RA.ragged_attention_reference(q.float(), kp.float(), vp.float(), ppos, pages,
+                                          qpos, window=window)
+    torch.cuda.synchronize()
+    assert ops.ragged_attention.launches == before + 2
+    assert route == ("mma" if dtype == "bfloat16" else "warp")
+    assert torch.equal(out, again)
+    active = torch.tensor([n > 0 for n in lens], device=dev)
+    for y in (out, split):
+        if dtype == "float32":
+            err = (y[active] - plain[active]).abs().max().item()
+            assert err <= 2e-5, err
+        else:
+            _row_errors_within(y, plain, active, 2 ** -7)
+        assert (y[~active] == 0).all()
+    if dtype == "bfloat16":
+        assert int(RA._counters(dev, 1).abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_ragged_mma_refuses_what_it_cannot_read():
+    """``launch_mma`` alone raises outside its scope: float32, head_dim
+    32, pages of 8 positions; the binding serves those on the other
+    kernel."""
+    _need_cuda()
+    from repro_torch.kernels import ragged_attention as RA
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev)
+    gen.manual_seed(5)
+    for dt, hd, ps in ((torch.float32, 64, 16), (torch.bfloat16, 32, 16),
+                       (torch.bfloat16, 64, 8)):
+        q, kp, vp, ppos, pages, qpos, lens = _paged_case(gen, dev, dt, [20, 9], 1, 8, 4, hd, ps)
+        qp = qpos.cpu().numpy()
+        wl = _device_worklist(RA.build_page_worklist(pages.numpy(), lens, qp[:, 0],
+                                                     qp[:, -1], ps), 2, dev)
+        with pytest.raises(ValueError):
+            RA.launch_mma(q, kp, vp, ppos, qpos, wl)
+        warp = RA.launch.routes["warp"]
+        RA.launch(q, kp, vp, ppos, qpos, wl)
+        torch.cuda.synchronize()
+        assert RA.launch.routes["warp"] == warp + 1
