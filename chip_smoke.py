@@ -62,8 +62,38 @@ last line):
    across the three, and the 2-D dequant binding launched on ``pr2_sync``
    only.  Where ``[main]``'s or ``[serve]``'s counters differ from the
    previous decode kernels' (``PREVIOUS_MAIN``/``PREVIOUS_SERVE``), the run
-   is repeated on the FMA decode kernel and the first router decision that
-   differs is printed with its top-k probability gap.
+   is repeated on the FMA decode kernel, whose counters are printed with
+   the first decision that differs and its gap.
+11. plain parity: the plain plane (dense resident weights) on ``tiny-moe``
+   and ``tiny-draft`` (f32, seeded weights), card against CPU: equal
+   ``generate_plain`` tokens; on ``tiny-moe`` accounting mode
+   (``quantized=True, packed=False``) on the card: tokens bitwise equal to
+   ``generate_plain`` over the same dequantized weights, counters and
+   ``usage`` equal to the packed engine's, sampled runs that repeat from
+   a generator seeded with 0, ``SamplerConfig("greedy")`` equal to greedy
+   and every top-k draw in its step's top k.
+12. accounting: the dense-resident oracle of ``[main]`` at full width: the
+   main store's records dequantized on the card layer by layer (no second
+   quantization), generating ``[main]``'s 32 tokens in accounting mode on
+   the plain plane (the prompt's one chunk through the flash kernel,
+   one launch per layer), with its prefill s, decode tok/s and peak
+   device memory (the oracle's times, not an offload result); its tokens
+   and PyLRU replay counters against ``[main]``'s packed run.  This holds
+   the bf16 tensor-core routes of the packed run end to end against a
+   model with no quantized kernel in it.
+13. bf16 parity: ``tiny-moe`` at 4 heads over 2 KV heads (head_dim 64) in
+   bf16, inside every tensor-core route's scope, packed ``pipelined``
+   batch 1 and ``ContinuousEngine`` (4 requests through 2 slots, pages of
+   16), card (kernels) against CPU (plain versions), with the routes
+   taken: the slot binding on the GEMV, the batched binding on the
+   grouped kernel, flash on ``wgmma``, ragged on ``ragged_mma``.
+
+Phases 12 and 13 trace every decision of both runs they compare (router
+top-k, lookahead prediction, sampled token) and hold them to one rule:
+equal, or the first decision that differs is a near-tie, its top-k
+probability gap (routing, prediction) or its top-2 logit gap over the
+row's largest |logit| (token) below ``NEAR_TIE`` = 2^-6 in both runs; the
+decision is printed with its gap.
 
 The line before the card's line is ``{"kernels": [...]}``; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -85,6 +115,10 @@ BF16_FLOP_PER_S = 989e12     # H100 SXM dense bf16 on the tensor cores: the
                              # inputs are bf16 activations and integer codes
 KERNEL_RTOL = 1e-4           # of max |plain|: f32 sums over <= 14336 terms in another order
 LOGIT_ATOL = 1e-3            # tiny-moe f32 logits, card vs CPU
+NEAR_TIE = 2 ** -6           # a difference between two runs must start at a
+                             # decision this close (phases 12-13): routing
+                             # probabilities, or a token's top-2 logit gap
+                             # over its row's largest |logit|
 RAGGED_BF16_RTOL = 2 ** -7   # of each row's max |plain in f32|: the kernel
                              # accumulates in f32 and rounds only its bf16
                              # output, by at most 2^-8 of the value
@@ -101,12 +135,13 @@ PARITY_PLANES = [dict(pipelined=True, vectorized=True, fused=True),
                  dict(pipelined=False, vectorized=True, fused=False)]
 SERVE_REQUESTS, SERVE_NEW, SERVE_SLOTS = 8, 24, 4
 # the counters the previous decode kernels (the FMA GEMV, the warp-reduction
-# ragged kernel) gave at these seeds on an NVIDIA H100 80GB HBM3: a new
-# summation order may flip a near-tie, which the run then explains
-PREVIOUS_MAIN = {"hits": 348, "spec_hits": 73, "demand_loads": 75,
-                 "spec_loads": 128, "bytes_h2d": 13_549_928_448}
-PREVIOUS_SERVE = {"hits": 1358, "demand_loads": 1586, "overflow_accesses": 726,
-                  "bytes_h2d": 105_862_987_776}
+# ragged kernel) gave at these seeds, with attention quantized as the
+# reference does (on its period-stacked leaves), on an NVIDIA H100 80GB HBM3:
+# a new summation order may flip a near-tie, which the run then explains
+PREVIOUS_MAIN = {"hits": 362, "spec_hits": 63, "demand_loads": 71,
+                 "spec_loads": 118, "bytes_h2d": 12_615_450_624}
+PREVIOUS_SERVE = {"hits": 1417, "demand_loads": 1527, "overflow_accesses": 699,
+                  "bytes_h2d": 101_924_831_232}
 
 
 def log(*a):
@@ -145,60 +180,190 @@ def phase_device():
 
 # ----------------------------------------------------------------------
 def _routes():
-    """Launches by route of the slot/2-D dequant and the ragged bindings
-    (the tensor-core kernels or the ones they replaced)."""
-    from repro_torch.kernels import dequant_matmul as DM, ragged_attention as RA
+    """Launches by route of the dequant, ragged and flash bindings (the
+    tensor-core kernels or the ones they replaced)."""
+    from repro_torch.kernels import dequant_matmul as DM, flash_attention as FA
+    from repro_torch.kernels import ragged_attention as RA
     return {**{f"dequant_{k}": v for k, v in DM.launch.routes.items()},
-            **{f"ragged_{k}": v for k, v in RA.launch.routes.items()}}
+            **{f"grouped_{k}": v for k, v in DM.launch_grouped.routes.items()},
+            **{f"ragged_{k}": v for k, v in RA.launch.routes.items()},
+            **{f"flash_{k}": v for k, v in FA.launch.routes.items()}}
 
 
 def _routes_since(before):
     return {k: v - before[k] for k, v in _routes().items()}
 
 
-def _routing_trace(run, previous):
-    """Every router decision of ``run()``: (top-k ids, probabilities in
-    descending order) per ``route_topk`` call, copied to the host; with
+class _Decisions:
+    """Every decision of one run, copied to the host with the gap a
+    perturbation must cross to flip it: each router top-k
+    (``moe.route_topk``: the k-th minus the (k+1)-th probability), each
+    lookahead prediction (``speculative.predict_experts``: the same over
+    the softmax of the lookahead router's logits) and each token sampled
+    by an engine passed to :meth:`watch` (the top two logits' gap over
+    the row's largest |logit|: a probability gap over a whole vocabulary
+    of near-uniform logits would be tiny whatever the logits).  A
+    decision's key, (step, index within the step, kind), lines two runs
+    up whatever order their planes make the calls in."""
+
+    KINDS = ("route", "predict", "token")
+
+    def __init__(self):
+        self.events = {k: [] for k in self.KINDS}
+        self.step, self.index = 0, {"route": 0, "predict": 0}
+        self._undo = []
+
+    def _record(self, kind, chosen, scores, k):
+        import torch
+        top = torch.sort(scores.float(), -1, descending=True).values
+        key = (self.step, self.index[kind], self.KINDS.index(kind))
+        self.events[kind].append((key, np.sort(chosen.cpu().numpy(), -1),
+                                  (top[:, k - 1] - top[:, k]).cpu().numpy()))
+        self.index[kind] += 1
+
+    def _token(self, logits, picked):
+        import torch
+        top = torch.sort(logits.float(), -1, descending=True).values
+        rel = (top[:, 0] - top[:, 1]) / logits.float().abs().amax(-1)
+        self.events["token"].append(((self.step, 1 << 30, 2),
+                                     np.asarray(picked).reshape(-1, 1),
+                                     rel.cpu().numpy()))
+        self.step, self.index = self.step + 1, {"route": 0, "predict": 0}
+
+    def watch(self, engine):
+        """Record the tokens ``engine`` samples (an ``OffloadEngine`` or a
+        ``ContinuousEngine``) until the trace ends."""
+        if hasattr(engine, "_sample_rows"):
+            fn = engine._sample_rows
+
+            def rows(logits, reqs):
+                out = fn(logits, reqs)
+                sel = (slice(None) if logits.shape[0] == len(reqs)
+                       else [r.slot for r in reqs])
+                self._token(logits[sel], out[sel])
+                return out
+            engine._sample_rows, name = rows, "_sample_rows"
+        else:
+            fn = engine._next_token
+
+            def nxt(rng, logits, sampler):
+                tok = fn(rng, logits, sampler)
+                self._token(logits[:, -1], tok[:, 0].cpu().numpy())
+                return tok
+            engine._next_token, name = nxt, "_next_token"
+        self._undo.append(lambda: delattr(engine, name))
+        return engine
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core import speculative
+        from repro_torch.models import moe
+        route, predict = moe.route_topk, speculative.predict_experts
+
+        def traced_route(p, spec, x2d):
+            w, ids, probs = route(p, spec, x2d)
+            self._record("route", ids, probs, spec.top_k)
+            return w, ids, probs
+
+        def traced_predict(router_w, hidden, n_spec):
+            ids = predict(router_w, hidden, n_spec)
+            probs = torch.softmax(hidden.float() @ router_w.float(), -1)
+            self._record("predict", ids, probs, n_spec)
+            return ids
+
+        moe.route_topk, speculative.predict_experts = traced_route, traced_predict
+        self._undo.append(lambda: setattr(moe, "route_topk", route))
+        self._undo.append(lambda: setattr(speculative, "predict_experts", predict))
+        return self
+
+    def __exit__(self, *exc):
+        for undo in reversed(self._undo):
+            undo()
+        self._undo.clear()
+
+    def counts(self):
+        return {k: len(v) for k, v in self.events.items()}
+
+
+def _trace(run, previous=False):
+    """``run(decisions)`` under a :class:`_Decisions` trace; with
     ``previous`` the slot and 2-D dequant bindings run the FMA kernel (the
-    previous decode kernel) instead of the tensor-core GEMV."""
-    import torch
+    previous decode kernel) instead of the tensor-core GEMV.  Returns
+    (decisions, what ``run`` returned)."""
     from repro_torch.kernels import dequant_matmul as DM
-    from repro_torch.models import moe
-    route_topk, launch = moe.route_topk, DM.launch
-    calls = []
-
-    def traced(p, spec, x2d):
-        w, ids, probs = route_topk(p, spec, x2d)
-        calls.append((np.sort(ids.cpu().numpy(), -1), torch.sort(
-            probs.float(), -1, descending=True).values.cpu().numpy()))
-        return w, ids, probs
-
-    moe.route_topk = traced
+    launch = DM.launch
     if previous:
         DM.launch = DM._launch_fma
     try:
-        run()
+        with _Decisions() as d:
+            out = run(d)
     finally:
-        moe.route_topk, DM.launch = route_topk, launch
-    return calls
+        DM.launch = launch
+    return d, out
 
 
-def _explain_difference(label, run, k):
-    """``run()`` on the tensor-core GEMV and on the previous decode kernel:
-    the first router decision that differs, with the gap between the k-th
-    and (k+1)-th expert probabilities in each (a near-tie, not a fault)."""
-    new, old = _routing_trace(run, False), _routing_trace(run, True)
-    for i, ((ia, pa), (ib, pb)) in enumerate(zip(new, old)):
-        if ia.shape != ib.shape or (ia != ib).any():
-            row = 0 if ia.shape != ib.shape else int(np.flatnonzero((ia != ib).any(-1))[0])
-            log(f"[{label}] first router decision that differs from the previous "
-                f"decode kernel's run: call {i} of {len(new)}, row {row}: experts "
-                f"{ia[row].tolist()} vs {ib[row].tolist()}; top-{k} probability gap "
-                f"{pa[row, k - 1] - pa[row, k]:.3g} (new) / "
-                f"{pb[row, k - 1] - pb[row, k]:.3g} (previous)")
-            return
-    log(f"[{label}] router decisions equal to the previous decode kernel's run "
-        f"over {len(new)} calls")
+def _first_difference(a, b):
+    """The first decision, by key, where traces ``a`` and ``b`` differ:
+    (key, kind, row, choice in a, choice in b, the larger of the two
+    runs' gaps there); None when every decision is equal."""
+    found = []
+    for kind in _Decisions.KINDS:
+        ea, eb = a.events[kind], b.events[kind]
+        for (key, ia, ga), (_, ib, gb) in zip(ea, eb):
+            if ia.shape != ib.shape:
+                found.append((key, kind, 0, ia[:1], ib[:1], float("inf")))
+                break
+            rows = np.flatnonzero((ia != ib).any(-1))
+            if rows.size:
+                r = int(rows[0])
+                found.append((key, kind, r, ia[r], ib[r], float(max(ga[r], gb[r]))))
+                break
+        else:
+            if len(ea) != len(eb):
+                end = ea[len(eb)][0] if len(ea) > len(eb) else eb[len(ea)][0]
+                found.append((end, kind, 0, None, None, float("inf")))
+    return min(found, key=lambda f: f[0]) if found else None
+
+
+def _describe(diff, names):
+    key, kind, row, ca, cb, gap = diff
+    what = ("relative top-2 logit gap" if kind == "token"
+            else "top-k probability gap")
+    where = "" if kind == "token" else f" (#{key[1]} of its kind in the step)"
+    show = lambda c: None if c is None else c.tolist()
+    return (f"{kind} decision at step {key[0]}{where}, row {row}: {show(ca)} "
+            f"({names[0]}) vs {show(cb)} ({names[1]}); {what} {gap:.3g}")
+
+
+def _hold_to_near_tie(label, a, b, names):
+    """Print the first decision where traces ``a`` and ``b`` differ, with
+    its gap, and fail unless it is a near-tie (gap below ``NEAR_TIE``).
+    Returns the difference, None when every decision is equal."""
+    diff = _first_difference(a, b)
+    if diff is None:
+        log(f"[{label}] every decision equal ({names[0]} vs {names[1]}): "
+            f"{a.counts()}")
+        return None
+    log(f"[{label}] first decision that differs: {_describe(diff, names)}; "
+        f"limit {NEAR_TIE:.3g}")
+    if not diff[5] < NEAR_TIE:
+        fail(f"{label}: {names[0]} and {names[1]} differ from a decision that "
+             f"is no near-tie: {_describe(diff, names)}")
+    return diff
+
+
+def _explain_difference(label, run):
+    """``run(decisions)`` (which returns the run's counters) on the
+    tensor-core GEMV and on the previous decode kernel: the previous
+    kernel's counters and the first decision that differs, with its gap
+    (a near-tie, not a fault)."""
+    new, _ = _trace(run, False)
+    old, counters = _trace(run, True)
+    diff = _first_difference(new, old)
+    where = ("every decision equal" if diff is None else
+             f"first decision that differs: {_describe(diff, ('new', 'previous'))}")
+    log(f"[{label}] rerun on the previous decode kernel: counters {counters}; "
+        f"{where}")
 
 
 def _event_ms(fn, n, flush):
@@ -485,7 +650,8 @@ def phase_parity(dev):
     cfg = get_config("tiny-moe")
     spec = cfg.offload
     params = T.init_model(cfg, seed=0, device="cpu")
-    exec_params, store = quantize_for_offload(params, cfg, spec, device="cpu")
+    exec_params, _, store = quantize_for_offload(params, cfg, spec,
+                                                 pack_experts=True, device="cpu")
     prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 12))
     card_params, card_store = _to(exec_params, dev), _cpu_store_to(store, dev)
     gaps = []
@@ -493,7 +659,7 @@ def phase_parity(dev):
         runs = {}
         for where in ("cpu", dev):
             eng = OffloadEngine(exec_params if where == "cpu" else card_params,
-                                cfg, spec,
+                                cfg, spec, quantized=True,
                                 store=store if where == "cpu" else card_store,
                                 device=where, **flags)
             steps = []
@@ -528,7 +694,7 @@ def phase_main(dev):
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     eng = OffloadEngine(T.init_model(cfg, seed=0, device=dev), cfg,
-                        device=dev)
+                        quantized=True, device=dev)
     torch.cuda.synchronize(dev)
     setup_s = time.perf_counter() - t0
     log(f"[main] {cfg.name} {cfg.n_layers}/32 layers: init + quantize "
@@ -585,8 +751,11 @@ def phase_main(dev):
     log(f"[main] counters {counters} beside the previous decode kernel's "
         f"{PREVIOUS_MAIN}: equal {counters == PREVIOUS_MAIN}")
     if counters != PREVIOUS_MAIN:
-        _explain_difference("main", lambda: eng.generate(prompt, NEW_TOKENS),
-                            cfg.moe.top_k)
+        def main_counters(d):
+            st = d.watch(eng).generate(prompt, NEW_TOKENS)[1]
+            return {**{k: getattr(st, k) for k in PREVIOUS_MAIN if k != "bytes_h2d"},
+                    "bytes_h2d": st.bytes_h2d}
+        _explain_difference("main", main_counters)
     if ps.h2d_bytes != stats.bytes_h2d:
         fail(f"issued h2d bytes {ps.h2d_bytes} != counters {stats.bytes_h2d}")
     if not torch.isfinite(logits).all() or logits.shape[-1] != cfg.padded_vocab:
@@ -606,7 +775,7 @@ def phase_main(dev):
     log(f"[main] repeats: {json.dumps(again)}")
     if len(batches) != L:
         fail(f"{len(batches)} prefill kernel batches for {L} MoE layers")
-    return launches, batches, eng, cfg, prompt
+    return launches, batches, eng, cfg, prompt, (toks, stats)
 
 
 def _h2d_rate(store, dev):
@@ -909,13 +1078,14 @@ def phase_continuous_parity(dev):
     cfg = get_config("tiny-moe")
     spec = cfg.offload
     params = T.init_model(cfg, seed=0, device="cpu")
-    exec_params, store = quantize_for_offload(params, cfg, spec, device="cpu")
+    exec_params, _, store = quantize_for_offload(params, cfg, spec,
+                                                 pack_experts=True, device="cpu")
     rng = np.random.default_rng(1)
     prompts = [rng.integers(1, cfg.vocab_size, n) for n in (6, 11, 8, 14)]
     news = (8, 5, 7, 4)
     runs = {}
     for where in ("cpu", dev):
-        eng = OffloadEngine(_to(exec_params, where), cfg, spec,
+        eng = OffloadEngine(_to(exec_params, where), cfg, spec, quantized=True,
                             store=store if where == "cpu" else _cpu_store_to(store, where),
                             device=where)
         ce, toks, steps, _ = _serve(eng, cfg, prompts, news, max_slots=2,
@@ -1084,8 +1254,12 @@ def phase_serving(dev, eng, cfg):
     log(f"[serve] counters {counters} beside the previous decode kernels' "
         f"{PREVIOUS_SERVE}: equal {counters == PREVIOUS_SERVE}")
     if counters != PREVIOUS_SERVE:
-        _explain_difference("serve", lambda: _serve(eng, cfg, prompts, news, **kw),
-                            cfg.moe.top_k)
+        def serve_counters(d):
+            st = _serve(eng, cfg, prompts, news, on_engine=d.watch, **kw)[0]._pstate
+            return {"hits": int(st.counts[0]), "demand_loads": int(st.counts[2]),
+                    "overflow_accesses": st.overflow_accesses,
+                    "bytes_h2d": st.h2d_bytes}
+        _explain_difference("serve", serve_counters)
     if st.h2d_bytes != counters_bytes:
         fail(f"serving h2d bytes issued {st.h2d_bytes} != counters {counters_bytes}")
     if spec != 0:
@@ -1227,8 +1401,8 @@ def phase_planes(dev, eng, cfg):
     L, K = eng.n_moe_layers, cfg.moe.top_k
     reports, ref = {}, None
     for name, flags in PLANES.items():
-        e = OffloadEngine(eng.params, cfg, eng.spec, store=eng.store,
-                          device=dev, **flags)
+        e = OffloadEngine(eng.params, cfg, eng.spec, quantized=True,
+                          store=eng.store, device=dev, **flags)
         e.generate(prompt[:, :8], 3)  # warm-up (allocator, library handles)
         torch.cuda.synchronize(dev)
         stamps = []
@@ -1282,6 +1456,189 @@ def phase_planes(dev, eng, cfg):
 
 
 # ----------------------------------------------------------------------
+def phase_plain_parity(dev):
+    """The plain plane on ``tiny-moe`` and ``tiny-draft`` (f32, seeded
+    weights), card against CPU: equal ``generate_plain`` tokens.  On
+    ``tiny-moe``, on the card: accounting mode over the dequantized model
+    (``quantized=True, packed=False``) against ``generate_plain`` over the
+    same weights (bitwise equal tokens) and against the packed engine
+    (equal tokens, counters and ``usage``); sampled runs from a card
+    generator seeded with 0 repeat; ``SamplerConfig("greedy")`` equals
+    greedy; every top-k draw lies in its step's top k."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.offload_engine import OffloadEngine, generate_plain
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.sampler import SamplerConfig
+    for name in ("tiny-moe", "tiny-draft"):
+        cfg = get_config(name)
+        params = T.init_model(cfg, seed=0, device="cpu")
+        prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 12))
+        a = generate_plain(params, cfg, prompt, 16, device="cpu")
+        b = generate_plain(_to(params, dev), cfg, prompt, 16, device=dev)
+        log(f"[plain-parity] {name} generate_plain card vs cpu: tokens equal "
+            f"{bool((a == b).all())}: {b[0].tolist()}")
+        if not (a == b).all():
+            fail(f"{name}: generate_plain on the card differs from the CPU")
+    cfg = get_config("tiny-moe")
+    params = _to(T.init_model(cfg, seed=0, device="cpu"), dev)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 12))
+    acct = OffloadEngine(params, cfg, cfg.offload, quantized=True, packed=False,
+                         device=dev)
+    packed = OffloadEngine(params, cfg, cfg.offload, quantized=True, device=dev)
+    ta, sa = acct.generate(prompt, 16)
+    tp, sp = packed.generate(prompt, 16)
+    plain = generate_plain(acct.params, cfg, prompt, 16, device=dev)
+    fields = ("n_tokens", "hits", "spec_hits", "demand_loads", "spec_loads")
+    ca, cp = ({f: getattr(s_, f) for f in fields} for s_ in (sa, sp))
+    usage = bool(np.array_equal(acct.usage.counts, packed.usage.counts))
+    log(f"[plain-parity] tiny-moe on the card: accounting tokens == "
+        f"generate_plain {bool((ta == plain).all())}, == packed "
+        f"{bool((ta == tp).all())}; accounting counters {ca}, packed pool "
+        f"{cp}; usage equal {usage}")
+    if not (ta == plain).all() or not (ta == tp).all() or ca != cp or not usage:
+        fail("tiny-moe accounting mode differs from generate_plain or the "
+             "packed engine on the card")
+    gen = lambda: torch.Generator(dev).manual_seed(0)
+    for label, eng, greedy in (("accounting", acct, ta), ("packed", packed, tp)):
+        x, y = (eng.generate(prompt, 16, greedy=False, rng=gen())[0]
+                for _ in range(2))
+        g = eng.generate(prompt, 16, sampler=SamplerConfig("greedy"))[0]
+        steps = []
+        k = eng.generate(prompt, 16, rng=gen(), sampler=SamplerConfig("topk", top_k=4),
+                         on_step=lambda lg, r: steps.append(lg[0]))[0]
+        in_topk = all(int(t) in torch.topk(lg, 4).indices.tolist()
+                      for t, lg in zip(k[0], steps))
+        log(f"[plain-parity] {label} sampled twice from seed 0: equal "
+            f"{bool((x == y).all())} {x[0].tolist()}; SamplerConfig('greedy') "
+            f"== greedy {bool((g == greedy).all())}; top-4 draws in their "
+            f"step's top 4 {in_topk}")
+        if not ((x == y).all() and (g == greedy).all() and in_topk):
+            fail(f"tiny-moe {label}: sampling on the card")
+
+
+def phase_accounting(dev, eng, cfg, prompt, main_run):
+    """The dense-resident oracle of ``[main]``: the main store's records
+    dequantized on the card layer by layer into dense bf16 experts beside
+    ``[main]``'s executable weights (no second quantization), generating
+    ``[main]``'s 32 tokens in accounting mode (the plain plane, the
+    prompt's one chunk through the flash kernel).  Its launch counts are
+    read around that run alone.  Tokens and PyLRU replay counters are
+    compared with ``[main]``'s packed run; the two runs' decisions are
+    then traced and held to the near-tie rule.  Returns the launches."""
+    import torch
+    from repro_torch.core.offload_engine import OffloadEngine, dense_from_store
+    from repro_torch.kernels import ops
+    toks_main, stats_main = main_run
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    dense = dense_from_store(eng.params, cfg, eng.store, dev)
+    acct = OffloadEngine(dense, cfg, eng.spec, device=dev)  # quantized=False
+    torch.cuda.synchronize(dev)
+    build_s = time.perf_counter() - t0
+    acct.generate(prompt[:, :8], 3)  # warm-up (allocator, library handles)
+    torch.cuda.synchronize(dev)
+    ops.reset_launches()
+    before = _routes()
+    toks, stats = acct.generate(prompt, NEW_TOKENS)
+    launches = ops.launches()
+    routes = _routes_since(before)
+    t = acct.last_timing
+    fields = ("hits", "spec_hits", "demand_loads", "spec_loads")
+    counters = {f: getattr(stats, f) for f in fields}
+    counters_main = {f: getattr(stats_main, f) for f in fields}
+    expect = {"dequant_matmul": 0, "dequant_matmul_batched": 0,
+              "dequant_matmul_slots": 0, "flash_attention": cfg.n_layers,
+              "ragged_attention": 0}
+    dense_gib = sum(a.numel() * a.element_size() for lp in dense["layers"]
+                    for a in lp["moe"]["experts"].values()) / 2**30
+    report = {
+        "oracle_prefill_s": t["prefill_s"],
+        "oracle_decode_tok_s": t["decode_steps"] / t["decode_s"],
+        "build_s": build_s, "dense_expert_gib": dense_gib,
+        "peak_device_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+        "launches": launches, "launches_expected": expect, "routes": routes,
+        "tokens_equal_main": bool((toks == toks_main).all()),
+        "counters": counters, "counters_main": counters_main,
+        "tokens": toks[0].tolist()}
+    log(f"[accounting] {cfg.name} {cfg.n_layers} layers, dense-resident oracle "
+        f"on the card (times are the oracle's, not an offload result): "
+        f"{json.dumps(report)}")
+    if launches != expect or routes["flash_wgmma"] != cfg.n_layers:
+        fail(f"accounting launches {launches} (routes {routes}) != expected {expect}")
+    if toks.shape != (1, NEW_TOKENS) or not ((0 <= toks) & (toks < cfg.vocab_size)).all():
+        fail(f"accounting: bad tokens {toks}")
+    packed, _ = _trace(lambda d: d.watch(eng).generate(prompt, NEW_TOKENS))
+    oracle, _ = _trace(lambda d: d.watch(acct).generate(prompt, NEW_TOKENS))
+    diff = _hold_to_near_tie("accounting", packed, oracle,
+                             ("packed [main]", "dense oracle"))
+    if diff is None and (counters != counters_main or not (toks == toks_main).all()):
+        fail(f"accounting: every decision equal but tokens or counters differ: "
+             f"{counters} vs {counters_main}")
+    del acct, dense
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_bf16_parity(dev):
+    """``tiny-moe`` at 4 heads over 2 KV heads (head_dim 64) in bf16, card
+    (kernels) against CPU (plain versions): packed ``pipelined`` batch 1
+    (16 tokens) and ``ContinuousEngine`` (4 requests through 2 slots,
+    pages of 16).  Each card run must take the tensor-core routes on every
+    launch; card and CPU are held to the near-tie rule."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.offload_engine import (OffloadEngine,
+                                                 quantize_for_offload)
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    cfg = get_config("tiny-moe").replace(n_heads=4, n_kv_heads=2, head_dim=64,
+                                         dtype="bfloat16")
+    spec = cfg.offload
+    params = T.init_model(cfg, seed=0, device="cpu")
+    exec_params, _, store = quantize_for_offload(params, cfg, spec,
+                                                 pack_experts=True, device="cpu")
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, 12))
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in (6, 11, 8, 14)]
+    news = (8, 5, 7, 4)
+    engines = {"cpu": OffloadEngine(exec_params, cfg, spec, quantized=True,
+                                    store=store, device="cpu"),
+               "card": OffloadEngine(_to(exec_params, dev), cfg, spec,
+                                     quantized=True,
+                                     store=_cpu_store_to(store, dev), device=dev)}
+    cases = {
+        "batch-1": lambda d, e: d.watch(e).generate(prompt, 16)[0],
+        "continuous": lambda d, e: _serve(e, cfg, prompts, news, max_slots=2,
+                                          slot_len=64, on_engine=d.watch)[1]}
+    for case, run in cases.items():
+        traces = {}
+        for where, eng in engines.items():
+            ops.reset_launches()
+            before = _routes()
+            traces[where] = _trace(lambda d: run(d, eng))
+            launches, routes = ops.launches(), _routes_since(before)
+        toks = {w: tr[1] for w, tr in traces.items()}
+        equal = str(toks["cpu"]) == str(toks["card"])
+        log(f"[bf16-parity] {case}: card launches {launches}, routes {routes}; "
+            f"tokens equal {equal}")
+        tc = {"dequant_gemv": launches["dequant_matmul_slots"],
+              "grouped_grouped": launches["dequant_matmul_batched"],
+              "flash_wgmma": launches["flash_attention"],
+              "ragged_mma": launches["ragged_attention"]}
+        other = ("dequant_fma", "grouped_fma", "flash_fma", "ragged_warp")
+        used = ("dequant_gemv", "grouped_grouped") + (
+            ("flash_wgmma",) if case == "batch-1" else ("ragged_mma",))
+        if (any(routes[k] != n for k, n in tc.items()) or any(routes[k] for k in other)
+                or any(routes[k] < 1 for k in used)):
+            fail(f"bf16 {case}: a launch left the tensor-core routes: {routes}")
+        diff = _hold_to_near_tie(f"bf16-parity] [{case}", traces["card"][0],
+                                 traces["cpu"][0], ("card", "cpu"))
+        if diff is None and not equal:
+            fail(f"bf16 {case}: every decision equal but the tokens differ")
+
+
+# ----------------------------------------------------------------------
 def main():
     card = phase_device()
     import torch
@@ -1291,10 +1648,14 @@ def main():
     kern["flash_attention"], _ = phase_flash(dev, flush)
     phase_parity(dev)
     phase_continuous_parity(dev)
-    launches, batches, eng, cfg, prompt = phase_main(dev)
+    phase_plain_parity(dev)
+    phase_bf16_parity(dev)
+    launches, batches, eng, cfg, prompt, main_run = phase_main(dev)
     # the host-bound decode runs come before any profiler window
     planes = phase_planes(dev, eng, cfg)
     launches["dequant_matmul"] = planes["pr2_sync"]["launches"]["dequant_matmul"]
+    accounting = phase_accounting(dev, eng, cfg, prompt, main_run)
+    launches["flash_attention"] += accounting["flash_attention"]
     _profile_decode(eng, prompt, dev)
     _profile_prefill(eng, prompt, dev)
     batched = phase_prefill_kernel(dev, tiers, flush, batches)

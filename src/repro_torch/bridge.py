@@ -26,14 +26,20 @@ def _to_torch(tree, device):
         return {k: _to_torch(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_to_torch(v, device) for v in tree)
-    return torch.from_numpy(np.array(tree)).to(device)
+    a = np.array(tree)
+    if a.dtype.name == "bfloat16":  # numpy's bfloat16 extension type
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device=None):
     """The reference's parameter tree (numpy leaves) -> the port's layout:
     ``stack[l % period]`` sliced at period ``l // period`` becomes
-    ``layers[l]``.  Zero-size leaves (the reference's placeholders for
-    packed experts) are dropped."""
+    ``layers[l]``.  Every other leaf carries across as it is: attention,
+    the dense ``mlp`` of ``attn+mlp``/``swa+mlp`` blocks, and the dense
+    expert stacks of a non-packed tree (what the plain plane and
+    accounting mode compute with).  Zero-size leaves (the reference's
+    placeholders for packed experts) are dropped."""
     dev = resolve_device(device)
     if cfg.n_tail_layers:
         raise NotImplementedError("tail layers are not ported")

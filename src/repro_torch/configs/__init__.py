@@ -12,6 +12,7 @@ from repro_torch.configs.base import (  # noqa: F401  (re-exports)
 
 _MODULES = {
     "tiny-moe": "repro_torch.configs.tiny_moe",
+    "tiny-draft": "repro_torch.configs.tiny_draft",
     "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
     "mixtral-offload": "repro_torch.configs.mixtral_offload",
 }

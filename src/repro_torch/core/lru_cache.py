@@ -238,3 +238,96 @@ class PyLRU:
             seen.add(e)
             fresh.append(e)
         self.spec = [e for e in fresh if e >= 0]
+
+
+# ----------------------------------------------------------------------
+# Beyond-paper cache policies and the trace replays of the paper's Fig. 2
+# (the paper: "LRU is a very simple strategy that does not consider
+# factors like expert activation frequencies ...")
+class PyLFUDecay:
+    """Frequency cache with exponential decay (half-life in accesses)."""
+
+    def __init__(self, k: int, decay: float = 0.95):
+        self.k = k
+        self.decay = decay
+        self.score: dict = {}
+        self.cache: set = set()
+        self.hits = self.demand = 0
+
+    def access(self, needed: Sequence[int]):
+        for key in list(self.score):
+            self.score[key] *= self.decay
+        for e in needed:
+            e = int(e)
+            self.score[e] = self.score.get(e, 0.0) + 1.0
+            if e in self.cache:
+                self.hits += 1
+            else:
+                self.demand += 1
+                self.cache.add(e)
+                if len(self.cache) > self.k:
+                    victim = min(self.cache, key=lambda x: self.score.get(x, 0))
+                    self.cache.discard(victim)
+
+
+def belady_hit_ratio(layer_trace: np.ndarray, k: int) -> float:
+    """Clairvoyant (Belady/MIN) eviction upper bound for one layer's
+    access sequence.  layer_trace: (n_tokens, top_k) expert ids."""
+    seq = [int(e) for row in layer_trace for e in row]
+    n = len(seq)
+    nxt_use = [float("inf")] * n
+    last: dict = {}
+    for i in range(n - 1, -1, -1):
+        nxt_use[i] = last.get(seq[i], float("inf"))
+        last[seq[i]] = i
+    cache: dict = {}  # expert -> next use index
+    hits = 0
+    for i, e in enumerate(seq):
+        if e in cache:
+            hits += 1
+            cache[e] = nxt_use[i]
+            continue
+        if len(cache) >= k:
+            # true MIN: bypass the incoming expert if its own next use is
+            # the farthest
+            victim = max(cache, key=lambda x: cache[x])
+            if cache[victim] <= nxt_use[i]:
+                continue
+            del cache[victim]
+        cache[e] = nxt_use[i]
+    return hits / max(1, n)
+
+
+def policy_comparison(trace: np.ndarray, cache_sizes: Sequence[int]) -> dict:
+    """Hit ratios per (policy, k): LRU (the paper's), LFU with decay and
+    Belady, over a (n_tokens, n_layers, top_k) trace."""
+    n_tokens, n_layers, top_k = trace.shape
+    out = {}
+    for k in cache_sizes:
+        lru = [PyLRU(k, 0) for _ in range(n_layers)]
+        lfu = [PyLFUDecay(k) for _ in range(n_layers)]
+        for t in range(n_tokens):
+            for l in range(n_layers):
+                lru[l].access(trace[t, l])
+                lfu[l].access(trace[t, l])
+        tot = n_tokens * n_layers * top_k
+        out[("lru", k)] = sum(c.hits for c in lru) / tot
+        out[("lfu_decay", k)] = sum(c.hits for c in lfu) / tot
+        out[("belady", k)] = float(np.mean(
+            [belady_hit_ratio(trace[:, l], k) for l in range(n_layers)]))
+    return out
+
+
+def lru_hit_curve(trace: np.ndarray, cache_sizes: Sequence[int]) -> dict:
+    """The paper's Fig. 2 (left): an expert-activation trace (n_tokens,
+    n_layers, top_k) replayed through an LRU cache of each size k; the
+    hit ratio per k."""
+    n_tokens, n_layers, top_k = trace.shape
+    out = {}
+    for k in cache_sizes:
+        caches = [PyLRU(k, 0) for _ in range(n_layers)]
+        for t in range(n_tokens):
+            for l in range(n_layers):
+                caches[l].access(trace[t, l])
+        out[k] = sum(c.hits for c in caches) / (n_tokens * n_layers * top_k)
+    return out

@@ -278,7 +278,8 @@ def launch_grouped(x: torch.Tensor, qt: hqq.QTensor,
     group sizes 16 at 2 bits and 64 otherwise, ``hqq.quantize``'s meta
     groups, 16-byte aligned records); float32 x the ragged entry of
     ``csrc/dequant_matmul.cu``.  ``last_bm`` keeps the row tile of the
-    last tensor-core launch."""
+    last tensor-core launch; ``routes`` counts the launches by route
+    ("grouped", "fma")."""
     _check_x(x, 2, "(R, K)")
     R, K = x.shape
     dev = x.device
@@ -310,13 +311,17 @@ def launch_grouped(x: torch.Tensor, qt: hqq.QTensor,
         rc = _fn("dequant_grouped", "dequant_grouped", _GROUPED_ARGS + [_P, _P])(
             x.data_ptr(), out.data_ptr(), off32, *args, ctypes.byref(bm), stream)
         launch_grouped.last_bm = bm.value
+        route = "grouped"
     else:
         rc = _fn("dequant_matmul", "dequant_matmul_ragged", _GROUPED_ARGS + [_P])(
             x.data_ptr(), out.data_ptr(), off32, *args, stream)
+        route = "fma"
     if rc != 0:
         raise RuntimeError(f"grouped dequant_matmul launch failed: CUDA "
                            f"error {rc}")
+    launch_grouped.routes[route] += 1
     return out
 
 
 launch_grouped.last_bm = 0
+launch_grouped.routes = {"grouped": 0, "fma": 0}  # never reset here

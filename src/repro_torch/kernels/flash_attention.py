@@ -21,7 +21,9 @@ H, d) activations and KV ring without a copy.
   KV head's query heads stacked as rows, K/V tiles loaded by TMA.
 * :func:`flash_attention`, the dispatch: a CPU tensor takes the plain
   version; a CUDA tensor launches the kernel (or raises) and counts the
-  launch in ``flash_attention.launches``.
+  launch in ``flash_attention.launches``.  ``launch.routes`` counts the
+  kernel's launches by the instance the kernel picks ("wgmma", "fma"),
+  mirroring its dispatch (:func:`wgmma_scope`).
 """
 from __future__ import annotations
 
@@ -91,6 +93,18 @@ def _as_4d(t: torch.Tensor, what: str) -> torch.Tensor:
     return t
 
 
+def wgmma_scope(q4, k4, v4, out) -> bool:
+    """Whether the kernel runs its ``wgmma`` instance on these 4-D
+    tensors (the kernel's own dispatch, ``tc::takes``): bfloat16, head_dim
+    64 or 128, at most 64 query heads per KV head, 16-byte aligned bases
+    and batch / head / row strides a multiple of 8 elements."""
+    ts = (q4, k4, v4, out)
+    return (q4.dtype == torch.bfloat16 and q4.shape[-1] in (64, 128)
+            and q4.shape[1] // k4.shape[1] <= 64
+            and all(t.data_ptr() % 16 == 0 for t in ts)
+            and all(t.stride(i) % 8 == 0 for t in ts for i in range(3)))
+
+
 def launch(q, k, v, *, causal: bool = True, window: Optional[int] = None,
            q_offset: int = 0) -> torch.Tensor:
     """Launch ``csrc/flash_attention.cu`` on PyTorch's current stream: q
@@ -130,7 +144,11 @@ def launch(q, k, v, *, causal: bool = True, window: Optional[int] = None,
                 int(q_offset), torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
+    launch.routes["wgmma" if wgmma_scope(q4, k4, v4, out) else "fma"] += 1
     return out[0] if q.dim() == 3 else out
+
+
+launch.routes = {"wgmma": 0, "fma": 0}  # launches by route, never reset here
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

@@ -1,5 +1,6 @@
-"""Transformer layers of the offloaded slices: RMS norm, interleaved-pair
-RoPE, GQA attention over a dense KV ring or block-paged KV, embeddings.
+"""Transformer layers of the ported slices: RMS norm, interleaved-pair
+RoPE, GQA attention over a dense KV ring or block-paged KV, dense MLPs,
+embeddings.
 
 The port of the reference's ``models/layers.py``.  Parameters are plain
 dicts of tensors with the reference's layouts (``wq: (D, H, hd)``,
@@ -7,10 +8,11 @@ dicts of tensors with the reference's layouts (``wq: (D, H, hd)``,
 parameter dtype, and every cast sits where the reference puts it.
 A prefill chunk over a dense ring that has not wrapped attends through
 the flash-attention binding (``kernels/ops.flash_attention``); decode
-steps and chunks past the wrap stay plain PyTorch (``attention_core``,
+steps and chunks that wrap the ring stay plain PyTorch (``attention_core``,
 the reference's model path); attention over paged KV goes through the
 ragged paged-attention binding (``kernels/ops.ragged_attention``).
-KV rings and page pools are updated in place.
+KV rings and page pools are updated in place.  Dense MLPs
+(:func:`apply_mlp`) are plain products, as in the reference.
 """
 from __future__ import annotations
 
@@ -167,10 +169,14 @@ def attention_decode(p, cfg, x_t, cache, cur_pos, *, window=None,
     its output, where ``attention_core`` (the reference's model path)
     rounds the weights to the model dtype first: the same result in
     float32, one rounding of P apart in bfloat16.  A decode step (C = 1,
-    the reference's kernel gate sends it to jnp too) and a chunk past the
-    wrap, whose ring slots no longer hold positions ``j``, attend through
+    the reference's kernel gate sends it to jnp too) attends through
     ``attention_core`` over whatever the ring holds, with its position
-    mask.
+    mask.  A chunk that wraps the ring (``cur_pos + C > W``) attends
+    through ``attention_core`` over the ring as it was before the write
+    plus the chunk's own K/V, and only then writes: written first, query
+    ``p`` would lose position ``p + j - W`` to the chunk's own write
+    (the reference writes first and loses it).  The ring and ``pos``
+    after the step are the reference's either way.
 
     ``pages`` (B, T) switches to the paged KV plane: ``cache`` is then an
     :func:`init_paged_attn_cache` pool, ``cur_pos`` (B,) per-row start
@@ -195,10 +201,18 @@ def attention_decode(p, cfg, x_t, cache, cur_pos, *, window=None,
     q = apply_rope(q, posq, cfg)
     k_new = apply_rope(k_new, posq, cfg)
     slots = torch.remainder(posq, W).to(torch.long)
+    n = int(cur_pos) + C
+    if C > 1 and n > W:
+        # the chunk wraps the ring: position p + j would overwrite p + j - W,
+        # which query p still sees, so attend over the ring as it was
+        # before the write plus the chunk's own K/V, then write
+        kpos = torch.cat([cache["pos"], posq.expand(B, C)], dim=1)
+        o = attention_core(q, torch.cat([cache["k"], k_new], dim=1),
+                           torch.cat([cache["v"], v_new], dim=1), posq, kpos,
+                           causal=True, window=window)
     cache["k"][:, slots] = k_new
     cache["v"][:, slots] = v_new
     cache["pos"][:, slots] = posq
-    n = int(cur_pos) + C
     if C > 1 and n <= W:
         # the ring has not wrapped: slot j holds position j for every j < n,
         # the flash kernel's contiguous key positions
@@ -206,7 +220,7 @@ def attention_decode(p, cfg, x_t, cache, cur_pos, *, window=None,
         o = ops.flash_attention(q.transpose(1, 2), kv(cache["k"]),
                                 kv(cache["v"]), causal=True, window=window,
                                 q_offset=int(cur_pos)).transpose(1, 2)
-    else:
+    elif C == 1:
         o = attention_core(q, cache["k"], cache["v"], posq, cache["pos"],
                            causal=True, window=window)
     return _out_proj(p, cfg, o), cache
@@ -328,6 +342,36 @@ def _attention_decode_paged(p, cfg, x_t, cache, step: PagedStep, *,
                              step.pages, step.posq, window=window,
                              worklist=step.worklists.get(window))
     return _out_proj(p, cfg, o), cache
+
+
+# ----------------------------------------------------------------------
+# MLPs
+def init_mlp(gen, cfg):
+    D, F = cfg.d_model, cfg.d_ff
+    dt = _dt(cfg)
+    sc_in = 1.0 / math.sqrt(D)
+    sc_out = 1.0 / math.sqrt(F) / math.sqrt(2 * cfg.n_layers)
+    if cfg.mlp_act in ("swiglu", "geglu"):
+        return {"w_gate": _randn(gen, (D, F), sc_in, dt),
+                "w_up": _randn(gen, (D, F), sc_in, dt),
+                "w_down": _randn(gen, (F, D), sc_out, dt)}
+    return {"w_in": _randn(gen, (D, F), sc_in, dt),
+            "w_out": _randn(gen, (F, D), sc_out, dt)}
+
+
+def apply_mlp(p, cfg, x):
+    """x (..., D) through the gated (swiglu, geglu) or plain (gelu) MLP;
+    the activation in float32, as in the reference (its gelu is the tanh
+    form, ``jax.nn.gelu``'s default)."""
+    gelu = lambda t: torch.nn.functional.gelu(t, approximate="tanh")
+    if "w_gate" in p:
+        g = x @ p["w_gate"]
+        u = x @ p["w_up"]
+        act = torch.nn.functional.silu if cfg.mlp_act == "swiglu" else gelu
+        h = act(g.to(torch.float32)).to(x.dtype) * u
+        return h @ p["w_down"]
+    h = gelu((x @ p["w_in"]).to(torch.float32)).to(x.dtype)
+    return h @ p["w_out"]
 
 
 # ----------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Sparse mixture-of-experts FFN over HQQ-packed experts (port of the
 reference's ``models/moe.py``, the paths offloaded generation runs).
 
-* :func:`moe_apply_gather`: per-token gather over a dense expert stack,
-  kept as a test oracle only.
+* :func:`moe_apply_gather`: per-token gather over a dense expert stack:
+  the plain plane's MoE (the dense-resident oracle of the packed paths).
 * :func:`moe_apply_packed`: decode of T rows (the busy ones of a
   continuous batch).  The routed experts are served from the layer's
   device pool and its overflow records (``core/expert_pool.acquire``)
@@ -72,14 +72,25 @@ def route_topk(p, spec, x2d) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     return w, ids.to(torch.int32), probs
 
 
+GATHER_BYTES = 1 << 30  # per-(token, k) weights one gather block copies
+
+
 def moe_apply_gather(p, cfg, x2d):
     """Per-token expert-weight gather over the dense ``p["experts"]``
-    stack (the oracle of the packed paths)."""
+    stack (the plain plane's MoE).  Each row's (token, k) weights are
+    gathered for the gather einsums, in blocks of rows that copy at most
+    ``GATHER_BYTES``: the same einsums over fewer rows at a time, where a
+    Mixtral-width prompt chunk gathered whole would copy ~0.7 GB per row."""
     w, ids, probs = route_topk(p, cfg.moe, x2d)
     ex = p["experts"]
     idx = ids.to(torch.long)
-    y = _gather_ffn(x2d, ex["w_gate"][idx], ex["w_up"][idx],
-                    ex["w_down"][idx], w)
+    T, K = ids.shape
+    per_row = K * sum(a[0].numel() * a.element_size() for a in ex.values())
+    step = max(1, GATHER_BYTES // per_row)
+    y = torch.cat([_gather_ffn(x2d[a: a + step], ex["w_gate"][idx[a: a + step]],
+                               ex["w_up"][idx[a: a + step]],
+                               ex["w_down"][idx[a: a + step]], w[a: a + step])
+                   for a in range(0, T, step)])
     return y, {"ids": ids, "weights": w, "probs": probs}
 
 

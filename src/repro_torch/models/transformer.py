@@ -1,14 +1,19 @@
-"""Model assembly for the offloaded-generation slice: blocks of
-(SWA or global) attention + MoE FFN, pre-norm residual.
+"""Model assembly of the ported slices: blocks of (SWA or global)
+attention + MoE FFN or dense MLP, pre-norm residual.
 
-Port of the reference's ``models/transformer.py`` for the ``swa+moe`` and
-``attn+moe`` block kinds.  The reference stacks each pattern position's
-parameters over periods for ``lax.scan``; the port keeps one dict per
-layer, ``params["layers"][l]``, and loops in Python (``bridge`` un-stacks
-the reference's layout).  The decode state is one dense KV ring per layer
-plus the shared position, or, paged, one page pool per layer plus a page
-table and per-row positions kept on the host (numpy); pools and rings
-are updated in place.
+Port of the reference's ``models/transformer.py`` for the ``swa+moe``,
+``attn+moe``, ``swa+mlp`` and ``attn+mlp`` block kinds.  The reference
+stacks each pattern position's parameters over periods for ``lax.scan``;
+the port keeps one dict per layer, ``params["layers"][l]``, and loops in
+Python (``bridge`` un-stacks the reference's layout).  The decode state
+is one dense KV ring per layer plus the shared position, or, paged, one
+page pool per layer plus a page table and per-row positions kept on the
+host (numpy); pools and rings are updated in place.
+
+:func:`decode_step` is the plain plane's step (the reference's
+``decode_step(moe_mode="gather")``): dense resident weights, MoE by the
+per-token gather.  The packed planes run the same mixer
+(:func:`decode_block_packed_mixer`) and their own MoE halves.
 """
 from __future__ import annotations
 
@@ -22,11 +27,11 @@ from repro_torch.configs.base import ModelConfig, parse_block
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 
-BLOCK_KINDS = ("swa+moe", "attn+moe")
+BLOCK_KINDS = ("swa+moe", "attn+moe", "swa+mlp", "attn+mlp")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Refuse what the slice does not run yet (ROADMAP queue 1, item 11)."""
+    """Refuse what the port does not run yet (ROADMAP queue 1, item 6)."""
     bad = sorted(set(cfg.layer_kinds()) - set(BLOCK_KINDS))
     if bad:
         raise NotImplementedError(
@@ -39,11 +44,12 @@ def check_supported(cfg: ModelConfig) -> None:
             f"softcap and no tail layers are ported")
 
 
-def _init_block(gen, cfg: ModelConfig):
+def _init_block(gen, cfg: ModelConfig, kind: str):
+    ffn = parse_block(kind)[1]
     return {"norm1": L.init_norm(cfg, gen.device),
             "attn": L.init_attention(gen, cfg),
             "norm2": L.init_norm(cfg, gen.device),
-            "moe": M.init_moe(gen, cfg)}
+            ffn: M.init_moe(gen, cfg) if ffn == "moe" else L.init_mlp(gen, cfg)}
 
 
 def init_model(cfg: ModelConfig, *, seed: int = 0, device=None) -> Dict[str, Any]:
@@ -57,14 +63,54 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None) -> Dict[str, Any
     if not cfg.tie_embeddings:
         params["lm_head"] = L.init_lm_head(gen, cfg)
     params["final_norm"] = L.init_norm(cfg, dev)
-    params["layers"] = [_init_block(gen, cfg) for _ in range(cfg.n_layers)]
+    params["layers"] = [_init_block(gen, cfg, kind) for kind in cfg.layer_kinds()]
     return params
 
 
 # ----------------------------------------------------------------------
+def block_decode(p, cfg: ModelConfig, kind: str, x_t, state, pos):
+    """One plain block's step over a dense KV ring: the mixer, then the
+    MoE by the per-token gather over the dense expert stack, or the
+    dense MLP.  Returns (x_t, state, info); info is ``{"route": {ids,
+    weights, probs}, "hidden_pre_moe": (B*C, D)}`` for an MoE block, ``{}``
+    otherwise (the reference's ``_block_decode(moe_mode="gather")``)."""
+    x_t, state, h2 = decode_block_packed_mixer(p, cfg, kind, x_t, state, pos)
+    B, S, D = h2.shape
+    h2d = h2.reshape(B * S, D)
+    if parse_block(kind)[1] == "moe":
+        y2d, route = M.moe_apply_gather(p["moe"], cfg, h2d)
+        info = {"route": route, "hidden_pre_moe": h2d}
+    else:
+        y2d, info = L.apply_mlp(p["mlp"], cfg, h2d), {}
+    return x_t + y2d.reshape(B, S, D), state, info
+
+
+def decode_step(params, cfg: ModelConfig, state, tokens, *,
+                collect_info: bool = False):
+    """The plain plane's step: tokens (B, C) at the rows' shared position
+    over dense KV rings (C = 1 decode, C > 1 a prompt chunk, whose
+    attention takes the flash binding).  Rings are written in place and
+    ``pos`` advances by C.  Returns ``(logits (B, C, V), state)``, and the
+    per-layer infos (:func:`block_decode`) with ``collect_info``."""
+    if "pages" in state:
+        raise NotImplementedError(
+            "paged KV on the plain plane comes with ContinuousEngine("
+            "offload=None), ROADMAP queue 1 item 3")
+    x = embed_tokens(params, cfg, tokens)
+    pos = state["pos"]
+    infos = []
+    for l, kind in enumerate(cfg.layer_kinds()):
+        x, state["layers"][l], info = block_decode(
+            layer_params(params, cfg, l), cfg, kind, x, state["layers"][l], pos)
+        infos.append(info)
+    logits = apply_head(params, cfg, x)
+    state = dict(state, pos=pos + int(tokens.shape[1]))
+    return (logits, state, infos) if collect_info else (logits, state)
+
+
 def decode_block_packed_mixer(p, cfg: ModelConfig, kind: str, x_t, state,
                               pos, pages=None, active=None, step=None):
-    """Mixer half of a packed MoE block's step: norm1 + attention +
+    """Mixer half of a block's step (every plane): norm1 + attention +
     residual, plus the pre-MoE norm.  x_t: (B, C, D); the KV ring in
     ``state["kv"]`` is written at ``pos .. pos+C-1``, or with ``pages``
     (or the prepared paged ``step``, ``layers.paged_step``) the page pool

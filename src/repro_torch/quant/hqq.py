@@ -15,6 +15,7 @@ byte, 2-bit 4, and 3-bit 8 codes into 3 planar bytes.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -219,3 +220,66 @@ def leaves(qt: QTensor):
 # size accounting (Table 1)
 def nbytes(qt: QTensor) -> int:
     return int(sum(a.numel() * a.element_size() for _, a in leaves(qt)))
+
+
+def bits_per_param(qt: QTensor) -> float:
+    return 8.0 * nbytes(qt) / math.prod(qt.shape)
+
+
+def quant_error(w: torch.Tensor, qt: QTensor) -> dict:
+    wd = dequantize(qt)
+    diff = wd - w.to(torch.float32)
+    rel = torch.linalg.vector_norm(diff) / (
+        torch.linalg.vector_norm(w.to(torch.float32)) + 1e-9)
+    return {"max_abs": float(diff.abs().max()), "rel_fro": float(rel),
+            "bits_per_param": bits_per_param(qt)}
+
+
+# ----------------------------------------------------------------------
+# model-level helpers over nested dicts / lists of tensors (the
+# reference's pytrees; a QTensor counts as its leaves unless asked)
+def tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_leaves(tree, keep_qtensors: bool = False):
+    if isinstance(tree, dict):
+        return [a for v in tree.values() for a in tree_leaves(v, keep_qtensors)]
+    if isinstance(tree, (list, tuple)):
+        return [a for v in tree for a in tree_leaves(v, keep_qtensors)]
+    if isinstance(tree, QTensor) and not keep_qtensors:
+        return [a for _, a in leaves(tree)]
+    return [] if tree is None else [tree]
+
+
+def dense_nbytes(tree, bytes_per_el: int = 2) -> int:
+    return sum(a.numel() * bytes_per_el for a in tree_leaves(tree))
+
+
+def quantize_tree(tree, bits: int, **kw):
+    """Quantize every >= 2-D leaf of a parameter subtree whose K (axis -2)
+    the group size divides; the others stay as they are."""
+    gs = kw.get("group_size") or PAPER_SCHEMES[bits]["group_size"]
+
+    def q(leaf):
+        if leaf.dim() >= 2 and leaf.shape[-2] % gs == 0:
+            return quantize(leaf, bits, **kw)
+        return leaf
+
+    return tree_map(q, tree)
+
+
+def dequantize_tree(tree, dtype=torch.float32):
+    return tree_map(lambda a: dequantize(a, dtype) if isinstance(a, QTensor)
+                else a, tree)
+
+
+def tree_nbytes(tree) -> int:
+    """Packed bytes of the quantized leaves, 2 bytes per element of the
+    others."""
+    return sum(nbytes(a) if isinstance(a, QTensor) else a.numel() * 2
+               for a in tree_leaves(tree, keep_qtensors=True))

@@ -1,10 +1,19 @@
-"""Block execution for offloaded generation: the packed planes of the
-reference's ``runtime/executor.py``.
+"""Block execution: the three planes of the reference's
+``runtime/executor.py``.
 
-Each layer runs its mixer (attention), then its MoE half, which routes,
-reads the routed ids (and, at batch-1 decode, the lookahead layer's
-predicted ids) to the host in ONE read, serves the routed experts from
-the device pool and stages the lookahead layer's predicted experts.
+* ``plain``: dense resident weights.  Each step is
+  ``transformer.decode_step``: the mixer, then the MoE by the per-token
+  gather over the dense expert stack (or the dense MLP); a prompt chunk
+  attends through the flash binding like the packed planes' chunks do.
+  With ``collect_info`` a decode step also returns every layer's routing
+  (ids, weights, probabilities) and pre-MoE hidden state: what accounting
+  mode replays and ``core/trace`` records.
+
+On the packed planes each layer runs its mixer (attention), then its MoE
+half, which routes, reads the routed ids (and, at batch-1 decode, the
+lookahead layer's predicted ids) to the host in ONE read, serves the
+routed experts from the device pool and stages the lookahead layer's
+predicted experts.
 
 * ``packed_pipelined``: the staging copies are issued before the
   layer's expert compute, on a side copy stream; the compute stream waits
@@ -21,10 +30,10 @@ the reference: ``vectorized=False`` is its sequential baseline
 gather einsums.
 
 Prefill is chunked prefill (one chunk by default): the same mixer, and
-MoE store-direct through a reusable device tier, with no pool traffic and
-no counter.
+on the packed planes MoE store-direct through a reusable device tier,
+with no pool traffic and no counter.
 
-Decode takes B >= 1 rows of one token each: a dense KV ring in
+Packed decode takes B >= 1 rows of one token each: a dense KV ring in
 lock-step, or block-paged KV (``state["pages"]``) at per-row positions
 with an ``active`` row mask, the continuous engine's batch.  A paged
 step's positions, page table, write indices and ragged work lists are
@@ -32,8 +41,9 @@ built once on the host and uploaded in one copy
 (``layers.paged_step``); :meth:`prefill_chunk_row` writes one slot's
 prompt chunk into its pages.
 
-The ``plain`` plane (dense resident weights) and C > 1 verify chunks
-are not ported (ROADMAP queue 1, items 6 and 9).
+Not ported yet (ROADMAP queue 1): paged KV on the plain plane (item 3),
+the static engine's ``prefill_padded`` (item 2, with the training
+forward) and C > 1 verify chunks on the packed planes (item 4).
 """
 from __future__ import annotations
 
@@ -53,21 +63,20 @@ PLANES = ("plain", "packed_vectorized", "packed_pipelined")
 
 
 class Executor:
-    """Packed-plane executor (module docstring).  ``store`` is the packed
-    host store of ``quantize_for_offload``."""
+    """Step executor of one plane (module docstring).  The packed planes
+    need ``spec`` and ``store``, the packed host store of
+    ``quantize_for_offload(..., pack_experts=True)``."""
 
-    def __init__(self, params, cfg: ModelConfig, *, spec: OffloadSpec,
-                 store: EP.Tier, device=None,
-                 plane: str = "packed_pipelined", fused: bool = True,
+    def __init__(self, params, cfg: ModelConfig, *,
+                 spec: Optional[OffloadSpec] = None,
+                 store: Optional[EP.Tier] = None, device=None,
+                 plane: str = "plain", fused: bool = True,
                  vectorized: bool = True):
         if plane not in PLANES:
             raise ValueError(f"unknown plane {plane!r}; one of {PLANES}")
-        if plane == "plain":
-            raise NotImplementedError(
-                "the plain plane (dense resident weights) is ROADMAP queue 1 "
-                "item 6")
         T.check_supported(cfg)
         self.plane = plane
+        self.packed = plane != "plain"
         self.pipelined = plane == "packed_pipelined"
         self.fused = fused
         self.vectorized = vectorized
@@ -76,9 +85,14 @@ class Executor:
         self.spec = spec
         self.store = store
         self.device = resolve_device(device)
+        self.kinds = cfg.layer_kinds()
+        if not self.packed:
+            return
+        if spec is None or store is None:
+            raise ValueError("packed planes need spec= and store= (see "
+                             "quantize_for_offload)")
         self.routers = stacked_routers(params, cfg)
         self.n_moe_layers = int(self.routers.shape[0])
-        self.kinds = cfg.layer_kinds()
         self.moe_ordinal: Dict[int, int] = {}
         for l, k in enumerate(self.kinds):
             if parse_block(k)[1] == "moe":
@@ -95,6 +109,8 @@ class Executor:
 
     def init_pool_state(self, max_rows: int = 1) -> EP.PoolState:
         """Pool state for decode batches of up to ``max_rows`` rows."""
+        if not self.packed:
+            raise ValueError("buffer pools exist on the packed planes only")
         return EP.init_pool_state(self.store, self.spec, self.device,
                                   max_rows=max_rows * self.cfg.moe.top_k,
                                   vectorized=self.vectorized)
@@ -107,9 +123,16 @@ class Executor:
                             self.device, self.windows, self.staging)
 
     # ------------------------------------------------------------------
-    def decode(self, state, tokens, pstate, active=None):
-        """One decode step of B rows: tokens (B, 1) int on the device.
-        ``state`` is a dense ring state (the rows in lock-step) or a paged
+    def decode(self, state, tokens, pstate=None, active=None, *,
+               collect_info: bool = False):
+        """One decode step of B rows: tokens (B, C) int on the device.
+
+        Plain plane: a dense ring state, the rows in lock-step; returns
+        ``(logits (B, C, V), state, None, infos)``, ``infos`` the per-layer
+        routing and hidden states on the device with ``collect_info``
+        (``transformer.decode_step``), else None.
+
+        Packed planes (C = 1): ``state`` is a dense ring state or a paged
         one (``"pages"``), where ``active`` (B,) numpy bool marks the rows
         that write KV, go through the expert pool and advance ``pos``;
         the others compute nothing that is kept.  Speculative staging
@@ -117,11 +140,15 @@ class Executor:
         plane, inside the layer otherwise).  KV and ``pstate`` are updated in
         place.  Returns ``(logits (B, 1, V), state, pstate, route_ids)``
         with every row's routed ids of every MoE layer as host arrays."""
+        if not self.packed:
+            out = T.decode_step(self.params, self.cfg, state, tokens,
+                                collect_info=collect_info)
+            return out[0], out[1], None, (out[2] if collect_info else None)
         B, C = tokens.shape
         if C != 1:
             raise NotImplementedError(
-                "C > 1 decode rows (speculative verify chunks) are ROADMAP "
-                "queue 1 item 9")
+                "C > 1 decode rows (speculative verify chunks) on the packed "
+                "planes are ROADMAP queue 1 item 4")
         cfg, spec = self.cfg, self.spec
         paged = "pages" in state
         step = self._paged_step(state, active, C) if paged else None
@@ -150,11 +177,28 @@ class Executor:
             pos = pos + C
         return logits, dict(state, pos=pos), pstate, route_ids
 
+    def decode_sampled(self, state, tokens, *, collect_info: bool,
+                       greedy: bool):
+        """Plain-plane decode with the sampling input prepared on the
+        device: the greedy argmax (B,) int32, or the last-position logits
+        (B, V).  Returns ``(next, state)``, and the per-layer infos with
+        ``collect_info``."""
+        if self.packed:
+            raise ValueError("packed decode returns logits; sample on the "
+                             "host side")
+        logits, state, _, infos = self.decode(state, tokens,
+                                              collect_info=collect_info)
+        nxt = (torch.argmax(logits[:, -1], dim=-1).to(torch.int32) if greedy
+               else logits[:, -1])
+        return (nxt, state, infos) if collect_info else (nxt, state)
+
     # ------------------------------------------------------------------
     def prefill_chunk(self, state, tokens):
-        """Prompt chunk ``tokens`` (1, C) at the current position: KV
+        """Prompt chunk ``tokens`` (B, C) at the current position: KV
         written at ``pos .. pos+C-1``, ``pos`` advances by C.  Returns
-        ``(logits (1, C, V), state)``; the pool is not involved."""
+        ``(logits (B, C, V), state)``; the pool is not involved."""
+        if not self.packed:
+            return T.decode_step(self.params, self.cfg, state, tokens)
         cfg = self.cfg
         x = T.embed_tokens(self.params, cfg, tokens)
         pos = state["pos"]
@@ -180,6 +224,10 @@ class Executor:
         pools the chunk wrote."""
         if "pages" not in state:
             raise ValueError("prefill_chunk_row needs a paged-KV state")
+        if not self.packed:
+            raise NotImplementedError(
+                "paged KV on the plain plane comes with ContinuousEngine("
+                "offload=None), ROADMAP queue 1 item 3")
         cfg = self.cfg
         C = int(tokens.shape[1])
         step = self._paged_step(state, None, C, slice(slot, slot + 1))
@@ -209,3 +257,23 @@ class Executor:
         for lo in range(0, S, C):
             logits, state = self.prefill_chunk(state, tokens[:, lo: lo + C])
         return logits, state
+
+    # ------------------------------------------------------------------
+    def generate_greedy(self, prompt, max_new_tokens: int, *,
+                        prefill_chunk: Optional[int] = None) -> np.ndarray:
+        """Greedy decode of one prompt (1, S) on the plain plane: the
+        parity oracle's loop (``generate_plain``).  Returns (1, n) ints."""
+        if self.packed:
+            raise ValueError("generate_greedy runs the plain plane; the "
+                             "offload engine drives the packed planes")
+        prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int32)
+        max_len = int(prompt.shape[1]) + max_new_tokens
+        logits, state = self.prefill(prompt, max_len, chunk=prefill_chunk)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        out = [tok]
+        for _ in range(max_new_tokens - 1):
+            nxt, state = self.decode_sampled(state, tok, collect_info=False,
+                                             greedy=True)
+            tok = nxt[:, None]
+            out.append(tok)
+        return torch.cat(out, dim=1).cpu().numpy()

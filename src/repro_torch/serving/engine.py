@@ -72,17 +72,17 @@ class ContinuousEngine:
                  faults=None,
                  queue_cap: Optional[int] = None):
         if offload is None:
-            raise _not_ported("the plain (non-offloaded) plane", 6)
+            raise _not_ported("the plain (non-offloaded) plane", 3)
         if kv_page is None:
-            raise _not_ported("dense slot KV (kv_page=None)", 8)
+            raise _not_ported("dense slot KV (kv_page=None)", 3)
         if prefix_cache_pages or preemption or kv_host_pages:
-            raise _not_ported("prefix caching, preemption and host swap", 10)
+            raise _not_ported("prefix caching, preemption and host swap", 5)
         if num_draft_tokens or draft_params is not None or draft_cfg is not None:
-            raise _not_ported("draft-and-verify decoding", 9)
+            raise _not_ported("draft-and-verify decoding", 4)
         if faults is not None:
-            raise _not_ported("fault injection", 10)
+            raise _not_ported("fault injection", 5)
         if telemetry is not None:
-            raise _not_ported("telemetry", 12)
+            raise _not_ported("telemetry", 7)
         if offload.cfg != cfg:
             raise ValueError("offload engine config mismatch")
         self.offload = offload

@@ -282,7 +282,7 @@ class PagedKVManager:
 class StateManager:
     """Construction point of the slot-state manager for a config: the
     paged plane (``kv_page`` set).  Dense slot rings in continuous mode
-    are not ported (ROADMAP queue 1, item 8)."""
+    are not ported (ROADMAP queue 1, item 3)."""
 
     @staticmethod
     def create(cfg: ModelConfig, n_slots: int, slot_len: int, *,
@@ -292,7 +292,7 @@ class StateManager:
         if kv_page is None:
             raise NotImplementedError(
                 "dense slot rings in continuous mode (kv_page=None) are "
-                "not ported: ROADMAP queue 1, item 8")
+                "not ported: ROADMAP queue 1, item 3")
         max_pages = -(-slot_len // kv_page)
         pages_total = (kv_pages_total if kv_pages_total is not None
                        else n_slots * max_pages)

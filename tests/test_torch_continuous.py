@@ -62,7 +62,8 @@ def engines():
                                       pcfg, "cpu")
     store = bridge.store_from_numpy(store_leaves(jeng.store), pcfg, pspec,
                                     "cpu")
-    peng = PEngine(params, pcfg, pspec, store=store, device="cpu")
+    peng = PEngine(params, pcfg, pspec, quantized=True, store=store,
+                   device="cpu")
     return jcfg, jeng, pcfg, peng
 
 

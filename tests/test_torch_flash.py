@@ -13,9 +13,11 @@
   reference rounds the softmax weights P to bfloat16 before P.V and the
   flash path keeps them in float32 (one bfloat16 rounding of P, at most
   2^-9 of each weight, carried through P.V and the output projection);
-  a chunk past the wrap and decode steps take ``attention_core`` and
-  stay within the float32 tolerance in both dtypes (the reference's own
-  computation, cast for cast).
+  a chunk that wraps the ring and decode steps take ``attention_core``
+  and stay within the float32 tolerance in both dtypes (the reference's
+  own computation, cast for cast); the wrapped chunk is held to the
+  reference's token-by-token decode, since the reference's own wrapped
+  chunk loses keys (ROADMAP queue 3, F1).
 """
 import jax
 import jax.numpy as jnp
@@ -132,14 +134,24 @@ def test_ring_chunks_match_reference(attn, dtype, monkeypatch):
                         lambda *a, **kw: calls.append(kw) or flash(*a, **kw))
     W = jcfg.sliding_window
     jc = JL.init_attn_cache(jcfg, 2, 128, window=W)
+    jd = JL.init_attn_cache(jcfg, 2, 128, window=W)  # token by token
     pc = PL.init_attn_cache(pcfg, 2, 128, "cpu", window=W)
     rng = np.random.default_rng(11)
     for i, (pos, C) in enumerate(CHUNKS):
         x = rng.standard_normal((2, C, jcfg.d_model)).astype(np.float32)
-        yj, jc = JL.attention_decode(jp, jcfg, jnp.asarray(x).astype(dtype),
-                                     jc, jnp.asarray(pos, jnp.int32), window=W)
+        xj = jnp.asarray(x).astype(dtype)
+        yj, jc = JL.attention_decode(jp, jcfg, xj, jc,
+                                     jnp.asarray(pos, jnp.int32), window=W)
+        yd = []
+        for j in range(C):
+            y1, jd = JL.attention_decode(jp, jcfg, xj[:, j:j + 1], jd,
+                                         jnp.asarray(pos + j, jnp.int32),
+                                         window=W)
+            yd.append(y1)
         yp, pc = PL.attention_decode(pp, pcfg, torch.from_numpy(x).to(tdt),
                                      pc, pos, window=W)
+        if pos + C > W:  # a chunk that wraps: the reference's own chunk
+            yj = jnp.concatenate(yd, 1)  # loses keys (ROADMAP queue 3, F1)
         yj = np.asarray(yj.astype(jnp.float32))
         yp = yp.float().numpy()
         flash_path = i < FLASH_CHUNKS

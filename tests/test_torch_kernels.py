@@ -367,3 +367,26 @@ def test_ragged_mma_pages_cover_every_listed_page_once(ksplit):
         segs = packed[4:4 + 3 * n_seg].reshape(-1, 3)
         seen = [wi for _, lo, hi in segs for _, _, wi in RA.mma_pages(int(lo), int(hi), ksplit)]
         assert seen == list(range(len(packed) - 4 - 3 * n_seg))
+
+
+def test_wgmma_scope_mirrors_the_flash_kernel_dispatch():
+    """The flash wrapper counts a launch as ``wgmma`` exactly where the
+    kernel's own dispatch (``tc::takes``) picks that instance: bfloat16,
+    head_dim 64 or 128, at most 64 query heads per KV head, 16-byte
+    aligned bases, batch / head / row strides a multiple of 8."""
+    from repro_torch.kernels import flash_attention as FA
+    mk = lambda shape, dt=torch.bfloat16: torch.zeros(shape, dtype=dt)
+    q, k = mk((1, 8, 5, 64)), mk((1, 2, 9, 64))
+    assert FA.wgmma_scope(q, k, k, torch.empty_like(q))
+    assert FA.wgmma_scope(mk((1, 5, 8, 128)).transpose(1, 2),
+                          mk((1, 9, 2, 128)).transpose(1, 2),
+                          mk((1, 9, 2, 128)).transpose(1, 2), torch.empty_like(q))
+    assert not FA.wgmma_scope(q.float(), k.float(), k.float(), q.float())
+    q32, k32 = mk((1, 8, 5, 32)), mk((1, 2, 9, 32))
+    assert not FA.wgmma_scope(q32, k32, k32, q32)
+    assert not FA.wgmma_scope(mk((1, 130, 5, 64)), mk((1, 2, 9, 64)),
+                              mk((1, 2, 9, 64)), mk((1, 130, 5, 64)))
+    off = mk(q.numel() + 1).reshape(-1)[1:].view(q.shape)  # 2 bytes off
+    assert not FA.wgmma_scope(off, k, k, torch.empty_like(q))
+    odd = mk((1, 8, 5, 68))[..., :64]  # row stride 68: a multiple of 4 only
+    assert not FA.wgmma_scope(odd, k, k, torch.empty_like(q))

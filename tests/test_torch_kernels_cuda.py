@@ -623,3 +623,34 @@ def test_ragged_mma_refuses_what_it_cannot_read():
         RA.launch(q, kp, vp, ppos, qpos, wl)
         torch.cuda.synchronize()
         assert RA.launch.routes["warp"] == warp + 1
+
+
+@pytest.mark.cuda
+def test_flash_and_grouped_launches_count_their_routes():
+    """``flash_attention.launch.routes`` and
+    ``dequant_matmul.launch_grouped.routes`` count each launch under the
+    instance it ran: bfloat16 head_dim 64 on ``wgmma``, float32 and an
+    unaligned q on the FMA instance; bfloat16 groups on the grouped
+    kernel, float32 on the FMA kernel's ragged entry."""
+    _need_cuda()
+    from repro_torch.kernels import dequant_matmul as DM, flash_attention as FA
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev)
+    gen.manual_seed(16)
+    q = torch.randn((1, 8, 70, 64), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((1, 2, 90, 64), generator=gen, device=dev).to(torch.bfloat16)
+    qu = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)[1:].view(q.shape)
+    qu.copy_(q)
+    before = dict(FA.launch.routes)
+    for args in ((q, k, k), (q.float(), k.float(), k.float()), (qu, k, k)):
+        PO.flash_attention(*args, causal=True)
+    assert FA.launch.routes["wgmma"] == before["wgmma"] + 1
+    assert FA.launch.routes["fma"] == before["fma"] + 2
+    qt = P.quantize(torch.randn((3, 256, 128), generator=gen, device=dev) * 0.05, 3)
+    x = torch.randn((7, 256), generator=gen, device=dev)
+    before = dict(DM.launch_grouped.routes)
+    for xx in (x.to(torch.bfloat16), x):
+        PO.dequant_matmul_batched(xx, qt, [0, 2, 2, 7])
+    torch.cuda.synchronize()
+    assert DM.launch_grouped.routes["grouped"] == before["grouped"] + 1
+    assert DM.launch_grouped.routes["fma"] == before["fma"] + 1

@@ -144,21 +144,30 @@ def test_moe_packed_decode_with_staging_matches(model, stores, bits):
 
 def test_attention_ring_wraps_like_reference(model):
     """Chunks of 3 tokens written into an 8-wide SWA ring from position 0
-    to 24: outputs and ring contents as the reference's."""
+    to 24: ring contents and positions as the reference's; outputs equal
+    to the reference's token-by-token decode of the same inputs (the
+    reference's own wrapped chunks lose keys, ROADMAP queue 3 F1)."""
     jcfg, pcfg, params, pparams = model
     jcfg, pcfg = jcfg.replace(sliding_window=8), pcfg.replace(sliding_window=8)
     p = JT.layer_params(params, jcfg, 0)["attn"]
     pp = pparams["layers"][0]["attn"]
     jc = JL.init_attn_cache(jcfg, 1, 64, window=8)
+    jd = JL.init_attn_cache(jcfg, 1, 64, window=8)  # token by token
     pc = PL.init_attn_cache(pcfg, 1, 64, "cpu", window=8)
     for i, pos in enumerate(range(0, 24, 3)):
         x = np.random.default_rng(i).standard_normal(
             (1, 3, jcfg.d_model)).astype(np.float32)
-        yj, jc = JL.attention_decode(p, jcfg, jnp.asarray(x), jc,
-                                     jnp.asarray(pos, jnp.int32), window=8)
+        _, jc = JL.attention_decode(p, jcfg, jnp.asarray(x), jc,
+                                    jnp.asarray(pos, jnp.int32), window=8)
+        yd = []
+        for j in range(3):
+            y, jd = JL.attention_decode(p, jcfg, jnp.asarray(x[:, j:j + 1]),
+                                        jd, jnp.asarray(pos + j, jnp.int32),
+                                        window=8)
+            yd.append(np.asarray(y))
         yp, pc = PL.attention_decode(pp, pcfg, torch.from_numpy(x), pc, pos,
                                      window=8)
-        np.testing.assert_allclose(yp.numpy(), np.asarray(yj), **TOL)
+        np.testing.assert_allclose(yp.numpy(), np.concatenate(yd, 1), **TOL)
         np.testing.assert_array_equal(pc["pos"].numpy(), np.asarray(jc["pos"]))
         np.testing.assert_allclose(pc["k"].numpy(), np.asarray(jc["k"]), **TOL)
 

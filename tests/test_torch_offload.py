@@ -77,7 +77,8 @@ def runs(request):
                                       pcfg, "cpu")
     store = bridge.store_from_numpy(store_leaves(jeng.store), pcfg, pspec,
                                     "cpu")
-    peng = PEngine(params, pcfg, pspec, store=store, device="cpu")
+    peng = PEngine(params, pcfg, pspec, quantized=True, store=store,
+                   device="cpu")
     steps = []
     ptoks, pstats = peng.generate(
         PROMPT, N_NEW, on_step=lambda lg, r: steps.append((lg[0].numpy(), r)))
@@ -146,7 +147,7 @@ def test_chunked_prefill_matches_reference(runs):
 
 
 @pytest.mark.parametrize("name", ["tiny-moe", "mixtral-8x7b",
-                                  "mixtral-offload"])
+                                  "mixtral-offload", "tiny-draft"])
 def test_config_copies_match_reference(name):
     j, p = jget(name), pget(name)
     assert dataclasses.asdict(p) == dataclasses.asdict(j)
@@ -166,14 +167,22 @@ def test_default_device_needs_a_gpu():
     cfg = pget("tiny-moe").replace(n_layers=2)
     with pytest.raises(RuntimeError):
         PEngine({}, cfg)
+    with pytest.raises(RuntimeError):
+        PEngine({}, cfg, quantized=True, packed=False)
+    from repro_torch.core.offload_engine import generate_plain
+    from repro_torch.runtime.executor import Executor
+    with pytest.raises(RuntimeError):
+        Executor({}, cfg)
+    with pytest.raises(RuntimeError):
+        generate_plain({}, cfg, PROMPT, 2)
 
 
-@pytest.mark.parametrize("change", [dict(block_pattern=("attn+mlp",)),
+@pytest.mark.parametrize("change", [dict(mlp_act="geglu"),
                                     dict(norm="layernorm"),
                                     dict(qkv_bias=True),
                                     dict(n_layers=3, block_pattern=("swa+moe",
                                                                     "attn+moe"))],
-                         ids=["mlp-block", "layernorm", "qkv-bias", "tail"])
+                         ids=["geglu", "layernorm", "qkv-bias", "tail"])
 def test_unported_configs_are_refused(change):
     """What the slice does not run raises instead of computing something
     else."""

@@ -67,7 +67,8 @@ def test_plane_matches_reference(quantized, pipelined, vectorized, fused):
     flags = dict(pipelined=pipelined, vectorized=vectorized, fused=fused)
     jtoks, jlogits, jroutes, jps = reference_run(
         JDecoder(jeng.params, jcfg, jspec, jeng.store, **flags), PROMPT, N_NEW)
-    peng = PEngine(params, pcfg, pspec, store=store, device="cpu", **flags)
+    peng = PEngine(params, pcfg, pspec, quantized=True, store=store,
+                   device="cpu", **flags)
     steps = []
     ptoks, pstats = peng.generate(
         PROMPT, N_NEW, on_step=lambda lg, r: steps.append((lg[0].numpy(), r)))
@@ -93,11 +94,19 @@ def test_plane_matches_reference(quantized, pipelined, vectorized, fused):
 
 
 def test_plain_plane_is_refused(quantized):
+    """The plain plane keeps no expert pool, and paged KV on it is not
+    ported: both raise instead of computing something else."""
     from repro_torch.runtime.executor import Executor
     _, _, _, params, store, pcfg, pspec = quantized
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        Executor(params, pcfg, spec=pspec, store=store, device="cpu",
-                 plane="plain")
+    ex = Executor(params, pcfg, device="cpu", plane="plain")
+    with pytest.raises(ValueError, match="packed planes only"):
+        ex.init_pool_state()
+    state = {"layers": [], "pos": np.zeros(1, np.int32),
+             "pages": np.zeros((1, 1), np.int32)}
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+        ex.prefill_chunk_row(state, torch.zeros((1, 2), dtype=torch.int32), 0)
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+        ex.decode(state, torch.zeros((1, 1), dtype=torch.int32))
 
 
 def _record(st, l, s, vectorized):
