@@ -88,6 +88,32 @@ last line):
    taken: the slot binding on the GEMV, the batched binding on the
    grouped kernel, flash on ``wgmma``, ragged on ``ragged_mma``.
 
+14. train: ``tiny-moe`` at full size (f32: 6 layers, d 256, 8 experts,
+   top-2) trained with the paper-measurement recipe of
+   ``repro_torch.benchmarks.common`` (sequences of 128, batches of 8, a
+   2 MB byte corpus of the machine's Python standard library, AdamW at lr
+   1e-3, 30 warmup steps): weights made on the CPU (seed 0) and copied to
+   the card; 5 steps on the card and 5 on the CPU from those weights and
+   batches, whose loss, ce, load balance and gradient norm must agree
+   within ``TRAIN_RTOL``; then the full 300 steps on the card, with the
+   loss curve, final loss, eval ce, ms per step (median after the first
+   10), training tokens/s and peak memory; the corpus's byte count and
+   md5; the checkpoint saved, restored, and its eval ce equal.
+15. paper: the paper's measurements on that checkpoint (the port's
+   ``benchmarks`` package, on the card): ``fig2_lru`` hit ratios at k 1-8
+   with decayed LFU and Belady at k 2 and 4, ``fig2_spec`` recall at
+   lookahead 1, 2 and 5 against the experts fetched, the ``table1_quant``
+   grid (eval ce, projected Mixtral GB), ``table2_speed``'s H100
+   estimates, and ``offload_bench --trained`` on the three planes (decode
+   tok/s, p50/p95 ms, prefill s, h2d bytes per token, hit ratio, launches
+   by binding and route): tokens equal to ``generate_plain``'s and to the
+   CPU run's, counters equal across the planes and to the CPU's.  Then
+   the cost model's two overheads fitted to ``[main]``'s pipelined
+   decode beside the ones ``cost_model.HARDWARE["h100"]`` holds, and that
+   row's ``throughput_estimate`` beside the measured decode tok/s of
+   ``[planes]``' ``pr2_sync`` and ``vectorized`` runs, the cells it was
+   not fitted to.
+
 Phases 12 and 13 trace every decision of both runs they compare (router
 top-k, lookahead prediction, sampled token) and hold them to one rule:
 equal, or the first decision that differs is a near-tie, its top-k
@@ -124,6 +150,13 @@ RAGGED_BF16_RTOL = 2 ** -7   # of each row's max |plain in f32|: the kernel
                              # output, by at most 2^-8 of the value
 FLASH_BF16_RTOL = 2 ** -7    # of each (head, row)'s max |plain in f32|: the
                              # same reason as the ragged kernel's
+TRAIN_RTOL = 1e-5            # card vs CPU training metrics over 5 steps,
+                             # relative: f32 products in another order
+                             # (cuBLAS vs the CPU's BLAS), grown by Adam,
+                             # which turns a round-off-sized gradient into
+                             # a step of the learning rate (1.1e-7 measured
+                             # on an H100, PERF.md)
+TRAIN_PARITY_STEPS = 5
 MAIN_LAYERS = 8              # depth cut of mixtral-offload
 PROMPT_LEN, NEW_TOKENS = 64, 32
 PLANES = {"pr2_sync": dict(pipelined=False, vectorized=False),
@@ -180,14 +213,9 @@ def phase_device():
 
 # ----------------------------------------------------------------------
 def _routes():
-    """Launches by route of the dequant, ragged and flash bindings (the
-    tensor-core kernels or the ones they replaced)."""
-    from repro_torch.kernels import dequant_matmul as DM, flash_attention as FA
-    from repro_torch.kernels import ragged_attention as RA
-    return {**{f"dequant_{k}": v for k, v in DM.launch.routes.items()},
-            **{f"grouped_{k}": v for k, v in DM.launch_grouped.routes.items()},
-            **{f"ragged_{k}": v for k, v in RA.launch.routes.items()},
-            **{f"flash_{k}": v for k, v in FA.launch.routes.items()}}
+    """Launches by route of the dequant, ragged and flash bindings."""
+    from repro_torch.kernels import ops
+    return ops.routes()
 
 
 def _routes_since(before):
@@ -705,6 +733,7 @@ def phase_main(dev):
     # warm-up run (library handles, allocator), not counted
     eng.generate(prompt[:, :8], 3)
     link = _h2d_rate(eng.store, dev)
+    latency = _copy_latency(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     last = []
     tier = eng._exec.prefill_tier
@@ -736,7 +765,7 @@ def phase_main(dev):
         "prefill_h2d_bytes": tier.h2d_bytes,
         "prefill_group_counts": batches,
         "host_reads_per_token": ps.host_reads / steps,
-        "h2d_probe_gb_s": link,
+        "h2d_probe_gb_s": link, "copy_latency_probe_s": latency,
         "pool_staging_gib": (ps.pool.nbytes() + ps.staging.nbytes()) / 2**30,
         "launches": launches, "launches_expected": expect, "routes": routes,
         "peak_device_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
@@ -775,7 +804,9 @@ def phase_main(dev):
     log(f"[main] repeats: {json.dumps(again)}")
     if len(batches) != L:
         fail(f"{len(batches)} prefill kernel batches for {L} MoE layers")
-    return launches, batches, eng, cfg, prompt, (toks, stats)
+    report["decode_tok_s_runs"] = [report["decode_tok_s"]] + [
+        r["decode_tok_s"] for r in again]
+    return launches, batches, eng, cfg, prompt, (toks, stats), report
 
 
 def _h2d_rate(store, dev):
@@ -793,6 +824,23 @@ def _h2d_rate(store, dev):
         e1.synchronize()
         rates.append(src.numel() / (e0.elapsed_time(e1) * 1e-3) / 1e9)
     return float(np.median(rates))
+
+
+def _copy_latency(dev, nbytes=4096, reps=50):
+    """Median seconds of one small pinned host -> device copy (the fixed
+    cost of a copy, timed with CUDA events)."""
+    import torch
+    src = torch.empty((nbytes,), dtype=torch.uint8).pin_memory()
+    dst = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+    times = []
+    for _ in range(reps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        dst.copy_(src, non_blocking=True)
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1) * 1e-3)
+    return float(np.median(times))
 
 
 def _union_ms(spans):
@@ -846,7 +894,7 @@ def _device_split(prof, steps, label, trace_name):
                compute_idle_share=1 - compute / window,
                h2d_copies=len([e for e in kinds["h2d_copy"]
                                if e.time_range.elapsed_us() > 100]))
-    log(f"[{label}] {steps} decode steps: {json.dumps(out)}")
+    log(f"[{label}] {steps} steps: {json.dumps(out)}")
     trace = Path(__file__).resolve().parent / "chiprun_out"
     trace.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(trace / trace_name))
@@ -1639,6 +1687,192 @@ def phase_bf16_parity(dev):
 
 
 # ----------------------------------------------------------------------
+def phase_train(dev):
+    """``tiny-moe`` (f32, full size) trained with the measurement recipe:
+    card against CPU for ``TRAIN_PARITY_STEPS`` steps from the same
+    CPU-made weights and batches, then the full recipe on the card, the
+    checkpoint saved and restored.  Returns the trained parameters."""
+    import hashlib
+    import itertools
+    import torch
+    from repro_torch.benchmarks import common
+    from repro_torch.checkpoint import checkpointer as C
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as O, trainer
+    cfg = get_config("tiny-moe")
+    ds = common.recipe_dataset()
+    corpus = np.concatenate([ds.train_bytes, ds.eval_bytes])
+    log(f"[train] corpus: {corpus.size} bytes from the Python standard "
+        f"library, md5 {hashlib.md5(corpus.astype(np.int32).tobytes()).hexdigest()} "
+        f"(int32 tokens); {T.count_params_analytic(cfg)} parameters")
+    init = T.init_model(cfg, seed=0, device="cpu")
+    opt = O.OptimizerConfig(lr=1e-3, warmup_steps=30,
+                            total_steps=common.TRAIN_STEPS)
+    step = trainer.make_train_step(cfg, opt)
+    batches = list(itertools.islice(ds.batches(), TRAIN_PARITY_STEPS))
+    keys = ("loss", "ce", "load_balance", "grad_norm")
+    runs = {}
+    for where in ("cpu", dev):
+        p = _to(init, where)
+        st = O.init_opt_state(p)
+        hist = []
+        for b in batches:
+            p, st, m = step(p, st, trainer.to_device(b, where))
+            hist.append({k: float(m[k]) for k in keys})
+        runs[str(where)] = hist
+    worst = max(abs(a[k] - b[k]) / max(abs(a[k]), 1e-12)
+                for a, b in zip(runs["cpu"], runs[str(dev)]) for k in keys)
+    log(f"[train] card vs cpu, {TRAIN_PARITY_STEPS} steps from the same "
+        f"weights: card {json.dumps(runs[str(dev)])}; cpu "
+        f"{json.dumps(runs['cpu'])}; max relative difference {worst:.3g} "
+        f"(limit {TRAIN_RTOL})")
+    if not worst <= TRAIN_RTOL:
+        fail(f"tiny-moe training on the card differs from the CPU: {worst}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params, cfg, hist = common.train_tiny_moe(common.TRAIN_STEPS, dev,
+                                              log_every=1, log=lambda _: None)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    ms = np.diff([0.0] + [h["wall_s"] for h in hist]) * 1e3
+    step_ms = float(np.median(ms[10:]))
+    eval_b = list(ds.eval_batches())
+    ce = trainer.eval_ce(params, cfg, eval_b)
+    curve = {h["step"]: round(h["loss"], 4) for h in hist
+             if h["step"] % 20 == 0 or h["step"] == len(hist) - 1}
+    report = {"steps": len(hist), "loss_curve": curve,
+              "final_loss": hist[-1]["loss"], "final_ce": hist[-1]["ce"],
+              "eval_ce": ce, "wall_s": wall, "ms_per_step": step_ms,
+              "train_tokens_per_s": common.BATCH * common.SEQ_LEN / (step_ms / 1e3),
+              "peak_device_gib": peak}
+    log(f"[train] {json.dumps(report)}")
+    if not (np.isfinite(hist[-1]["loss"]) and hist[-1]["loss"] < hist[0]["loss"]):
+        fail(f"training did not lower the loss: {curve}")
+    _profile_train(step, params, batches, dev)
+    path = common.checkpoint_path(common.TRAIN_STEPS)
+    C.save(str(path), params, cfg, meta={"steps": common.TRAIN_STEPS,
+                                         "final_loss": hist[-1]["loss"]})
+    common.trace_path(common.TRACE_TOKENS).unlink(missing_ok=True)
+    restored = C.restore(str(path), cfg, dev)
+    ce2 = trainer.eval_ce(restored, cfg, eval_b)
+    same = all(torch.equal(a, b) for a, b in zip(_leaves(params), _leaves(restored)))
+    log(f"[train] checkpoint {path.name} restored: weights equal {same}, "
+        f"eval ce {ce2} vs {ce}")
+    if not same or ce2 != ce:
+        fail("the restored checkpoint differs from the trained weights")
+    return params
+
+
+def _profile_train(step, params, batches, dev):
+    """Where a training step's time goes: the parity phase's batches as
+    further steps from the trained weights (results discarded), under
+    ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.training import optimizer as O, trainer
+    bs = [trainer.to_device(b, dev) for b in batches]
+    st = O.init_opt_state(params)
+    step(params, st, bs[0])  # warm (allocator)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        p = params
+        for b in bs:
+            p, st, m = step(p, st, b)
+            float(m["loss"])
+        torch.cuda.synchronize(dev)
+    return _device_split(prof, len(bs), "train-profile", "train_trace.json")
+
+
+def _leaves(tree):
+    from repro_torch.quant.hqq import tree_leaves
+    return tree_leaves(tree)
+
+
+def phase_paper(dev, eng, cfg, main_report, planes, decode_split, kern):
+    """The paper's measurements on the trained checkpoint of ``[train]``
+    (the port's ``benchmarks`` modules on the card), the trained offload
+    bench held against the CPU, and the cost model's H100 row against
+    ``[main]``/``[planes]``.  Returns the launches of the phase."""
+    from repro_torch.benchmarks import (common, fig2_lru, fig2_spec,
+                                        offload_bench, table1_quant,
+                                        table2_speed)
+    from repro_torch.core import cost_model as CM
+    from repro_torch.core.offload_engine import OffloadStats
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    lru = {r["name"]: r["hit_ratio"] for r in fig2_lru.run(device=dev)
+           if "hit_ratio" in r}
+    log(f"[paper] fig2_lru hit ratio (trained tiny-moe, "
+        f"{common.TRACE_TOKENS}-token trace): {json.dumps(lru)}")
+    spec = {(r["lookahead"], r["n_fetch"]): r["recall"]
+            for r in fig2_spec.run(device=dev) if "recall" in r}
+    log("[paper] fig2_spec recall by lookahead, fetched 1/2/3/4/6/8: " + "; ".join(
+        f"ahead {j}: " + " ".join(f"{spec[(j, n)]:.4f}" for n in (1, 2, 3, 4, 6, 8))
+        for j in sorted({j for j, _ in spec})))
+    t1 = [r for r in table1_quant.run(device=dev) if "eval_ce" in r]
+    log("[paper] table1_quant (attn bits, expert bits: eval ce, Mixtral GB): "
+        + "; ".join(f"{r['attn_bits']}/{r['expert_bits']}: {r['eval_ce']:.4f}, "
+                    f"{r['mixtral_proj_gb']:.2f}" for r in t1))
+    t2 = table2_speed.run(device=dev)
+    log("[paper] table2_speed (Mixtral-8x7B, cost model, row h100): "
+        + "; ".join(f"{r['name']}: {r['derived']}" for r in t2))
+    card = offload_bench.run(trained=True, device=dev)
+    launches = ops.launches()
+    cpu = offload_bench.run(trained=True, device="cpu")
+    for a, b in zip(card, cpu):
+        if a["variant"] == "summary":
+            continue
+        log(f"[paper] offload_bench --trained {a['variant']}: {json.dumps(a)}")
+        if a["tokens"] != b["tokens"] or a["counters"] != b["counters"]:
+            fail(f"trained offload bench {a['variant']}: card {a['tokens']} "
+                 f"{a['counters']} vs cpu {b['tokens']} {b['counters']}")
+    log(f"[paper] trained offload bench: tokens equal to generate_plain and "
+        f"to the CPU's on the three planes, counters equal; kernel launches "
+        f"{launches}")
+
+    # the cost model's H100 row against the measured batch-1 decodes
+    held = CM.HARDWARE["h100"]
+    bits, abits = eng.spec.expert_bits, eng.spec.attn_bits
+    steps = NEW_TOKENS - 1
+    stats = lambda c: OffloadStats(steps, **c, expert_bytes=eng.expert_bytes)
+    main_tok_s = float(np.median(main_report["decode_tok_s_runs"]))
+    main_counters = {k: v for k, v in main_report["stats"].items()
+                     if k != "n_tokens"}
+    fields = {
+        "pcie_gbps": main_report["h2d_probe_gb_s"],
+        "mem_eff": kern["dequant_matmul_slots"]["bound_ms"] / kern["dequant_matmul_slots"]["ms"],
+        "copy_latency_s": main_report["copy_latency_probe_s"]}
+    fit = None
+    if decode_split is not None:
+        kernel_s = (1 - decode_split["compute_idle_share"]) * decode_split["per_step_ms"] / 1e3
+        measured_row = CM.Hardware(held.name, fields["pcie_gbps"], held.mem_bw_gbps,
+                                   fields["mem_eff"], fields["copy_latency_s"],
+                                   0.0, held.vram_gb)
+        fit = CM.fit_overheads(cfg, measured_row,
+                               stats(main_counters).per_token(),
+                               bits, abits, main_tok_s, kernel_s)
+        fields.update(kernel_s_per_token=kernel_s,
+                      layer_overhead_s=fit.layer_overhead_s,
+                      sw_overhead_s=fit.sw_overhead_s)
+    log(f"[paper] cost model, this run's measurements for the h100 row "
+        f"(fit to [main] pipelined at {main_tok_s:.2f} tok/s, median of "
+        f"{main_report['decode_tok_s_runs']}): {json.dumps(fields)}; held in "
+        f"cost_model.HARDWARE: {held}")
+    rows = {"pipelined (fitted)": (main_counters, main_tok_s)}
+    rows.update({f"{n} (not fitted)": (planes[n]["counters"], planes[n]["decode_tok_s"])
+                 for n in ("pr2_sync", "vectorized")})
+    for name, (counters, tok_s) in rows.items():
+        est = eng.throughput_estimate(stats(counters), "h100")
+        log(f"[paper] throughput_estimate {cfg.name} {cfg.n_layers} layers, "
+            f"{name}: {est:.2f} tok/s estimated vs {tok_s:.2f} measured "
+            f"(ratio {est / tok_s:.3f})")
+    return launches
+
+
+# ----------------------------------------------------------------------
 def main():
     card = phase_device()
     import torch
@@ -1650,13 +1884,14 @@ def main():
     phase_continuous_parity(dev)
     phase_plain_parity(dev)
     phase_bf16_parity(dev)
-    launches, batches, eng, cfg, prompt, main_run = phase_main(dev)
+    phase_train(dev)
+    launches, batches, eng, cfg, prompt, main_run, main_report = phase_main(dev)
     # the host-bound decode runs come before any profiler window
     planes = phase_planes(dev, eng, cfg)
     launches["dequant_matmul"] = planes["pr2_sync"]["launches"]["dequant_matmul"]
     accounting = phase_accounting(dev, eng, cfg, prompt, main_run)
     launches["flash_attention"] += accounting["flash_attention"]
-    _profile_decode(eng, prompt, dev)
+    decode_split = _profile_decode(eng, prompt, dev)
     _profile_prefill(eng, prompt, dev)
     batched = phase_prefill_kernel(dev, tiers, flush, batches)
     batched["max_abs_err"] = max(batched["max_abs_err"],
@@ -1667,6 +1902,9 @@ def main():
     launches["ragged_attention"] = serve_launches["ragged_attention"]
     slots = kern["dequant_matmul_slots"]
     slots["max_abs_err"] = max(slots["max_abs_err"], serve_slots["err"])
+    paper = phase_paper(dev, eng, cfg, main_report, planes, decode_split, kern)
+    for name, n in paper.items():
+        launches[name] += n
     csrc = "src/repro_torch/kernels/csrc/"
     src = {"dequant_matmul_batched": csrc + "dequant_grouped.cu",
            "dequant_matmul_slots": csrc + "dequant_gemv.cu",

@@ -1,4 +1,5 @@
-"""Carry weights into the port from nested dicts of numpy arrays.
+"""Carry weights between the port and nested dicts of numpy arrays in
+the reference's layout, both ways.
 
 The reference keeps each block-pattern position's parameters stacked over
 periods (``params["stack"][pos]``, leading axis = period, for
@@ -58,6 +59,32 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device=None):
     out = {k: v for k, v in tree.items() if k not in ("stack", "tail")}
     out["layers"] = layers
     return _to_torch(out, dev)
+
+
+def params_to_numpy(params, cfg: ModelConfig) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_numpy`: the port's ``layers[l]``
+    re-stacked into the reference's ``stack[l % period]`` with a leading
+    period axis (``tail`` empty), every leaf a numpy array on the host.
+    bfloat16 leaves come out as float32 (numpy has no bfloat16; the
+    widening is exact and a reader casts back to its own dtype)."""
+    if cfg.n_tail_layers:
+        raise NotImplementedError("tail layers are not ported")
+    period = cfg.pattern_period
+
+    def host(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    def stack(blocks):
+        if isinstance(blocks[0], dict):
+            return {k: stack([b[k] for b in blocks]) for k in blocks[0]}
+        return np.stack([host(b) for b in blocks])
+
+    out = {k: hqq.tree_map(host, v) for k, v in params.items()
+           if k != "layers"}
+    out["stack"] = [stack(params["layers"][i::period]) for i in range(period)]
+    out["tail"] = []
+    return out
 
 
 def store_from_numpy(leaves: Dict[str, Dict[str, Any]], cfg: ModelConfig,

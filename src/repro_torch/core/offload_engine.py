@@ -25,9 +25,12 @@ Both modes sample through ``serving/sampler`` and keep the decayed
 routing histogram ``usage`` (:class:`ExpertUsageTracker`, which the
 serving scheduler's expert-overlap policy also reads).
 
-Not ported yet (ROADMAP queue 1): draft-and-verify (item 4), telemetry
-(item 7), ``OffloadStats.per_token`` and ``throughput_estimate`` with
-the cost model's hardware rows (item 2).
+:meth:`OffloadEngine.throughput_estimate` turns a run's counters
+(``OffloadStats.per_token``) into the cost model's tokens/s on a
+hardware row (``cost_model.HARDWARE``).
+
+Not ported yet (ROADMAP queue 1): draft-and-verify (item 4) and
+telemetry (item 7).
 """
 from __future__ import annotations
 
@@ -64,6 +67,15 @@ class OffloadStats:
     @property
     def hit_ratio(self) -> float:
         return (self.hits + self.spec_hits) / max(1, self.accesses)
+
+    def per_token(self) -> cost_model.TokenStats:
+        n = max(1, self.n_tokens)
+        return cost_model.TokenStats(
+            demand_loads=self.demand_loads / n,
+            spec_loads=self.spec_loads / n,
+            hits=self.hits / n,
+            spec_hits=self.spec_hits / n,
+        )
 
     @property
     def bytes_h2d(self) -> float:
@@ -278,6 +290,7 @@ class OffloadEngine:
                              "(the store holds HQQ-packed experts)")
         if store is not None and not self.packed:
             raise ValueError("store= is the packed mode's (quantized=True)")
+        self.quantized = bool(quantized)
         self.size_report = None
         if quantized and store is None:
             if self.packed:
@@ -374,6 +387,15 @@ class OffloadEngine:
         self.last_timing = {"prefill_s": t1 - t0, "decode_s": t2 - t1,
                             "decode_steps": max_new_tokens - 1}
         return np.asarray(out)[None], stats
+
+    def throughput_estimate(self, stats: OffloadStats, hw_name: str) -> float:
+        """The cost model's batch-1 decode tokens/s for this engine's model
+        and offload spec on hardware row ``hw_name`` at the per-token
+        counters of ``stats``."""
+        hw = cost_model.HARDWARE[hw_name]
+        bits = self.spec.expert_bits if self.quantized else 16
+        return cost_model.tokens_per_second(self.cfg, hw, stats.per_token(),
+                                            bits, self.spec.attn_bits)
 
     def _sync(self):
         if self.device.type == "cuda":

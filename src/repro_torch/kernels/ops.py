@@ -92,3 +92,15 @@ def reset_launches() -> None:
 
 def launches() -> dict:
     return {fn.__name__: fn.launches for fn in BINDINGS}
+
+
+def routes() -> dict:
+    """Launches by route of the dequant, ragged and flash kernels (the
+    tensor-core kernels or the ones they replaced), counted since the
+    process started (never reset)."""
+    from repro_torch.kernels import dequant_matmul as DM, flash_attention as FA
+    from repro_torch.kernels import ragged_attention as RA
+    return {**{f"dequant_{k}": v for k, v in DM.launch.routes.items()},
+            **{f"grouped_{k}": v for k, v in DM.launch_grouped.routes.items()},
+            **{f"ragged_{k}": v for k, v in RA.launch.routes.items()},
+            **{f"flash_{k}": v for k, v in FA.launch.routes.items()}}

@@ -12,7 +12,9 @@ steps and chunks that wrap the ring stay plain PyTorch (``attention_core``,
 the reference's model path); attention over paged KV goes through the
 ragged paged-attention binding (``kernels/ops.ragged_attention``).
 KV rings and page pools are updated in place.  Dense MLPs
-(:func:`apply_mlp`) are plain products, as in the reference.
+(:func:`apply_mlp`) are plain products, as in the reference.  The
+training forward's full-sequence attention (:func:`attention_train`) is
+plain, query-chunked PyTorch under autograd.
 """
 from __future__ import annotations
 
@@ -21,10 +23,12 @@ from typing import Dict, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import ragged_attention as RA
 
+DEFAULT_Q_CHUNK = 512
 NEG_INF = -1e30
 
 
@@ -111,29 +115,74 @@ def _out_proj(p, cfg, o):
     return o.reshape(o.shape[:-2] + (-1,)) @ w.reshape(-1, w.shape[-1])
 
 
-def attention_core(q, k, v, qpos, kpos, *, causal, window):
-    """Exact GQA attention.
+def attention_core(q, k, v, qpos, kpos, *, causal, window,
+                   q_chunk=DEFAULT_Q_CHUNK):
+    """Exact query-chunked GQA attention.
 
     q: (B, Sq, H, hd)  k, v: (B, Skv, Hkv, hd); qpos: (Sq,) or (B, Sq)
-    absolute positions (per row in continuous batches); kpos: (B, Skv)
-    (-1 = empty ring slot or unallocated page).
+    absolute positions (per row in continuous batches); kpos: (Skv,) or
+    (B, Skv) (-1 = empty ring slot, unallocated page or pad).
+
+    Scores are materialised ``q_chunk`` query rows at a time in float32
+    (``Sq % q_chunk`` falls back to one chunk); the softmax weights are
+    cast to q's dtype before P.V, as in the reference.  Under autograd
+    each chunk of several is recomputed in the backward pass instead of
+    storing its scores (``torch.utils.checkpoint``, the reference's
+    ``jax.checkpoint`` of its chunk body).
     """
     B, Sq, H, hd = q.shape
     Hkv = k.shape[2]
     qg = q.reshape(B, Sq, Hkv, H // Hkv, hd)
     scale = 1.0 / math.sqrt(hd)
-    s = torch.einsum("bqhgk,bthk->bhgqt", qg.to(torch.float32),
-                     k.to(torch.float32)) * scale
-    valid = (kpos >= 0)[:, None, :]  # (B, 1, Skv)
-    qp = qpos.expand(B, Sq)[:, :, None]
-    if causal:
-        valid = valid & (kpos[:, None, :] <= qp)
-    if window is not None:
-        valid = valid & ((qp - kpos[:, None, :]) < window)
-    s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG_INF))
-    w = torch.softmax(s, dim=-1).to(q.dtype)
-    o = torch.einsum("bhgqt,bthk->bqhgk", w, v)
+    qpos = qpos.expand(B, Sq)
+    kpos = kpos.expand(B, k.shape[1])
+    kf = k.to(torch.float32)
+
+    def chunk(qc, qp):
+        s = torch.einsum("bqhgk,bthk->bhgqt", qc.to(torch.float32), kf) * scale
+        valid = (kpos >= 0)[:, None, :]  # (B, 1, Skv)
+        qp = qp[:, :, None]
+        if causal:
+            valid = valid & (kpos[:, None, :] <= qp)
+        if window is not None:
+            valid = valid & ((qp - kpos[:, None, :]) < window)
+        s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG_INF))
+        w = torch.softmax(s, dim=-1).to(q.dtype)
+        return torch.einsum("bhgqt,bthk->bqhgk", w, v)
+
+    q_chunk = min(q_chunk, Sq)
+    if Sq % q_chunk:
+        q_chunk = Sq
+    if q_chunk == Sq:
+        o = chunk(qg, qpos)
+    else:
+        run = chunk
+        if torch.is_grad_enabled():
+            run = lambda a, b: torch.utils.checkpoint.checkpoint(
+                chunk, a, b, use_reentrant=False)
+        o = torch.cat([run(qg[:, a: a + q_chunk], qpos[:, a: a + q_chunk])
+                       for a in range(0, Sq, q_chunk)], dim=1)
     return o.reshape(B, Sq, H, hd)
+
+
+def attention_train(p, cfg, x, positions, *, window=None, causal=True,
+                    pad_mask=None):
+    """Full-sequence self-attention (the training forward): x (B, S, D) at
+    ``positions`` (S,) or (B, S).  ``pad_mask`` (B, S) bool, True at real
+    tokens, removes pads from every key set (their own query rows are
+    garbage that callers ignore).  Plain PyTorch through
+    :func:`attention_core`, differentiable; the flash kernel has no
+    backward, and neither has the reference's."""
+    q = _project_q(p, cfg, x)
+    k, v = _project_kv(p, cfg, x)
+    q = apply_rope(q, positions, cfg)
+    k = apply_rope(k, positions, cfg)
+    kpos = positions
+    if pad_mask is not None:
+        kpos = torch.where(pad_mask, positions.expand(pad_mask.shape),
+                           torch.full_like(pad_mask, -1, dtype=positions.dtype))
+    o = attention_core(q, k, v, positions, kpos, causal=causal, window=window)
+    return _out_proj(p, cfg, o)
 
 
 def init_attn_cache(cfg, batch, max_len, device, window=None):

@@ -17,6 +17,12 @@ reference's ``models/moe.py``, the paths offloaded generation runs).
   that tier (``ops.dequant_matmul_batched`` with row offsets); no pool
   state, no counter.
 
+The training forward's paths are plain PyTorch under autograd:
+:func:`moe_apply_dispatch` (GShard-style scatter into per-expert
+capacity slots, token-major priority, overflow dropped) and
+:func:`moe_apply_dense` (every expert for every token: the oracle), with
+:func:`aux_losses`' load-balance term.
+
 ``fused=False`` (both) dequantizes each served record into the model
 dtype (``quant/hqq.dequantize``) and runs plain matrix products, the
 reference's gather einsums.  Every compute path keeps the reference's
@@ -28,6 +34,7 @@ it is served by slot, in a group or alone.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Tuple
 
@@ -70,6 +77,140 @@ def route_topk(p, spec, x2d) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     w, ids = torch.topk(probs, spec.top_k, dim=-1)
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)  # mixtral renorm
     return w, ids.to(torch.int32), probs
+
+
+def _act(cfg):
+    """The expert activation: silu (swiglu) or tanh-form gelu (the
+    reference's ``jax.nn.gelu`` default)."""
+    if cfg.mlp_act == "swiglu":
+        return torch.nn.functional.silu
+    return lambda t: torch.nn.functional.gelu(t, approximate="tanh")
+
+
+def expert_ffn(experts, cfg, xbuf):
+    """xbuf (..., E, C, D) -> (..., E, C, D), batched over experts (and
+    any leading group axes)."""
+    act = _act(cfg)
+    g = torch.einsum("...ecd,edf->...ecf", xbuf, experts["w_gate"])
+    u = torch.einsum("...ecd,edf->...ecf", xbuf, experts["w_up"])
+    h = act(g.to(torch.float32)).to(xbuf.dtype) * u
+    return torch.einsum("...ecf,efd->...ecd", h, experts["w_down"])
+
+
+def capacity(spec, T: int) -> int:
+    """Slots per expert for T tokens: ceil(top_k * T * capacity_factor /
+    E), at least 4, rounded up to a multiple of 4."""
+    c = int(math.ceil(spec.top_k * T * spec.capacity_factor / spec.num_experts))
+    return max(4, c + (-c) % 4)
+
+
+def aux_losses(spec, probs, ids, token_mask=None):
+    """Switch-style load-balance loss: E * sum_e (share of routed slots)
+    * (mean router probability).  ``token_mask`` (T,) excludes pad
+    tokens from both statistics."""
+    T, E = probs.shape
+    assign = torch.nn.functional.one_hot(ids.long(), E).to(torch.float32).sum(1)
+    if token_mask is None:
+        frac_tokens = assign.mean(0) / spec.top_k
+        frac_probs = probs.mean(0)
+    else:
+        w = token_mask.to(torch.float32)[:, None]  # (T, 1)
+        n = torch.clamp(w.sum(), min=1.0)
+        frac_tokens = (assign * w).sum(0) / (n * spec.top_k)
+        frac_probs = (probs * w).sum(0) / n
+    return {"load_balance": E * torch.sum(frac_tokens * frac_probs)}
+
+
+def moe_apply_dense(p, cfg, x2d):
+    """Oracle: every expert computed for every token, combined with the
+    (sparse) routing weights.  Returns (y2d, aux)."""
+    spec = cfg.moe
+    w, ids, probs = route_topk(p, spec, x2d)
+    T, D = x2d.shape
+    E = spec.num_experts
+    wdense = torch.zeros((T, E), dtype=torch.float32, device=x2d.device
+                         ).scatter_add(1, ids.long(), w)
+    y_all = expert_ffn(p["experts"], cfg, x2d[None].expand(E, T, D))
+    y = torch.einsum("etd,te->td", y_all.to(torch.float32), wdense)
+    return y.to(x2d.dtype), aux_losses(spec, probs, ids)
+
+
+def dispatch_maps(ids, w, mask, num_experts: int, cap: int):
+    """The dispatch plan of g independent groups: ids (g, Tg, K), w (g,
+    Tg, K) routing weights, mask (g, Tg) bool (False: a pad token, sent
+    to the virtual expert E so that it never claims a slot).  Slots are
+    claimed token-major (token t's k-th expert before token t+1's) and a
+    slot past ``cap`` is dropped.  Returns ``(slot, tok_map, w_map)``:
+    slot (g, Tg*K) the flat index of each (token, k) into its group's
+    (E, cap + 1) slots (index cap of an expert is the bin of dropped
+    pairs); tok_map (g, E, cap) int32 the token of each slot (Tg = empty)
+    and w_map (g, E, cap) its routing weight (0 = empty), differentiable
+    in ``w``."""
+    g, Tg, K = ids.shape
+    E, dev = num_experts, ids.device
+    flat_e = ids.reshape(g, Tg * K).long()
+    valid = mask.repeat_interleave(K, dim=1)
+    flat_e = torch.where(valid, flat_e, torch.full_like(flat_e, E))
+    onehot = torch.nn.functional.one_hot(flat_e, E + 1)[..., :E]
+    pos_in_e = onehot.cumsum(1) - onehot
+    pos = pos_in_e.gather(2, flat_e.clamp(max=E - 1)[..., None])[..., 0]
+    keep = (pos < cap) & valid
+    slot = flat_e.clamp(max=E - 1) * (cap + 1) + torch.where(
+        keep, pos, torch.full_like(pos, cap))
+    n = E * (cap + 1)
+    flat = (slot + torch.arange(g, device=dev)[:, None] * n).reshape(-1)
+    tok = torch.arange(Tg, device=dev).repeat_interleave(K).expand(g, -1)
+    # kept pairs own distinct slots; dropped ones all land in their
+    # expert's bin, whose contents are cut away (no host sync anywhere)
+    tok_map = torch.full((g * n,), Tg, dtype=torch.int32, device=dev).scatter(
+        0, flat, torch.where(keep, tok, Tg).reshape(-1).to(torch.int32))
+    w_map = torch.zeros((g * n,), dtype=w.dtype, device=dev).index_add(
+        0, flat, w.reshape(-1))
+    cut = lambda t: t.reshape(g, E, cap + 1)[:, :, :cap]
+    return slot, cut(tok_map), cut(w_map)
+
+
+def moe_apply_dispatch(p, cfg, x2d, capacity_factor=None, groups=None,
+                       token_mask=None):
+    """Scatter-dispatch MoE (the training forward): tokens are scattered
+    into an (E, capacity, D) buffer per group (:func:`dispatch_maps`;
+    masked and overflow pairs dropped), the expert FFNs run batched over
+    the buffer (:func:`expert_ffn`), and each slot's output, times its
+    routing weight, is added back to its token.  ``groups`` (default
+    ``cfg.moe_dispatch_groups``; 1 where it does not divide T) dispatches
+    that many equal token groups independently, each with its own
+    capacity.  Gradients flow through the gathered rows, the routing
+    weights and the router probabilities of the load-balance loss.
+    Returns ``(y2d, {"load_balance"})``."""
+    spec = cfg.moe
+    if capacity_factor is not None:
+        spec = dataclasses.replace(spec, capacity_factor=capacity_factor)
+    g = groups or getattr(cfg, "moe_dispatch_groups", 1) or 1
+    T, D = x2d.shape
+    if T % g:
+        g = 1
+    w, ids, probs = route_topk(p, spec, x2d)
+    Tg, E, K = T // g, spec.num_experts, spec.top_k
+    C = capacity(spec, Tg)
+    mask = (torch.ones((g, Tg), dtype=torch.bool, device=x2d.device)
+            if token_mask is None else token_mask.reshape(g, Tg).bool())
+    slot, tok_map, w_map = dispatch_maps(ids.reshape(g, Tg, K),
+                                         w.reshape(g, Tg, K), mask, E, C)
+    xg = x2d.reshape(g, Tg, D)
+    xslot = xg[:, torch.arange(Tg, device=x2d.device).repeat_interleave(K)]
+    n = E * (C + 1)
+    flat = (slot + torch.arange(g, device=x2d.device)[:, None] * n).reshape(-1)
+    buf = torch.zeros((g * n, D), dtype=x2d.dtype, device=x2d.device
+                      ).index_add(0, flat, xslot.reshape(-1, D))
+    buf = buf.reshape(g, E, C + 1, D)[:, :, :C]
+    ybuf = expert_ffn(p["experts"], cfg, buf)                # (g, E, C, D)
+    contrib = ybuf * w_map[..., None].to(ybuf.dtype)
+    dst = (tok_map.long() + torch.arange(g, device=x2d.device)[:, None, None]
+           * (Tg + 1)).reshape(-1)
+    y = torch.zeros((g * (Tg + 1), D), dtype=x2d.dtype, device=x2d.device
+                    ).index_add(0, dst, contrib.reshape(-1, D).to(x2d.dtype))
+    y = y.reshape(g, Tg + 1, D)[:, :Tg].reshape(T, D)
+    return y, aux_losses(spec, probs, ids, token_mask=token_mask)
 
 
 GATHER_BYTES = 1 << 30  # per-(token, k) weights one gather block copies

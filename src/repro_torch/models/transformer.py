@@ -14,13 +14,18 @@ host (numpy); pools and rings are updated in place.
 ``decode_step(moe_mode="gather")``): dense resident weights, MoE by the
 per-token gather.  The packed planes run the same mixer
 (:func:`decode_block_packed_mixer`) and their own MoE halves.
+:func:`forward_train` is the training forward: full-sequence attention
+and the scatter-dispatch MoE, plain PyTorch under autograd, with
+optional activation checkpointing per period of the block pattern.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, parse_block
@@ -65,6 +70,117 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None) -> Dict[str, Any
     params["final_norm"] = L.init_norm(cfg, dev)
     params["layers"] = [_init_block(gen, cfg, kind) for kind in cfg.layer_kinds()]
     return params
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """The (shape, dtype) of every leaf :func:`init_model` makes, in the
+    port's layout, without allocating anything."""
+    check_supported(cfg)
+    D, H, Hkv, hd, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.head_dim, cfg.d_ff)
+    dt = getattr(torch, cfg.dtype)
+    leaf = lambda *shape: (tuple(shape), dt)
+    norm = {"scale": leaf(D)}
+
+    def block(kind):
+        out = {"norm1": norm, "attn": {"wq": leaf(D, H, hd),
+                                       "wk": leaf(D, Hkv, hd),
+                                       "wv": leaf(D, Hkv, hd),
+                                       "wo": leaf(H, hd, D)},
+               "norm2": norm}
+        if parse_block(kind)[1] == "moe":
+            E = cfg.moe.num_experts
+            out["moe"] = {"router": ((D, E), torch.float32),
+                          "experts": {"w_gate": leaf(E, D, F),
+                                      "w_up": leaf(E, D, F),
+                                      "w_down": leaf(E, F, D)}}
+        else:  # swiglu, the only activation check_supported admits
+            out["mlp"] = {"w_gate": leaf(D, F), "w_up": leaf(D, F),
+                          "w_down": leaf(F, D)}
+        return out
+
+    specs: Dict[str, Any] = {"embed": {"table": leaf(cfg.padded_vocab, D)}}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = {"w": leaf(D, cfg.padded_vocab)}
+    specs["final_norm"] = norm
+    specs["layers"] = [block(kind) for kind in cfg.layer_kinds()]
+    return specs
+
+
+def count_params_analytic(cfg: ModelConfig) -> int:
+    """Parameter count of :func:`init_model` from the shapes alone."""
+    def count(t):
+        if isinstance(t, dict):
+            return sum(count(v) for v in t.values())
+        if isinstance(t, list):
+            return sum(count(v) for v in t)
+        return math.prod(t[0])
+    return count(param_specs(cfg))
+
+
+# ----------------------------------------------------------------------
+# Training forward
+def pad_positions(pad_mask, S: int, device=None):
+    """Position layout of a prefill or training batch: with a left-pad
+    ``pad_mask`` (B, S), real token j of a row gets logical position j -
+    n_pads and pads get -1 (masked out of every attention); without one,
+    ``arange(S)``.  Returns (pad_mask as bool or None, positions int32)."""
+    if pad_mask is None:
+        return None, torch.arange(S, dtype=torch.int32, device=device)
+    pad_mask = pad_mask.bool()
+    positions = torch.cumsum(pad_mask.to(torch.int32), dim=1,
+                             dtype=torch.int32) - 1
+    return pad_mask, torch.where(pad_mask, positions,
+                                 torch.full_like(positions, -1))
+
+
+def _block_train(p, cfg: ModelConfig, kind: str, x, positions, pad_mask):
+    """One block over the full sequence: (x, load-balance term or None)."""
+    h = L.apply_norm(p["norm1"], cfg, x)
+    x = x + L.attention_train(p["attn"], cfg, h, positions,
+                              window=attention_window(cfg, kind),
+                              pad_mask=pad_mask)
+    h2 = L.apply_norm(p["norm2"], cfg, x)
+    if parse_block(kind)[1] == "mlp":
+        return x + L.apply_mlp(p["mlp"], cfg, h2), None
+    B, S, D = h2.shape
+    y2d, aux = M.moe_apply_dispatch(
+        p["moe"], cfg, h2.reshape(B * S, D),
+        token_mask=None if pad_mask is None else pad_mask.reshape(B * S))
+    return x + y2d.reshape(B, S, D), aux["load_balance"]
+
+
+def forward_train(params, cfg: ModelConfig, batch, *, remat: bool = False):
+    """Teacher-forced logits of ``batch["tokens"]`` (B, S) int tensor (with
+    an optional left-pad ``batch["pad_mask"]``).  Returns ``(logits (B,
+    S, V) float32, {"load_balance": sum over MoE layers})``.  ``remat``
+    recomputes each period's blocks in the backward pass and keeps only
+    the residual stream between periods (the reference's
+    ``jax.checkpoint`` of its scan body)."""
+    check_supported(cfg)
+    tokens = batch["tokens"]
+    x = embed_tokens(params, cfg, tokens)
+    B, S, _ = x.shape
+    pad_mask, positions = pad_positions(batch.get("pad_mask"), S, x.device)
+    kinds = cfg.layer_kinds()
+    period = cfg.pattern_period
+
+    def run_period(x, lb, *layer_params):
+        for i, lp in enumerate(layer_params):
+            x, term = _block_train(lp, cfg, kinds[i], x, positions, pad_mask)
+            if term is not None:
+                lb = lb + term
+        return x, lb
+
+    lb = torch.zeros((), dtype=torch.float32, device=x.device)
+    for start in range(0, cfg.n_layers, period):
+        lps = params["layers"][start: start + period]
+        if remat and torch.is_grad_enabled():
+            x, lb = torch.utils.checkpoint.checkpoint(
+                run_period, x, lb, *lps, use_reentrant=False)
+        else:
+            x, lb = run_period(x, lb, *lps)
+    return apply_head(params, cfg, x), {"load_balance": lb}
 
 
 # ----------------------------------------------------------------------

@@ -1,6 +1,7 @@
-"""The port imports neither JAX nor the reference package: an AST scan of
-every module of ``src/repro_torch`` and of ``chip_smoke.py``, and a fresh
-interpreter that imports the whole port."""
+"""The port imports neither JAX, nor the reference package, nor the
+reference's benchmark folder: an AST scan of every module of
+``src/repro_torch`` and of ``chip_smoke.py``, and a fresh interpreter
+that imports the whole port."""
 import ast
 import os
 import subprocess
@@ -12,7 +13,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def imported_modules(path: Path):
@@ -31,7 +32,9 @@ def is_forbidden(mod: str) -> bool:
 def test_forbidden_names_are_recognised():
     assert is_forbidden("repro.quant.hqq") and is_forbidden("repro")
     assert is_forbidden("jax.numpy")
+    assert is_forbidden("benchmarks.common")
     assert not is_forbidden("repro_torch.quant.hqq")
+    assert not is_forbidden("repro_torch.benchmarks.common")
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
