@@ -13,58 +13,27 @@ last line):
    version's time and the bound; the slot and 2-D bindings must take the
    tensor-core GEMV (``csrc/dequant_gemv.cu``), and the FMA kernel they
    ran before is checked and timed beside it on the same inputs.
-3. parity: ``tiny-moe`` generated on the card (kernels) and on the CPU
-   (plain versions) from the same seeded weights, on each (pipelined,
-   vectorized, fused) combination the reference's offload benchmark
-   runs: equal tokens, routing and counters, logits within tolerance.
-4. main path: ``mixtral-offload`` at full width (depth cut to 8 of 32
-   layers), weights from a seeded generator, quantized on the card; a
-   64-token prompt prefilled (one chunk, through the flash-attention
-   kernel) and 32 tokens generated greedily through
-   ``OffloadEngine.generate``, with the kernel launch counts, the h2d
-   bytes actually issued against the counters, and pool coherence; one
-   prefill profiled, split into the prefill tier's h2d copies and the
-   kernels' time.
-5. prefill kernel: the batched binding (the grouped tensor-core kernel)
-   timed again at the main run's prefill's per-expert row counts, as
-   ragged groups, beside the FMA kernel it replaced on the same rows
-   zero-padded to the largest group; then a 4096-token prompt's 8192
-   routed rows over 8 experts (operation-bound), with its TFLOP/s.
-6. ragged kernel: the paged-attention kernel against its plain version at
+3. ragged kernel: the paged-attention kernel against its plain version at
    Mixtral's attention shapes (H 32, Hkv 8, hd 128, pages of 16, bf16):
    a decode step of 4 rows (live lengths 37, 300, 1500, 4200, window
    4096) and a 128-token admission chunk, on the tensor-core kernel
    (``csrc/ragged_mma.cu``); time, plain time, bound, and the
    warp-reduction kernel it replaced checked and timed beside it.
-7. continuous parity: ``tiny-moe`` served by ``ContinuousEngine`` over the
-   offloaded pool on paged KV, four requests through two slots, on the
-   card (kernels) and on the CPU (plain versions): equal tokens, emit
-   steps and counters.
-8. serving: ``mixtral-offload`` (the main phase's 8 layers) serving 8
-   requests through 4 slots on paged KV, greedy, FCFS: tokens/s, active
-   rows per step, the pool's counters against the h2d bytes issued (and
-   beside the previous decode kernels' run), the launch counts of all
-   kernel bindings and of each route against the expected, the
-   slot binding against its plain version (and timed) on the inputs of
-   the decode launch that read farthest into the pool's overflow
-   records, and a profiler window over a few decode steps.
-9. flash kernel: the flash-attention kernel against its plain version at
+4. flash kernel: the flash-attention kernel against its plain version at
    Mixtral's attention shapes (H 32, Hkv 8, hd 128, bf16): the main
    path's 64-token prefill chunk, a 4096-token prompt and a windowed
    1024-row chunk at position 7168 over 8192 keys (window 4096, the
    KV-tile skip); time, plain time, bound and, where no window applies,
    ``scaled_dot_product_attention`` as a yardstick (``kernel_over_library``).
-10. planes: the paper's three offload data planes (the reference's
-   ``offload_bench`` variants ``pr2_sync``, ``vectorized``, ``pipelined``)
-   on the main phase's model, weights and store: decode tokens/s with
-   p50/p95 ms per token, prefill s, counters, h2d bytes issued and the
-   launch counts of every binding and route; equal tokens and counters
-   across the three, and the 2-D dequant binding launched on ``pr2_sync``
-   only.  Where ``[main]``'s or ``[serve]``'s counters differ from the
-   previous decode kernels' (``PREVIOUS_MAIN``/``PREVIOUS_SERVE``), the run
-   is repeated on the FMA decode kernel, whose counters are printed with
-   the first decision that differs and its gap.
-11. plain parity: the plain plane (dense resident weights) on ``tiny-moe``
+5. parity: ``tiny-moe`` generated on the card (kernels) and on the CPU
+   (plain versions) from the same seeded weights, on each (pipelined,
+   vectorized, fused) combination the reference's offload benchmark
+   runs: equal tokens, routing and counters, logits within tolerance.
+6. continuous parity: ``tiny-moe`` served by ``ContinuousEngine`` over the
+   offloaded pool on paged KV, four requests through two slots, on the
+   card (kernels) and on the CPU (plain versions): equal tokens, emit
+   steps and counters.
+7. plain parity: the plain plane (dense resident weights) on ``tiny-moe``
    and ``tiny-draft`` (f32, seeded weights), card against CPU: equal
    ``generate_plain`` tokens; on ``tiny-moe`` accounting mode
    (``quantized=True, packed=False``) on the card: tokens bitwise equal to
@@ -72,49 +41,106 @@ last line):
    ``usage`` equal to the packed engine's, sampled runs that repeat from
    a generator seeded with 0, ``SamplerConfig("greedy")`` equal to greedy
    and every top-k draw in its step's top k.
-12. accounting: the dense-resident oracle of ``[main]`` at full width: the
-   main store's records dequantized on the card layer by layer (no second
-   quantization), generating ``[main]``'s 32 tokens in accounting mode on
-   the plain plane (the prompt's one chunk through the flash kernel,
-   one launch per layer), with its prefill s, decode tok/s and peak
-   device memory (the oracle's times, not an offload result); its tokens
-   and PyLRU replay counters against ``[main]``'s packed run.  This holds
-   the bf16 tensor-core routes of the packed run end to end against a
-   model with no quantized kernel in it.
-13. bf16 parity: ``tiny-moe`` at 4 heads over 2 KV heads (head_dim 64) in
-   bf16, inside every tensor-core route's scope, packed ``pipelined``
-   batch 1 and ``ContinuousEngine`` (4 requests through 2 slots, pages of
-   16), card (kernels) against CPU (plain versions), with the routes
-   taken: the slot binding on the GEMV, the batched binding on the
-   grouped kernel, flash on ``wgmma``, ragged on ``ragged_mma``.
+8. serve-plain parity: ``tiny-moe`` (f32, seeded weights) served card
+   against CPU: ``ContinuousEngine`` on the plain plane (dense resident
+   weights) on the ``dense``, ``dense_chunked``, ``paged``,
+   ``paged_exact`` and ``paged_chunked`` overlays of the reference's
+   parity harness, the packed engine on dense slots and on pages (whole
+   and chunked admission), and ``ServeEngine.serve_batch`` on mixed
+   lengths: equal tokens and emit steps card against CPU; on the card
+   each plain continuous request equal to ``generate_plain``, and the
+   packed dense-slot counters equal to the paged run's.
+9. serve-bench: the port's ``benchmarks/serve_bench.run(quick=True)`` on
+   the card (``tiny-moe``, random weights): continuous against static,
+   chunked-prefill latency on the plain and packed planes, dense slots
+   against pages, each scenario asserting its own parities; its rows
+   printed.
+10. bf16 parity: ``tiny-moe`` at 4 heads over 2 KV heads (head_dim 64) in
+    bf16, inside every tensor-core route's scope, packed ``pipelined``
+    batch 1 and ``ContinuousEngine`` (4 requests through 2 slots, pages of
+    16), card (kernels) against CPU (plain versions), with the routes
+    taken: the slot binding on the GEMV, the batched binding on the
+    grouped kernel, flash on ``wgmma``, ragged on ``ragged_mma``.
+11. train: ``tiny-moe`` at full size (f32: 6 layers, d 256, 8 experts,
+    top-2) trained with the paper-measurement recipe of
+    ``repro_torch.benchmarks.common`` (sequences of 128, batches of 8, a
+    2 MB byte corpus of the machine's Python standard library, AdamW at lr
+    1e-3, 30 warmup steps): weights made on the CPU (seed 0) and copied to
+    the card; 5 steps on the card and 5 on the CPU from those weights and
+    batches, whose loss, ce, load balance and gradient norm must agree
+    within ``TRAIN_RTOL``; then the full 300 steps on the card, with the
+    loss curve, final loss, eval ce, ms per step (median after the first
+    10), training tokens/s and peak memory; the corpus's byte count and
+    md5; the checkpoint saved, restored, and its eval ce equal.
+12. main path: ``mixtral-offload`` at full width (depth cut to 8 of 32
+    layers), weights from a seeded generator, quantized on the card; a
+    64-token prompt prefilled (one chunk, through the flash-attention
+    kernel) and 32 tokens generated greedily through
+    ``OffloadEngine.generate``, with the kernel launch counts, the h2d
+    bytes actually issued against the counters, and pool coherence; one
+    prefill profiled, split into the prefill tier's h2d copies and the
+    kernels' time.
+13. planes: the paper's three offload data planes (the reference's
+    ``offload_bench`` variants ``pr2_sync``, ``vectorized``, ``pipelined``)
+    on the main phase's model, weights and store: decode tokens/s with
+    p50/p95 ms per token, prefill s, counters, h2d bytes issued and the
+    launch counts of every binding and route; equal tokens and counters
+    across the three, and the 2-D dequant binding launched on ``pr2_sync``
+    only.  Where ``[main]``'s or ``[serve]``'s counters differ from the
+    previous decode kernels' (``PREVIOUS_MAIN``/``PREVIOUS_SERVE``), the run
+    is repeated on the FMA decode kernel, whose counters are printed with
+    the first decision that differs and its gap.
+14. accounting: the dense-resident oracle of ``[main]`` at full width: the
+    main store's records dequantized on the card layer by layer (no second
+    quantization), generating ``[main]``'s 32 tokens in accounting mode on
+    the plain plane (the prompt's one chunk through the flash kernel,
+    one launch per layer), with its prefill s, decode tok/s and peak
+    device memory (the oracle's times, not an offload result); its tokens
+    and PyLRU replay counters against ``[main]``'s packed run.  This holds
+    the bf16 tensor-core routes of the packed run end to end against a
+    model with no quantized kernel in it.
+15. serve-plain: ``mixtral-offload`` (the main phase's 8 layers) with
+    ``[accounting]``'s dense bf16 experts serving ``[serve]``'s 8 requests
+    through 4 slots on the plain plane, on pages of 16 (the ragged
+    kernel) and on dense slot KV (flash on each admission chunk); the
+    same requests through ``ServeEngine.serve_batch`` in FCFS groups of 4
+    (the static baseline, no kernel); and the packed ``[serve]`` engine
+    on dense slot KV over the main pool (flash and the batched binding on
+    admission, the slot binding in decode).  Each run's tokens/s, steps,
+    launches by binding and route (against the expected) and peak device
+    memory; the packed run's counters against the h2d bytes issued; the
+    static token count within 25 % of the continuous one; the plain
+    paged, plain dense and packed paged runs traced and held to the
+    near-tie rule.  The dense weights are freed after it.
+16. prefill kernel: the batched binding (the grouped tensor-core kernel)
+    timed again at the main run's prefill's per-expert row counts, as
+    ragged groups, beside the FMA kernel it replaced on the same rows
+    zero-padded to the largest group; then a 4096-token prompt's 8192
+    routed rows over 8 experts (operation-bound), with its TFLOP/s.
+17. serving: ``mixtral-offload`` (the main phase's 8 layers) serving 8
+    requests through 4 slots on paged KV, greedy, FCFS: tokens/s, active
+    rows per step, the pool's counters against the h2d bytes issued (and
+    beside the previous decode kernels' run), the launch counts of all
+    kernel bindings and of each route against the expected, the
+    slot binding against its plain version (and timed) on the inputs of
+    the decode launch that read farthest into the pool's overflow
+    records, and a profiler window over a few decode steps.
+18. paper: the paper's measurements on that checkpoint (the port's
+    ``benchmarks`` package, on the card): ``fig2_lru`` hit ratios at k 1-8
+    with decayed LFU and Belady at k 2 and 4, ``fig2_spec`` recall at
+    lookahead 1, 2 and 5 against the experts fetched, the ``table1_quant``
+    grid (eval ce, projected Mixtral GB), ``table2_speed``'s H100
+    estimates, and ``offload_bench --trained`` on the three planes (decode
+    tok/s, p50/p95 ms, prefill s, h2d bytes per token, hit ratio, launches
+    by binding and route): tokens equal to ``generate_plain``'s and to the
+    CPU run's, counters equal across the planes and to the CPU's.  Then
+    the cost model's two overheads fitted to ``[main]``'s pipelined
+    decode beside the ones ``cost_model.HARDWARE["h100"]`` holds, and that
+    row's ``throughput_estimate`` beside the measured decode tok/s of
+    ``[planes]``' ``pr2_sync`` and ``vectorized`` runs, the cells it was
+    not fitted to.
 
-14. train: ``tiny-moe`` at full size (f32: 6 layers, d 256, 8 experts,
-   top-2) trained with the paper-measurement recipe of
-   ``repro_torch.benchmarks.common`` (sequences of 128, batches of 8, a
-   2 MB byte corpus of the machine's Python standard library, AdamW at lr
-   1e-3, 30 warmup steps): weights made on the CPU (seed 0) and copied to
-   the card; 5 steps on the card and 5 on the CPU from those weights and
-   batches, whose loss, ce, load balance and gradient norm must agree
-   within ``TRAIN_RTOL``; then the full 300 steps on the card, with the
-   loss curve, final loss, eval ce, ms per step (median after the first
-   10), training tokens/s and peak memory; the corpus's byte count and
-   md5; the checkpoint saved, restored, and its eval ce equal.
-15. paper: the paper's measurements on that checkpoint (the port's
-   ``benchmarks`` package, on the card): ``fig2_lru`` hit ratios at k 1-8
-   with decayed LFU and Belady at k 2 and 4, ``fig2_spec`` recall at
-   lookahead 1, 2 and 5 against the experts fetched, the ``table1_quant``
-   grid (eval ce, projected Mixtral GB), ``table2_speed``'s H100
-   estimates, and ``offload_bench --trained`` on the three planes (decode
-   tok/s, p50/p95 ms, prefill s, h2d bytes per token, hit ratio, launches
-   by binding and route): tokens equal to ``generate_plain``'s and to the
-   CPU run's, counters equal across the planes and to the CPU's.  Then
-   the cost model's two overheads fitted to ``[main]``'s pipelined
-   decode beside the ones ``cost_model.HARDWARE["h100"]`` holds, and that
-   row's ``throughput_estimate`` beside the measured decode tok/s of
-   ``[planes]``' ``pr2_sync`` and ``vectorized`` runs, the cells it was
-   not fitted to.
-
-Phases 12 and 13 trace every decision of both runs they compare (router
+Phases 10, 14 and 15 trace every decision of both runs they compare (router
 top-k, lookahead prediction, sampled token) and hold them to one rule:
 equal, or the first decision that differs is a near-tie, its top-k
 probability gap (routing, prediction) or its top-2 logit gap over the
@@ -232,17 +258,24 @@ class _Decisions:
     the row's largest |logit|: a probability gap over a whole vocabulary
     of near-uniform logits would be tiny whatever the logits).  A
     decision's key, (step, index within the step, kind), lines two runs
-    up whatever order their planes make the calls in."""
+    up whatever order their planes make the calls in.  Inside a watched
+    continuous engine's batched decode only the rows in use are recorded:
+    a free slot computes on whatever its KV holds, which differs between
+    KV layouts and planes and decides nothing."""
 
     KINDS = ("route", "predict", "token")
 
     def __init__(self):
         self.events = {k: [] for k in self.KINDS}
         self.step, self.index = 0, {"route": 0, "predict": 0}
+        self.rows = None  # the batched decode's rows in use, while it runs
         self._undo = []
 
     def _record(self, kind, chosen, scores, k):
         import torch
+        if self.rows is not None and chosen.shape[0] > len(self.rows):
+            sel = torch.as_tensor(self.rows, device=chosen.device)
+            chosen, scores = chosen[sel], scores[sel]
         top = torch.sort(scores.float(), -1, descending=True).values
         key = (self.step, self.index[kind], self.KINDS.index(kind))
         self.events[kind].append((key, np.sort(chosen.cpu().numpy(), -1),
@@ -271,6 +304,7 @@ class _Decisions:
                 self._token(logits[sel], out[sel])
                 return out
             engine._sample_rows, name = rows, "_sample_rows"
+            self._watch_decode(engine._exec)
         else:
             fn = engine._next_token
 
@@ -281,6 +315,36 @@ class _Decisions:
             engine._next_token, name = nxt, "_next_token"
         self._undo.append(lambda: delattr(engine, name))
         return engine
+
+    def _watch_decode(self, ex):
+        """Mark the rows in use during ``ex``'s decode; on the plain plane,
+        where greedy decode takes its argmax on the device
+        (``decode_sampled``), also record its tokens from the logits."""
+        import torch
+        dec = ex.decode
+
+        def decode(state, tokens, pstate=None, active=None, **kw):
+            self.rows = None if active is None else np.flatnonzero(active)
+            try:
+                return dec(state, tokens, pstate, active, **kw)
+            finally:
+                self.rows = None
+        ex.decode = decode
+        self._undo.append(lambda: ex.__dict__.pop("decode", None))
+        if ex.packed:
+            return
+
+        def sampled(state, tokens, *, collect_info, greedy, active=None):
+            logits, state, _, infos = ex.decode(state, tokens, active=active,
+                                                collect_info=collect_info)
+            last = logits[:, -1]
+            nxt = torch.argmax(last, dim=-1).to(torch.int32) if greedy else last
+            if greedy:
+                sel = torch.as_tensor(np.flatnonzero(active), device=last.device)
+                self._token(last[sel], nxt[sel].cpu().numpy())
+            return (nxt, state, infos) if collect_info else (nxt, state)
+        ex.decode_sampled = sampled
+        self._undo.append(lambda: ex.__dict__.pop("decode_sampled", None))
 
     def __enter__(self):
         import torch
@@ -1080,36 +1144,61 @@ def phase_ragged_kernel(dev, flush):
 
 
 # ----------------------------------------------------------------------
-def _serve(eng, cfg, prompts, max_news, *, max_slots, on_engine=None, **kw):
-    """Serve ``prompts`` through a ContinuousEngine over ``eng``'s pool on
-    paged KV (16-position pages); returns (engine, tokens per request,
-    emit step of every token, decode calls and active rows, chunk calls).
-    ``on_engine`` is called with the engine before it serves."""
+def _serve(eng, cfg, prompts, max_news, *, max_slots, on_engine=None,
+           params=None, device=None, **kw):
+    """Serve ``prompts`` through a ContinuousEngine over ``eng``'s pool
+    (``eng`` None: the plain plane over ``params`` on ``device``), on
+    paged KV of 16-position pages unless ``kv_page`` says otherwise;
+    returns (engine, tokens per request, emit step of every token, decode
+    calls and active rows, admission chunks).  ``on_engine`` is called
+    with the engine before it serves."""
     from repro_torch.serving.engine import ContinuousEngine
-    ce = ContinuousEngine(None, cfg, offload=eng, max_slots=max_slots,
-                          kv_page=16, eos_id=None, **kw)
+    ce = ContinuousEngine(params, cfg, offload=eng, max_slots=max_slots,
+                          eos_id=None, device=device, **{"kv_page": 16, **kw})
     if on_engine is not None:
         on_engine(ce)
-    calls = {"decode": 0, "rows": 0, "chunks": 0}
-    dec, chunk = ce._exec.decode, ce._exec.prefill_chunk_row
+    calls = {"decode": 0, "rows": 0, "chunks": 0, "decode_s": 0.0, "chunk_s": 0.0}
+    ex = ce._exec
+    names = ("decode", "prefill_chunk", "prefill_chunk_row")
+    saved = {n: ex.__dict__.get(n) for n in names}
+    dec = ex.decode
 
-    def counted_decode(state, tokens, pstate, active=None):
+    def timed(key, fn, *a, **kw):
+        """``fn`` timed to its completion on the device (the engine reads
+        each call's tokens back right after it anyway)."""
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        if ce.device.type == "cuda":
+            import torch
+            torch.cuda.synchronize(ce.device)
+        calls[key] += time.perf_counter() - t
+        return out
+
+    def counted_decode(state, tokens, pstate=None, active=None, **kw):
         calls["decode"] += 1
         calls["rows"] += int(active.sum())
-        return dec(state, tokens, pstate, active)
+        return timed("decode_s", dec, state, tokens, pstate, active, **kw)
 
-    def counted_chunk(*a):
-        calls["chunks"] += 1
-        return chunk(*a)
+    def counted(fn):
+        def chunk(*a):
+            calls["chunks"] += 1
+            return timed("chunk_s", fn, *a)
+        return chunk
 
-    ce._exec.decode, ce._exec.prefill_chunk_row = counted_decode, counted_chunk
+    ex.decode = counted_decode
+    ex.prefill_chunk = counted(ex.prefill_chunk)
+    ex.prefill_chunk_row = counted(ex.prefill_chunk_row)
     steps = {}
     try:
         reqs = [ce.submit(p, m, on_token=lambda r, t: steps.setdefault(
             r.rid, []).append(ce.step_count)) for p, m in zip(prompts, max_news)]
         ce.run(max_steps=1000)
     finally:
-        del ce._exec.decode, ce._exec.prefill_chunk_row
+        for n, fn in saved.items():
+            if fn is None:
+                ex.__dict__.pop(n, None)
+            else:
+                setattr(ex, n, fn)
     if not all(r.state == "finished" for r in reqs):
         fail("a served request never finished")
     return ce, [r.generated for r in reqs], [steps[r.rid] for r in reqs], calls
@@ -1333,6 +1422,281 @@ def phase_serving(dev, eng, cfg):
     report["profile"] = _device_split(prof, n_prof, "serve-profile",
                                       "serve_decode_trace.json")
     return launches, report["slots_kernel"]
+
+
+# ----------------------------------------------------------------------
+# the continuous engine's KV layout x admission overlays of the reference's
+# parity harness (tests/parity.py), copied
+SERVE_VARIANTS = {"dense": dict(kv_page=None),
+                  "dense_chunked": dict(kv_page=None, prefill_chunk=4),
+                  "paged": dict(kv_page=16),
+                  "paged_exact": dict(kv_page=16, ragged_bucket=False),
+                  "paged_chunked": dict(kv_page=16, prefill_chunk=4)}
+STATIC_DRIFT = 0.25  # static vs continuous token counts (the reference's
+                     # serve_bench bound): EOS stops and the static
+                     # prefill's capacity drops make them differ
+
+
+def _add(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_serve_plain_parity(dev):
+    """``tiny-moe`` (f32, seeded weights) served card against CPU: the
+    plain ``ContinuousEngine`` on the five KV/admission overlays, the
+    packed one on dense slots (and pages, for its counters) and
+    ``ServeEngine.serve_batch`` on mixed lengths.  Equal tokens and emit
+    steps card against CPU; on the card every plain continuous request
+    equal to ``generate_plain``, and the packed dense-slot counters equal
+    to the packed paged run's with the same admission.  Returns the card's
+    launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.offload_engine import (OffloadEngine, generate_plain,
+                                                 quantize_for_offload)
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import Request, ServeEngine
+    t0 = time.perf_counter()
+    cfg = get_config("tiny-moe")
+    spec = cfg.offload
+    params = T.init_model(cfg, seed=0, device="cpu")
+    exec_params, _, store = quantize_for_offload(params, cfg, spec,
+                                                 pack_experts=True, device="cpu")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in (6, 11, 8, 14)]
+    news = (8, 5, 7, 4)
+    runs, launches = {}, {}
+    for where in ("cpu", dev):
+        ops.reset_launches()
+        p = _to(params, where)
+        for name, kw in SERVE_VARIANTS.items():
+            _, toks, steps, _ = _serve(None, cfg, prompts, news, max_slots=2,
+                                       slot_len=64, params=p, device=where, **kw)
+            runs[str(where), "plain", name] = (toks, steps)
+        eng = OffloadEngine(_to(exec_params, where), cfg, spec, quantized=True,
+                            store=store if where == "cpu" else _cpu_store_to(store, where),
+                            device=where)
+        for name in ("dense", "dense_chunked", "paged", "paged_chunked"):
+            ce, toks, steps, _ = _serve(eng, cfg, prompts, news, max_slots=2,
+                                        slot_len=64, **SERVE_VARIANTS[name])
+            counters = {k: v for k, v in ce.stats().items()
+                        if k.startswith("offload_")}
+            runs[str(where), "packed", name] = (toks, steps, counters)
+        out = ServeEngine(p, cfg, device=where).serve_batch(
+            [Request(pr, m) for pr, m in zip(prompts, news)])
+        runs[str(where), "static"] = [r.completed for r in out]
+        if where != "cpu":
+            launches = ops.launches()
+    oracle = [generate_plain(_to(params, dev), cfg, pr[None], m,
+                             device=dev)[0].tolist()
+              for pr, m in zip(prompts, news)]
+    card = {k[1:]: v for k, v in runs.items() if k[0] == str(dev)}
+    host = {k[1:]: v for k, v in runs.items() if k[0] == "cpu"}
+    unequal = sorted(" ".join(k) for k in card if card[k] != host[k])
+    not_oracle = sorted(n for n in SERVE_VARIANTS if card["plain", n][0] != oracle)
+    counters = {n: card["packed", n][2] for n in ("dense", "dense_chunked", "paged",
+                                                   "paged_chunked")}
+    same_counters = (counters["dense"] == counters["paged"]
+                     and counters["dense_chunked"] == counters["paged_chunked"])
+    log(f"[serve-plain-parity] tiny-moe 4 requests / 2 slots, card vs cpu: runs "
+        f"differing {unequal}; plain runs != generate_plain {not_oracle}; packed "
+        f"counters on dense slots == on pages (whole / chunked admission) "
+        f"{same_counters}: {counters['dense']} / {counters['dense_chunked']}; "
+        f"static tokens {card[('static',)]}; card launches {launches}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if unequal or not_oracle or not same_counters:
+        fail("tiny-moe serving on the card: card and CPU differ, a plain run "
+             "differs from generate_plain, or the packed counters differ by "
+             "KV layout")
+    return launches
+
+
+def phase_serve_bench(dev):
+    """The port's ``serve_bench.run(quick=True)`` on the card (``tiny-moe``,
+    random weights): its scenarios assert their own parities.  Returns the
+    launches."""
+    from repro_torch.benchmarks import serve_bench
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    ops.reset_launches()
+    rows = serve_bench.run(quick=True, device=dev)
+    launches = ops.launches()
+    for r in rows:
+        log(f"[serve-bench] {json.dumps(r)}")
+    log(f"[serve-bench] launches {launches}; {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _decode_syncs(eng, cfg, prompts, kw, steps=4):
+    """Host synchronisations per batched decode step, counted by PyTorch's
+    sync debug mode over ``steps`` decode-only steps of a fresh engine
+    (after one decode step that is not counted), with the calls that
+    made them."""
+    import traceback
+    import warnings
+    import torch
+    from repro_torch.serving.engine import ContinuousEngine
+    ce = ContinuousEngine(kw.pop("params", None), cfg, offload=eng,
+                          eos_id=None, **kw)
+    for p in prompts:
+        ce.submit(p, SERVE_NEW)
+    while ce._admissions or ce.sched.has_waiting:
+        ce.step()
+    ce.step()
+    torch.cuda.synchronize(ce.device)
+    where, inside = [], [False]
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if inside[0] and "synchroniz" in str(message):
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if "repro_torch" in f.filename]
+            where.append(f"{Path(filename).name}:{lineno} from " + (
+                f"{Path(frames[-1].filename).name}:{frames[-1].lineno}"
+                if frames else "?"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(steps):  # only what the steps do is counted
+                inside[0] = True
+                ce.step()
+                inside[0] = False
+        finally:
+            inside[0] = False
+            torch.cuda.set_sync_debug_mode("default")
+    return {"per_step": len(where) / steps, "where": sorted(set(where))}
+
+
+def phase_serve_plain(dev, eng, cfg, dense):
+    """mixtral-offload (the main phase's 8 layers, ``dense``: its store's
+    records dequantized on the card, bf16) serving ``[serve]``'s 8
+    requests through 4 slots on the plain plane: on pages of 16 (the
+    ragged kernel) and on dense slot KV (flash on each admission chunk);
+    ``ServeEngine.serve_batch`` in FCFS groups of 4 (the static baseline);
+    and the packed ``[serve]`` engine on dense slot KV over the main pool
+    (flash and the batched binding on admission, the slot binding in
+    decode).  Each run's launches, routes and peak memory are read around
+    it alone.  The plain paged, plain dense and packed paged token streams
+    are held to the near-tie rule; static token counts within
+    ``STATIC_DRIFT`` of the continuous ones.  Returns the summed
+    launches."""
+    import torch
+    from repro_torch.benchmarks.serve_bench import run_static
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import ServeEngine
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)  # [serve]'s workload
+    lens = rng.integers(24, 97, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    news = [SERVE_NEW] * SERVE_REQUESTS
+    kw = dict(max_slots=SERVE_SLOTS, slot_len=256)
+    plain = dict(params=dense, device=dev)
+    L = eng.n_moe_layers
+    runs = {"plain paged": (None, dict(plain, kv_page=16)),
+            "plain dense": (None, dict(plain, kv_page=None)),
+            "packed dense": (eng, dict(kv_page=None))}
+    total, reports = {}, {}
+
+    def measure(run):
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launches()
+        before = _routes()
+        t = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize(dev)
+        return (out, time.perf_counter() - t, ops.launches(), _routes_since(before),
+                torch.cuda.max_memory_allocated(dev) / 2**30)
+
+    for label, (e, extra) in runs.items():
+        _serve(e, cfg, prompts[:2], [3, 3], **kw, **extra)  # warm-up
+        (ce, toks, steps, calls), wall, launches, routes, peak = measure(
+            lambda: _serve(e, cfg, prompts, news, **kw, **extra))
+        n_tok = sum(len(t) for t in toks)
+        chunks, dec = calls["chunks"], calls["decode"]
+        expect = {"dequant_matmul": 0, "dequant_matmul_batched": 0,
+                  "dequant_matmul_slots": 0, "flash_attention": 0,
+                  "ragged_attention": 0}
+        if label == "plain paged":
+            expect["ragged_attention"] = cfg.n_layers * (dec + chunks)
+        else:
+            expect["flash_attention"] = cfg.n_layers * chunks
+        if e is not None:
+            expect["dequant_matmul_batched"] = 3 * L * chunks
+            expect["dequant_matmul_slots"] = 3 * L * dec
+        report = {"wall_s": wall, "tokens": n_tok, "tokens_per_s": n_tok / wall,
+                  "steps": ce.step_count, "decode_steps": dec,
+                  "admission_chunks": chunks, "admission_s": calls["chunk_s"],
+                  "decode_s": calls["decode_s"],
+                  "decode_tokens_per_s": calls["rows"] / calls["decode_s"],
+                  "mean_active_rows": calls["rows"] / max(1, dec),
+                  "launches": launches, "launches_expected": expect,
+                  "routes": {k: v for k, v in routes.items() if v},
+                  "peak_device_gib": peak}
+        report["host_syncs_per_decode_step"] = _decode_syncs(
+            e, cfg, prompts[:SERVE_SLOTS], dict(kw, **extra))
+        if e is not None:
+            st = ce._pstate
+            hits, spec_hits, demand, spec = (int(c) for c in st.counts)
+            report.update(hits=hits, spec_hits=spec_hits, demand_loads=demand,
+                          spec_loads=spec, overflow_accesses=st.overflow_accesses,
+                          bytes_h2d_issued=st.h2d_bytes,
+                          bytes_h2d_counters=(demand + spec) * eng.expert_bytes)
+            if st.h2d_bytes != report["bytes_h2d_counters"] or spec:
+                fail(f"[serve-plain] {label}: h2d bytes issued {st.h2d_bytes} != "
+                     f"counters {report['bytes_h2d_counters']}, or {spec} "
+                     f"speculative loads at batch {SERVE_SLOTS}")
+        log(f"[serve-plain] {label}: {json.dumps(report)}")
+        if e is None and report["host_syncs_per_decode_step"]["per_step"] != 1:
+            fail(f"[serve-plain] {label}: a plain decode step must read back only "
+                 f"its sampled tokens: {report['host_syncs_per_decode_step']}")
+        if launches != expect:
+            fail(f"[serve-plain] {label}: launches {launches} != expected {expect}")
+        if (routes["ragged_mma"] != expect["ragged_attention"]
+                or routes["dequant_gemv"] != expect["dequant_matmul_slots"]
+                or routes["grouped_grouped"] != expect["dequant_matmul_batched"]):
+            fail(f"[serve-plain] {label}: a launch left the tensor-core routes: "
+                 f"{routes}")
+        if any(len(t) != SERVE_NEW or not all(0 <= x < cfg.vocab_size for x in t)
+               for t in toks):
+            fail(f"[serve-plain] {label}: malformed tokens")
+        reports[label] = (report, toks)
+        _add(total, launches)
+    static = ServeEngine(dense, cfg, device=dev)
+    run_static(static, [(p, 3) for p in prompts[:2]], SERVE_SLOTS)  # warm-up
+    workload = list(zip(prompts, news))
+    n_static, wall, launches, routes, peak = measure(
+        lambda: run_static(static, workload, SERVE_SLOTS))
+    n_cont = sum(len(t) for t in reports["plain dense"][1])
+    drift = abs(n_cont - n_static) / max(1, n_cont)
+    log(f"[serve-plain] static (serve_batch, FCFS groups of {SERVE_SLOTS}): "
+        + json.dumps({"wall_s": wall, "tokens": n_static,
+                      "tokens_per_s": n_static / wall, "launches": launches,
+                      "peak_device_gib": peak, "drift_vs_continuous": drift}))
+    if not drift < STATIC_DRIFT or any(launches.values()):
+        fail(f"[serve-plain] static: {n_static} tokens vs {n_cont} continuous "
+             f"(limit {STATIC_DRIFT}), or a kernel launched: {launches}")
+    traces = {
+        "packed paged": _trace(lambda d: _serve(eng, cfg, prompts, news,
+                                                on_engine=d.watch, **kw)),
+        "plain paged": _trace(lambda d: _serve(None, cfg, prompts, news,
+                                               on_engine=d.watch, **kw, **plain)),
+        "plain dense": _trace(lambda d: _serve(None, cfg, prompts, news, kv_page=None,
+                                               on_engine=d.watch, **kw, **plain))}
+    for a, b in (("plain paged", "packed paged"), ("plain dense", "plain paged")):
+        diff = _hold_to_near_tie(f"serve-plain] [{a} vs {b}", traces[a][0],
+                                 traces[b][0], (a, b))
+        if diff is None and traces[a][1][1] != traces[b][1][1]:
+            fail(f"[serve-plain] {a} vs {b}: every decision equal but the "
+                 f"tokens differ")
+    log(f"[serve-plain] packed dense-slot tokens == packed paged "
+        f"{reports['packed dense'][1] == traces['packed paged'][1][1]}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return total
 
 
 # ----------------------------------------------------------------------
@@ -1573,7 +1937,8 @@ def phase_accounting(dev, eng, cfg, prompt, main_run):
     prompt's one chunk through the flash kernel).  Its launch counts are
     read around that run alone.  Tokens and PyLRU replay counters are
     compared with ``[main]``'s packed run; the two runs' decisions are
-    then traced and held to the near-tie rule.  Returns the launches."""
+    then traced and held to the near-tie rule.  Returns the launches and
+    the dense weights (``[serve-plain]`` serves them, then frees them)."""
     import torch
     from repro_torch.core.offload_engine import OffloadEngine, dense_from_store
     from repro_torch.kernels import ops
@@ -1624,9 +1989,9 @@ def phase_accounting(dev, eng, cfg, prompt, main_run):
     if diff is None and (counters != counters_main or not (toks == toks_main).all()):
         fail(f"accounting: every decision equal but tokens or counters differ: "
              f"{counters} vs {counters_main}")
-    del acct, dense
+    del acct
     torch.cuda.empty_cache()
-    return launches
+    return launches, dense
 
 
 def phase_bf16_parity(dev):
@@ -1883,14 +2248,19 @@ def main():
     phase_parity(dev)
     phase_continuous_parity(dev)
     phase_plain_parity(dev)
+    serve_extra = phase_serve_plain_parity(dev)
+    _add(serve_extra, phase_serve_bench(dev))
     phase_bf16_parity(dev)
     phase_train(dev)
     launches, batches, eng, cfg, prompt, main_run, main_report = phase_main(dev)
     # the host-bound decode runs come before any profiler window
     planes = phase_planes(dev, eng, cfg)
     launches["dequant_matmul"] = planes["pr2_sync"]["launches"]["dequant_matmul"]
-    accounting = phase_accounting(dev, eng, cfg, prompt, main_run)
+    accounting, dense = phase_accounting(dev, eng, cfg, prompt, main_run)
     launches["flash_attention"] += accounting["flash_attention"]
+    _add(serve_extra, phase_serve_plain(dev, eng, cfg, dense))
+    del dense
+    torch.cuda.empty_cache()
     decode_split = _profile_decode(eng, prompt, dev)
     _profile_prefill(eng, prompt, dev)
     batched = phase_prefill_kernel(dev, tiers, flush, batches)
@@ -1905,6 +2275,9 @@ def main():
     paper = phase_paper(dev, eng, cfg, main_report, planes, decode_split, kern)
     for name, n in paper.items():
         launches[name] += n
+    for name in ("ragged_attention", "flash_attention", "dequant_matmul_slots",
+                 "dequant_matmul_batched"):
+        launches[name] += serve_extra.get(name, 0)
     csrc = "src/repro_torch/kernels/csrc/"
     src = {"dequant_matmul_batched": csrc + "dequant_grouped.cu",
            "dequant_matmul_slots": csrc + "dequant_gemv.cu",

@@ -6,8 +6,7 @@ Prints ``name,us_per_call,derived`` CSV; JSON lands in
 ``experiments/torch/bench/``.  The first run trains the ``tiny-moe``
 artifact; later runs read the cache.  Runs on the card unless
 ``--device cpu`` is given.  The reference's ``kernels`` suite is
-replaced by the kernel phases of ``chip_smoke.py``, and its ``serve``
-suite is not ported yet: both are refused.
+replaced by the kernel phases of ``chip_smoke.py`` and is refused.
 """
 from __future__ import annotations
 
@@ -15,11 +14,10 @@ import argparse
 import sys
 import time
 
-SUITES = ["fig2_lru", "fig2_spec", "table1_quant", "table2_speed"]
+SUITES = ["fig2_lru", "fig2_spec", "table1_quant", "table2_speed", "serve"]
 REFUSED = {
     "kernels": "the kernel phases of chip_smoke.py check and time every "
                "kernel on the card; run `python3 chip_smoke.py`",
-    "serve": "serve_bench is not ported yet (ROADMAP queue 1, item 3)",
 }
 
 
@@ -41,11 +39,12 @@ def main(argv=None) -> None:
     if unknown:
         sys.exit(f"unknown suites {unknown}; available: {SUITES}")
 
-    from repro_torch.benchmarks import (fig2_lru, fig2_spec, table1_quant,
-                                        table2_speed)
+    from repro_torch.benchmarks import (fig2_lru, fig2_spec, serve_bench,
+                                        table1_quant, table2_speed)
 
     mods = {"fig2_lru": fig2_lru, "fig2_spec": fig2_spec,
-            "table1_quant": table1_quant, "table2_speed": table2_speed}
+            "table1_quant": table1_quant, "table2_speed": table2_speed,
+            "serve": serve_bench}
     print("name,us_per_call,derived")
     failures = []
     for name in SUITES:

@@ -8,9 +8,10 @@ dicts of tensors with the reference's layouts (``wq: (D, H, hd)``,
 parameter dtype, and every cast sits where the reference puts it.
 A prefill chunk over a dense ring that has not wrapped attends through
 the flash-attention binding (``kernels/ops.flash_attention``); decode
-steps and chunks that wrap the ring stay plain PyTorch (``attention_core``,
-the reference's model path); attention over paged KV goes through the
-ragged paged-attention binding (``kernels/ops.ragged_attention``).
+steps (in lock-step or at per-row positions) and chunks that wrap the
+ring stay plain PyTorch (``attention_core``, the reference's model
+path); attention over paged KV goes through the ragged paged-attention
+binding (``kernels/ops.ragged_attention``).
 KV rings and page pools are updated in place.  Dense MLPs
 (:func:`apply_mlp`) are plain products, as in the reference.  The
 training forward's full-sequence attention (:func:`attention_train`) is
@@ -57,11 +58,15 @@ def apply_norm(p, cfg, x):
 # ----------------------------------------------------------------------
 # Rotary position embeddings (partial-fraction aware)
 def rope_frequencies(cfg, device):
+    """The rotary inverse frequencies (rot/2,) float32 and the rotated
+    width.  Everything is made on ``device`` by kernels: a tensor copied
+    from host data would synchronise the stream twice per attention
+    layer per step."""
     rot = int(cfg.head_dim * cfg.rope_fraction)
     rot -= rot % 2
     exps = torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot
-    inv = 1.0 / torch.pow(torch.tensor(cfg.rope_theta, dtype=torch.float32,
-                                       device=device), exps)
+    theta = torch.full((), cfg.rope_theta, dtype=torch.float32, device=device)
+    inv = 1.0 / torch.pow(theta, exps)
     return inv, rot
 
 
@@ -199,9 +204,9 @@ def init_attn_cache(cfg, batch, max_len, device, window=None):
 
 
 def attention_decode(p, cfg, x_t, cache, cur_pos, *, window=None,
-                     pages=None, active=None, step: Optional[PagedStep] = None):
+                     pages=None, active=None, step=None):
     """Decode / prefill-chunk step against the dense KV ring or, with
-    ``pages`` or ``step``, the paged KV plane.
+    ``pages`` or a :class:`PagedStep`, the paged KV plane.
 
     x_t: (B, C, D): the C tokens sit at positions ``cur_pos ..
     cur_pos+C-1`` (the whole batch in lock-step, ``cur_pos`` an int);
@@ -209,6 +214,12 @@ def attention_decode(p, cfg, x_t, cache, cur_pos, *, window=None,
     width (wrapping like decode writes do), and causal masking keeps
     intra-chunk attention exact.  Requires C <= ring width.  The cache is
     updated in place.
+
+    Rows at their own positions (continuous batching, a left-padded
+    batch) pass a :class:`RingStep`: a decode step (C = 1) whose row b writes
+    ring slot ``pos[b] mod W`` of its own ring row and attends through
+    ``attention_core`` with its own query position.  Every row computes
+    and writes: a free slot's writes stay in its own ring row.
 
     A prefill chunk (C > 1) whose last position still fits the ring
     (``cur_pos + C <= W``) attends through the flash binding
@@ -238,9 +249,12 @@ def attention_decode(p, cfg, x_t, cache, cur_pos, *, window=None,
         pos = np.broadcast_to(host(cur_pos), (x_t.shape[0],))
         step = paged_step(pos, host(pages), host(active), x_t.shape[1],
                           cache["ppos"].shape[1], x_t.device, (window,))
-    if step is not None:
+    if isinstance(step, PagedStep):
         return _attention_decode_paged(p, cfg, x_t, cache, step,
                                        window=window)
+    if isinstance(step, RingStep):
+        return _attention_decode_rows(p, cfg, x_t, cache, step,
+                                      window=window)
     B, C = x_t.shape[0], x_t.shape[1]
     W = cache["k"].shape[1]
     assert C <= W, f"chunk of {C} tokens exceeds KV width {W}"
@@ -272,6 +286,59 @@ def attention_decode(p, cfg, x_t, cache, cur_pos, *, window=None,
     elif C == 1:
         o = attention_core(q, cache["k"], cache["v"], posq, cache["pos"],
                            causal=True, window=window)
+    return _out_proj(p, cfg, o), cache
+
+
+class RingStep(NamedTuple):
+    """The per-row inputs of one dense-ring decode step, built on the
+    host from the host-authoritative positions (:func:`ring_step`) and
+    uploaded in one copy, with the step's tokens when they are given."""
+
+    posq: torch.Tensor      # (B, 1) int32 query positions
+    bidx: torch.Tensor      # (B,) long: arange(B)
+    rows: torch.Tensor      # (r,) long: the active rows
+    tokens: Optional[torch.Tensor]  # (B, 1) int32, or None
+
+
+def ring_step(pos, C: int, device, staging: Optional[HostStaging] = None,
+              active=None, tokens=None) -> RingStep:
+    """Build a :class:`RingStep`: ``pos`` (B,) each row's position,
+    ``active`` (B,) bool or None (all rows), ``tokens`` (B, 1) host ints
+    or None.  Rows at their own positions decode one token each; per-row
+    chunks (the draft-and-verify rows) are ROADMAP queue 1 item 4."""
+    if C != 1:
+        raise NotImplementedError(
+            "per-row chunks (C > 1) on a dense ring are the draft-and-verify "
+            "verify rows, ROADMAP queue 1 item 4")
+    pos = np.asarray(pos, np.int64).reshape(-1)
+    B = pos.shape[0]
+    act = np.ones(B, bool) if active is None else np.asarray(active, bool)
+    parts = [pos, np.arange(B), np.flatnonzero(act)]
+    if tokens is not None:
+        parts.append(np.asarray(tokens).reshape(-1))
+    seg = _upload(parts, device, staging)
+    return RingStep(posq=seg[0].view(B, 1), bidx=seg[1].long(),
+                    rows=seg[2].long(),
+                    tokens=seg[3].view(B, 1) if tokens is not None else None)
+
+
+def _attention_decode_rows(p, cfg, x_t, cache, step: RingStep, *,
+                           window=None):
+    """One decode token per row at the row's own position (the
+    reference's per-row ``attention_decode``, C = 1): row b's K/V go to
+    ring slot ``pos[b] mod W`` of its ring row, then it attends over its
+    ring with its position mask.  The ring is updated in place."""
+    W = cache["k"].shape[1]
+    q = _project_q(p, cfg, x_t)
+    k_new, v_new = _project_kv(p, cfg, x_t)
+    q = apply_rope(q, step.posq, cfg)
+    k_new = apply_rope(k_new, step.posq, cfg)
+    slot = torch.remainder(step.posq[:, 0], W).long()
+    cache["k"][step.bidx, slot] = k_new[:, 0]
+    cache["v"][step.bidx, slot] = v_new[:, 0]
+    cache["pos"][step.bidx, slot] = step.posq[:, 0]
+    o = attention_core(q, cache["k"], cache["v"], step.posq, cache["pos"],
+                       causal=True, window=window)
     return _out_proj(p, cfg, o), cache
 
 
@@ -315,13 +382,22 @@ class HostStaging:
         return out
 
 
+def _upload(parts, device, staging: Optional[HostStaging] = None):
+    """Host int arrays -> their int32 device copies, made by one upload."""
+    flat = (staging or HostStaging()).upload(
+        np.concatenate([np.asarray(a, np.int32) for a in parts]), device)
+    cut = np.cumsum([0] + [len(a) for a in parts])
+    return [flat[a:b] for a, b in zip(cut[:-1], cut[1:])]
+
+
 class PagedStep(NamedTuple):
     """What every paged attention layer of one decode step or prompt
     chunk needs, built once on the host from the host-authoritative
     positions and page tables (:func:`paged_step`) and uploaded in one
     copy: the query positions, the page table, the (row, position) pairs
     whose K/V land (unallocated table slots and inactive rows write
-    nowhere) and, on the card, one ragged work list per attention window."""
+    nowhere), on the card one ragged work list per attention window, and
+    the step's tokens when they are given."""
 
     posq: torch.Tensor      # (B, C) int32 absolute query positions
     pages: torch.Tensor     # (B, T) int32 page table
@@ -330,15 +406,18 @@ class PagedStep(NamedTuple):
     w_off: torch.Tensor     # (n,) long
     rows: torch.Tensor      # (r,) long: the active rows
     worklists: Dict[Optional[int], RA.DeviceWorklist]
+    tokens: Optional[torch.Tensor] = None  # (B, C) int32
 
 
 def paged_step(pos, pages, active, C: int, page_size: int, device,
                windows: Sequence[Optional[int]] = (None,),
-               staging: Optional[HostStaging] = None) -> PagedStep:
+               staging: Optional[HostStaging] = None,
+               tokens=None) -> PagedStep:
     """Build a :class:`PagedStep`.  pos (B,): each row's first query
-    position; pages (B, T) int; active (B,) bool or None (all rows).  The
-    work lists (card only; the plain path gathers the table instead)
-    list, for each active row, the pages of positions ``< pos + C``."""
+    position; pages (B, T) int; active (B,) bool or None (all rows);
+    tokens (B, C) host ints or None.  The work lists (card only; the
+    plain path gathers the table instead) list, for each active row, the
+    pages of positions ``< pos + C``."""
     pos = np.asarray(pos, np.int64).reshape(-1)
     pages = np.asarray(pages, np.int32)
     B, T = pages.shape
@@ -357,17 +436,16 @@ def paged_step(pos, pages, active, C: int, page_size: int, device,
                                         page_size, window=w)
             packed, n_seg[w] = RA.pack_worklist(*wl, B)
             parts.append(packed)
-    sizes = [len(a) for a in parts]
-    flat = (staging or HostStaging()).upload(
-        np.concatenate([np.asarray(a, np.int32) for a in parts]), device)
-    cut = np.cumsum([0] + sizes)
-    seg = [flat[a:b] for a, b in zip(cut[:-1], cut[1:])]
+    if tokens is not None:
+        parts.append(np.asarray(tokens).reshape(-1))
+    seg = _upload(parts, device, staging)
     return PagedStep(
         posq=seg[0].view(B, C), pages=seg[1].view(B, T),
         w_src=seg[2].long(), w_page=seg[3].long(), w_off=seg[4].long(),
         rows=seg[5].long(),
         worklists={w: RA.DeviceWorklist(t, n_seg[w])
-                   for w, t in zip(n_seg, seg[6:])})
+                   for w, t in zip(n_seg, seg[6: 6 + len(n_seg)])},
+        tokens=seg[-1].view(B, C) if tokens is not None else None)
 
 
 def _attention_decode_paged(p, cfg, x_t, cache, step: PagedStep, *,

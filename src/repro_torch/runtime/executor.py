@@ -4,10 +4,14 @@
 * ``plain``: dense resident weights.  Each step is
   ``transformer.decode_step``: the mixer, then the MoE by the per-token
   gather over the dense expert stack (or the dense MLP); a prompt chunk
-  attends through the flash binding like the packed planes' chunks do.
-  With ``collect_info`` a decode step also returns every layer's routing
-  (ids, weights, probabilities) and pre-MoE hidden state: what accounting
-  mode replays and ``core/trace`` records.
+  attends through the flash binding like the packed planes' chunks do,
+  and paged states through the ragged binding.  With ``collect_info`` a
+  decode step also returns every layer's routing (ids, weights,
+  probabilities) and pre-MoE hidden state: what accounting mode replays,
+  ``core/trace`` records and the expert-overlap admission policy reads.
+  :meth:`Executor.prefill_padded` is the static engine's left-padded
+  batch prefill (``transformer.prefill``: the training forward with the
+  decode state).
 
 On the packed planes each layer runs its mixer (attention), then its MoE
 half, which routes, reads the routed ids (and, at batch-1 decode, the
@@ -33,17 +37,19 @@ Prefill is chunked prefill (one chunk by default): the same mixer, and
 on the packed planes MoE store-direct through a reusable device tier,
 with no pool traffic and no counter.
 
-Packed decode takes B >= 1 rows of one token each: a dense KV ring in
-lock-step, or block-paged KV (``state["pages"]``) at per-row positions
-with an ``active`` row mask, the continuous engine's batch.  A paged
-step's positions, page table, write indices and ragged work lists are
-built once on the host and uploaded in one copy
-(``layers.paged_step``); :meth:`prefill_chunk_row` writes one slot's
-prompt chunk into its pages.
+Decode takes B >= 1 rows of one token each: dense KV rings in
+lock-step (``pos`` an int), dense rings at per-row positions (``pos`` a
+host (B,) array: the continuous engine's slots and the static engine's
+padded batch), or block-paged KV (``state["pages"]``) at per-row
+positions; ``active`` marks the rows in use (paged rows outside it write
+nothing and stay; on the packed planes they bypass the expert pool).  A
+step's positions, row indices, page table, write indices and ragged work
+lists are built once on the host and uploaded in one copy with the
+step's tokens when the caller passes them as a host array
+(``transformer.prepare_step``); :meth:`prefill_chunk_row` writes one
+slot's prompt chunk into its pages.
 
-Not ported yet (ROADMAP queue 1): paged KV on the plain plane (item 3),
-the static engine's ``prefill_padded`` (item 2, with the training
-forward) and C > 1 verify chunks on the packed planes (item 4).
+Not ported yet (ROADMAP queue 1): C > 1 verify chunks (item 4).
 """
 from __future__ import annotations
 
@@ -86,6 +92,7 @@ class Executor:
         self.store = store
         self.device = resolve_device(device)
         self.kinds = cfg.layer_kinds()
+        self.staging = L.HostStaging()
         if not self.packed:
             return
         if spec is None or store is None:
@@ -98,10 +105,6 @@ class Executor:
             if parse_block(k)[1] == "moe":
                 self.moe_ordinal[l] = len(self.moe_ordinal)
         self.prefill_tier = EP.PrefillTier.for_store(store, self.device)
-        # one ragged work list per distinct attention window
-        self.windows = tuple(dict.fromkeys(T.attention_window(cfg, k)
-                                           for k in self.kinds))
-        self.staging = L.HostStaging()
 
     # ------------------------------------------------------------------
     def init_state(self, batch: int, max_len: int):
@@ -115,34 +118,46 @@ class Executor:
                                   max_rows=max_rows * self.cfg.moe.top_k,
                                   vectorized=self.vectorized)
 
-    def _paged_step(self, state, active, C: int, rows=slice(None)):
-        """The step's :class:`~repro_torch.models.layers.PagedStep` over
-        the state's table rows ``rows``, from its host positions."""
-        return L.paged_step(state["pos"][rows], state["pages"][rows], active,
-                            C, state["layers"][0]["kv"]["ppos"].shape[1],
-                            self.device, self.windows, self.staging)
+    def _prepare(self, state, tokens, active=None, row=None):
+        """The step's prepared inputs (``transformer.prepare_step``) and
+        its tokens on the device: host tokens ride in the step's upload
+        (or are uploaded alone in lock-step)."""
+        host = isinstance(tokens, np.ndarray)
+        step = T.prepare_step(self.cfg, state, int(tokens.shape[1]),
+                              self.device, active=active, row=row,
+                              tokens=tokens if host else None,
+                              staging=self.staging)
+        if not host:
+            return step, tokens
+        if step is None:
+            return None, torch.as_tensor(tokens, device=self.device)
+        return step, step.tokens
 
     # ------------------------------------------------------------------
     def decode(self, state, tokens, pstate=None, active=None, *,
                collect_info: bool = False):
-        """One decode step of B rows: tokens (B, C) int on the device.
+        """One decode step of B rows: tokens (B, C) ints on the device or
+        on the host (a numpy array, uploaded with the step's positions).
 
-        Plain plane: a dense ring state, the rows in lock-step; returns
-        ``(logits (B, C, V), state, None, infos)``, ``infos`` the per-layer
-        routing and hidden states on the device with ``collect_info``
+        Plain plane: any state (module docstring); returns ``(logits (B,
+        C, V), state, None, infos)``, ``infos`` the per-layer routing and
+        hidden states on the device with ``collect_info``
         (``transformer.decode_step``), else None.
 
-        Packed planes (C = 1): ``state`` is a dense ring state or a paged
-        one (``"pages"``), where ``active`` (B,) numpy bool marks the rows
-        that write KV, go through the expert pool and advance ``pos``;
-        the others compute nothing that is kept.  Speculative staging
-        runs only for a single row (on the side stream on the pipelined
-        plane, inside the layer otherwise).  KV and ``pstate`` are updated in
-        place.  Returns ``(logits (B, 1, V), state, pstate, route_ids)``
-        with every row's routed ids of every MoE layer as host arrays."""
+        Packed planes (C = 1): ``state`` is dense rings (in lock-step or
+        at per-row positions) or paged (``"pages"``), where ``active`` (B,)
+        numpy bool marks the rows that go through the expert pool (and,
+        paged, write KV and advance ``pos``); the others compute nothing
+        that is kept.  Speculative staging runs only for a single row (on
+        the side stream on the pipelined plane, inside the layer
+        otherwise).  KV and ``pstate`` are updated in place.  Returns
+        ``(logits (B, 1, V), state, pstate, route_ids)`` with every row's
+        routed ids of every MoE layer as host arrays."""
+        step, tokens = self._prepare(state, tokens, active)
         if not self.packed:
             out = T.decode_step(self.params, self.cfg, state, tokens,
-                                collect_info=collect_info)
+                                collect_info=collect_info, active=active,
+                                step=step)
             return out[0], out[1], None, (out[2] if collect_info else None)
         B, C = tokens.shape
         if C != 1:
@@ -150,9 +165,7 @@ class Executor:
                 "C > 1 decode rows (speculative verify chunks) on the packed "
                 "planes are ROADMAP queue 1 item 4")
         cfg, spec = self.cfg, self.spec
-        paged = "pages" in state
-        step = self._paged_step(state, active, C) if paged else None
-        rows_dev = step.rows if paged else None
+        rows_dev = step.rows if step is not None else None
         n_spec = spec.num_speculative if B * C == 1 else 0
         x = T.embed_tokens(self.params, cfg, tokens)
         pos = state["pos"]
@@ -170,15 +183,11 @@ class Executor:
             route_ids.append(info["route"]["ids"])
             state["layers"][l] = st_l
         logits = T.apply_head(self.params, cfg, x)
-        if paged:
-            adv = C if active is None else np.where(active, C, 0)
-            pos = (pos + adv).astype(np.int32)
-        else:
-            pos = pos + C
-        return logits, dict(state, pos=pos), pstate, route_ids
+        return (logits, dict(state, pos=T.advance(state, C, active=active)),
+                pstate, route_ids)
 
     def decode_sampled(self, state, tokens, *, collect_info: bool,
-                       greedy: bool):
+                       greedy: bool, active=None):
         """Plain-plane decode with the sampling input prepared on the
         device: the greedy argmax (B,) int32, or the last-position logits
         (B, V).  Returns ``(next, state)``, and the per-layer infos with
@@ -186,7 +195,7 @@ class Executor:
         if self.packed:
             raise ValueError("packed decode returns logits; sample on the "
                              "host side")
-        logits, state, _, infos = self.decode(state, tokens,
+        logits, state, _, infos = self.decode(state, tokens, active=active,
                                               collect_info=collect_info)
         nxt = (torch.argmax(logits[:, -1], dim=-1).to(torch.int32) if greedy
                else logits[:, -1])
@@ -218,19 +227,19 @@ class Executor:
     def prefill_chunk_row(self, state, tokens, slot: int):
         """One slot's prompt chunk against the shared page pools: tokens
         (1, C) write KV straight into the pages ``slot`` owns at its
-        position, MoE runs store-direct through the prefill tier, and
-        only that row's ``pos`` advances.  Returns ``(logits (1, C, V),
-        state)``; there is no install step, the running batch reads the
-        pools the chunk wrote."""
+        position (through the ragged binding), MoE runs by the gather
+        (plain plane) or store-direct through the prefill tier (packed),
+        and only that row's ``pos`` advances.  Returns ``(logits (1, C,
+        V), state)``; there is no install step, the running batch reads
+        the pools the chunk wrote."""
         if "pages" not in state:
             raise ValueError("prefill_chunk_row needs a paged-KV state")
+        step, tokens = self._prepare(state, tokens, row=slot)
         if not self.packed:
-            raise NotImplementedError(
-                "paged KV on the plain plane comes with ContinuousEngine("
-                "offload=None), ROADMAP queue 1 item 3")
+            return T.decode_step(self.params, self.cfg, state, tokens,
+                                 row=slot, step=step)
         cfg = self.cfg
         C = int(tokens.shape[1])
-        step = self._paged_step(state, None, C, slice(slot, slot + 1))
         x = T.embed_tokens(self.params, cfg, tokens)
         for l, kind in enumerate(self.kinds):
             p = T.layer_params(self.params, cfg, l)
@@ -242,9 +251,7 @@ class Executor:
                                               fused=self.fused)
             state["layers"][l] = st_l
         logits = T.apply_head(self.params, cfg, x)
-        pos = state["pos"].copy()
-        pos[slot] += C
-        return logits, dict(state, pos=pos)
+        return logits, dict(state, pos=T.advance(state, C, row=slot))
 
     def prefill(self, tokens, max_len: int, *, chunk: Optional[int] = None):
         """Whole-prompt prefill = chunked prefill over a fresh state.
@@ -257,6 +264,20 @@ class Executor:
         for lo in range(0, S, C):
             logits, state = self.prefill_chunk(state, tokens[:, lo: lo + C])
         return logits, state
+
+    def prefill_padded(self, batch, max_len: int):
+        """Left-padded batched prefill (the static ``ServeEngine``):
+        ``batch["tokens"]`` (B, S) and an optional ``batch["pad_mask"]``
+        (B, S) bool, host arrays or tensors, through the full-sequence
+        training forward with pad isolation (``transformer.prefill``:
+        dispatch MoE with capacity, S x S attention), a different program
+        from the chunk path.  Plain plane only.  Returns (logits (B, S,
+        V), state with per-row ``pos`` when padded)."""
+        if self.packed:
+            raise ValueError("the packed planes prefill through chunks")
+        batch = dict(batch, tokens=torch.as_tensor(batch["tokens"],
+                                                   device=self.device))
+        return T.make_prefill(self.cfg)(self.params, batch, max_len)
 
     # ------------------------------------------------------------------
     def generate_greedy(self, prompt, max_new_tokens: int, *,

@@ -35,13 +35,15 @@ class ChunkTask:
 
 @dataclass
 class Admission:
-    """Engine-side record of a request being prefilled into its slot's
-    pages, chunk by chunk."""
+    """Engine-side record of a request being prefilled into its slot,
+    chunk by chunk: straight into its pages, or on dense slot KV into a
+    B = 1 row state that is installed after the last chunk."""
 
     rid: int
     slot: int
     total: int              # prompt length
     next_lo: int = 0
+    state: Any = None       # dense slot KV: the B = 1 row state
     req: Any = None         # engine-side request handle
 
     @property

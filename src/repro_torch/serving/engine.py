@@ -1,31 +1,45 @@
-"""Continuous batching over the offloaded expert pool on paged KV (port
-of the reference's ``serving/engine.py`` ``ContinuousEngine``, in the
-scope of its offloaded, block-paged mode).
+"""Serving engines (port of the reference's ``serving/engine.py``).
 
-Requests join and leave a *running* batch.  A :class:`PagedKVManager`
-holds ``max_slots`` sequences at independent positions in per-layer page
-pools; admission prefill writes each prompt chunk straight into the
-slot's pages (``Executor.prefill_chunk_row``, MoE store-direct through
-the prefill tier), one whole prompt per step by default or budgeted
-chunks with ``prefill_chunk`` (``runtime.TokenBudgetPolicy``); every step
-then decodes one token for every running row in one batched
-``Executor.decode`` whose experts come from the offload engine's device
-pool, shared by the whole batch.  Which waiting request joins next is the
-scheduler policy's call (FCFS or expert overlap).
+* :class:`ServeEngine`: a static batch.  Prompts are left-padded to a
+  common length and prefilled together through the full-sequence forward
+  (``Executor.prefill_padded``: pads masked out of attention and of MoE
+  dispatch capacity), then decoded in lock-step, each row from its own
+  true length, until every row has hit its budget or EOS.
+* :class:`ContinuousEngine`: continuous batching.  Requests join and
+  leave a *running* batch of ``max_slots`` sequences at independent
+  positions.  The KV plane is dense slot rings (``kv_page=None``,
+  :class:`~repro_torch.serving.kv_manager.KVSlotManager`: admission
+  prefills each prompt into a fresh B = 1 row state, installed into its
+  slot after the last chunk) or block pages (``kv_page``,
+  ``PagedKVManager``: admission writes each chunk straight into the
+  slot's pages).  Prompts are admitted one whole prompt per step by
+  default, or in budgeted chunks with ``prefill_chunk``
+  (``runtime.TokenBudgetPolicy``); every step then decodes one token for
+  every running row in one batched ``Executor`` decode.  Weights are the
+  plain plane's dense resident ones, or, with ``offload``, the packed
+  experts served from the offload engine's device pool, shared by the
+  whole batch.  Which waiting request joins next is the scheduler
+  policy's call (FCFS or expert overlap).
 
-Each step's positions, page table and ragged work list are built on the
-host from the manager's tables, so nothing is read back from the device
-but the routed ids (one read per MoE layer) and the sampled tokens.
+Each step's positions, row indices, page table and ragged work list are
+built on the host from the managers' tables and uploaded with the step's
+tokens, so nothing is read back from the device but the sampled tokens
+(on the plain plane, greedy: the (max_slots,) argmax) and, where routing
+is needed (the packed planes, or a policy that reads usage), the routed
+ids.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
-from repro_torch.core.offload_engine import ExpertUsageTracker
+from repro_torch.configs.base import ModelConfig, parse_block
+from repro_torch.core.offload_engine import (ExpertUsageTracker,
+                                             routing_from_info)
+from repro_torch.runtime.executor import Executor
 from repro_torch.runtime.plan import (Admission, ChunkTask, StepPlan,
                                       TokenBudgetPolicy)
 from repro_torch.serving.kv_manager import StateManager
@@ -42,17 +56,90 @@ def _not_ported(what: str, item: int):
         f"item {item})")
 
 
-class ContinuousEngine:
-    """Continuous-batching decode loop over paged KV and the offloaded
-    expert pool (module docstring).
+@dataclass
+class Request:
+    prompt: np.ndarray  # (S,) int32
+    max_new_tokens: int = 32
+    completed: List[int] = field(default_factory=list)
 
-    ``offload``: the port's packed ``OffloadEngine``; its executor, store,
-    device and executable weights are used (``params`` is ignored, as in
-    the reference's offloaded mode).  ``kv_page``: page size (required:
-    only the paged plane is ported); ``kv_pages_total`` defaults to full
-    provisioning, ``max_slots * ceil(slot_len / kv_page)``.
-    ``ragged_bucket=False`` pins the plain path's table to full width.
-    ``prefill_chunk``/``token_budget``: budgeted chunked admission."""
+
+class ServeEngine:
+    """The static batch engine (module docstring) on the plain plane,
+    on the card unless ``device="cpu"``."""
+
+    def __init__(self, params, cfg: ModelConfig,
+                 sampler: Optional[SamplerConfig] = None, device=None):
+        self.params = params
+        self.cfg = cfg
+        self.sampler = sampler or SamplerConfig(kind="greedy")
+        self._exec = Executor(params, cfg, device=device)
+        self.device = self._exec.device
+
+    def serve_batch(self, requests: List[Request], seed: int = 0
+                    ) -> List[Request]:
+        """Left-pad the prompts to a common length, prefill them together
+        and decode until every request has its ``max_new_tokens`` or has
+        emitted EOS; tokens are appended to each ``completed``.  Pad
+        isolation needs causal attention in every layer, so unequal
+        lengths are refused on any other stack.  Sampling draws from a
+        generator seeded with ``seed``."""
+        cfg = self.cfg
+        B = len(requests)
+        S = max(len(r.prompt) for r in requests)
+        needs_pad = any(len(r.prompt) != S for r in requests)
+        if needs_pad and any(parse_block(k)[0] not in ("attn", "swa")
+                             for k in cfg.layer_kinds()):
+            raise ValueError(
+                f"left-padded serve_batch needs a causal-attention stack; "
+                f"{cfg.name}'s mixers accumulate state over pad tokens "
+                f"- batch equal-length prompts for this arch")
+        max_new = max(r.max_new_tokens for r in requests)
+        toks = np.zeros((B, S), np.int32)
+        mask = np.zeros((B, S), bool)
+        for i, r in enumerate(requests):
+            toks[i, S - len(r.prompt):] = r.prompt  # left-pad with 0
+            mask[i, S - len(r.prompt):] = True
+        batch = {"tokens": toks}
+        if needs_pad:
+            batch["pad_mask"] = mask
+        pre_logits, state = self._exec.prefill_padded(batch, S + max_new)
+        gen = torch.Generator(self.device)
+        gen.manual_seed(seed)
+        tok = sample(gen, pre_logits[:, -1], self.sampler)
+        first = tok.cpu().numpy()
+        done = np.zeros(B, bool)
+        for i in range(B):
+            requests[i].completed.append(int(first[i]))
+        for _ in range(max_new - 1):
+            logits, state, _, _ = self._exec.decode(state, tok[:, None])
+            tok = sample(gen, logits[:, -1], self.sampler)
+            host = tok.cpu().numpy()
+            for i, r in enumerate(requests):
+                if done[i] or len(r.completed) >= r.max_new_tokens:
+                    done[i] = True
+                    continue
+                t = int(host[i])
+                r.completed.append(t)
+                if t == EOS:
+                    done[i] = True
+            if done.all():
+                break
+        return requests
+
+
+class ContinuousEngine:
+    """Continuous-batching decode loop over slotted KV (module
+    docstring).
+
+    ``params``: dense resident weights (the plain plane); ignored with
+    ``offload``, the port's packed ``OffloadEngine``, whose executor,
+    store, device and executable weights are used (the reference's
+    offloaded mode).  ``kv_page``: page size of the paged plane (None:
+    dense slot rings of ``slot_len``); ``kv_pages_total`` defaults to
+    full provisioning, ``max_slots * ceil(slot_len / kv_page)``.
+    ``ragged_bucket=False`` pins the paged step's table to full width.
+    ``prefill_chunk``/``token_budget``: budgeted chunked admission.
+    ``device``: the plain plane's device (the card unless ``"cpu"``)."""
 
     def __init__(self, params, cfg: ModelConfig, *, max_slots: int = 4,
                  slot_len: int = 256, sampler: Optional[SamplerConfig] = None,
@@ -70,11 +157,8 @@ class ContinuousEngine:
                  draft_params=None, draft_cfg=None,
                  num_draft_tokens: int = 0,
                  faults=None,
-                 queue_cap: Optional[int] = None):
-        if offload is None:
-            raise _not_ported("the plain (non-offloaded) plane", 3)
-        if kv_page is None:
-            raise _not_ported("dense slot KV (kv_page=None)", 3)
+                 queue_cap: Optional[int] = None,
+                 device=None):
         if prefix_cache_pages or preemption or kv_host_pages:
             raise _not_ported("prefix caching, preemption and host swap", 5)
         if num_draft_tokens or draft_params is not None or draft_cfg is not None:
@@ -83,18 +167,24 @@ class ContinuousEngine:
             raise _not_ported("fault injection", 5)
         if telemetry is not None:
             raise _not_ported("telemetry", 7)
-        if offload.cfg != cfg:
-            raise ValueError("offload engine config mismatch")
         self.offload = offload
+        self._pstate = None
+        if offload is not None:
+            if offload.cfg != cfg:
+                raise ValueError("offload engine config mismatch")
+            self._exec = offload._exec
+            self._pstate = self._exec.init_pool_state(max_rows=max_slots)
+            params = offload.params
+        else:
+            self._exec = Executor(params, cfg, device=device)
+        self.device = self._exec.device
+        self.params = params
         self.cfg = cfg
-        self.device = offload.device
-        self._exec = offload._exec
-        self._pstate = self._exec.init_pool_state(max_rows=max_slots)
-        self.params = offload.params
         self.sampler = sampler or SamplerConfig(kind="greedy")
         self._greedy = self.sampler.kind == "greedy"
         self.max_slots = max_slots
         self.eos_id = eos_id
+        self.paged = kv_page is not None
         self.kv = StateManager.create(
             cfg, max_slots, slot_len, kv_page=kv_page,
             kv_pages_total=kv_pages_total, bucket=ragged_bucket,
@@ -117,8 +207,21 @@ class ContinuousEngine:
             raise ValueError("token_budget needs prefill_chunk (the budget "
                              "schedules prompt chunks)")
         self._admissions: List[Admission] = []
-        # the packed path reads every step's routing anyway
-        self.usage = ExpertUsageTracker.for_config(cfg)
+        # routing costs a host read per MoE layer on the plain plane: read
+        # it only where a policy scores by usage (the packed planes read
+        # it every step anyway)
+        self._collect = (cfg.moe is not None
+                         and (getattr(policy, "needs_usage", False)
+                              or offload is not None))
+        self.usage = (ExpertUsageTracker.for_config(cfg)
+                      if self._collect else None)
+        # only sliding-window rings roll inside a dense slot, so on an
+        # all-SWA stack whose slots hold the window a request may decode
+        # past slot_len; pages are position-indexed and never roll
+        mixers = {parse_block(k)[0] for k in cfg.layer_kinds()}
+        self._unbounded = (not self.paged and mixers == {"swa"}
+                           and bool(cfg.sliding_window)
+                           and self.slot_len >= cfg.sliding_window)
         self.tokens = np.zeros((max_slots, 1), np.int32)
         self.step_count = 0
         self._gen = torch.Generator(self.device)
@@ -134,7 +237,8 @@ class ContinuousEngine:
             raise ValueError(
                 "per-request temperature needs a stochastic sampler; this "
                 "engine decodes greedily")
-        if prompt.size + max_new_tokens > self.slot_len:
+        if (not self._unbounded
+                and prompt.size + max_new_tokens > self.slot_len):
             raise ValueError(
                 f"request needs {prompt.size + max_new_tokens} KV "
                 f"positions > slot_len={self.slot_len}")
@@ -160,20 +264,28 @@ class ContinuousEngine:
     # ------------------------------------------------------------------
     # admission
     def _start_admissions(self) -> None:
-        """Move policy-selected waiting requests into free slots while the
-        page pool can reserve the pick's worst case (prompt + max_new);
-        else admission stalls until releases free pages (head of line on
-        memory: no preemption).  Prompts prefill as chunks."""
+        """Move policy-selected waiting requests into free slots.  On
+        pages the pick must be able to reserve its worst case (prompt +
+        max_new), else admission stalls until releases free pages (head
+        of line on memory: no preemption); on dense slots it prefills
+        into a fresh row state.  Prompts prefill as chunks."""
         while self.kv.n_free and self.sched.has_waiting:
             idx, cand = self.sched.peek_next(self.usage)
-            need = admission_cost(self.cfg, len(cand.prompt),
-                                  cand.max_new_tokens).kv_positions
-            if not self.kv.can_admit(need):
-                break
-            req = self.sched.pop_at(idx)
-            req.slot = self.kv.allocate(req.rid, need)
+            state = None
+            if self.paged:
+                need = admission_cost(self.cfg, len(cand.prompt),
+                                      cand.max_new_tokens).kv_positions
+                if not self.kv.can_admit(need):
+                    break
+                req = self.sched.pop_at(idx)
+                req.slot = self.kv.allocate(req.rid, need)
+            else:
+                req = self.sched.pop_at(idx)
+                req.slot = self.kv.allocate(req.rid)
+                state = self.kv.new_row_state()
             self._admissions.append(Admission(
-                rid=req.rid, slot=req.slot, total=len(req.prompt), req=req))
+                rid=req.rid, slot=req.slot, total=len(req.prompt),
+                state=state, req=req))
 
     def _grow_running_rows(self, rows: List[int]) -> None:
         """Cover every decoding row's next position with a page before the
@@ -182,9 +294,12 @@ class ContinuousEngine:
             self.kv.ensure(r, self.kv.length(r) + 1)
 
     def _run_chunks(self, chunks: List[ChunkTask]) -> List[GenRequest]:
-        """Run this step's prefill chunks into their slots' pages; an
-        admission whose final chunk ran samples its first token and joins
-        the decode rows (this step unchunked, next step under a budget)."""
+        """Run this step's prefill chunks: into the slot's pages, or into
+        the admission's row state.  An admission whose final chunk ran
+        samples its first token and joins the decode rows: this step when
+        unchunked (a dense row is installed at once), the next step under
+        a budget (a dense row is installed at that step's start, so this
+        step's batched decode cannot advance a row it did not plan)."""
         finished = []
         by_rid = {a.rid: a for a in self._admissions}
         for task in chunks:
@@ -192,37 +307,59 @@ class ContinuousEngine:
             req: GenRequest = adm.req
             tokens = torch.as_tensor(req.prompt[None, task.lo: task.hi],
                                      device=self.device)
-            self.kv.ensure(adm.slot, task.hi)
-            logits, new_state = self._exec.prefill_chunk_row(
-                self.kv.view(), tokens, adm.slot)
-            self.kv.adopt(new_state)
-            self.kv.note_tokens(adm.slot, task.hi)
+            if self.paged:
+                self.kv.ensure(adm.slot, task.hi)
+                logits, new_state = self._exec.prefill_chunk_row(
+                    self.kv.view(), tokens, adm.slot)
+                self.kv.adopt(new_state)
+                self.kv.note_tokens(adm.slot, task.hi)
+            else:
+                logits, adm.state = self._exec.prefill_chunk(adm.state,
+                                                             tokens)
             adm.next_lo = task.hi
             if not task.last:
                 continue
-            self._admissions.remove(adm)
             first = int(self._sample_rows(logits[:, -1], [req])[0])
             req.emit(first)
             if self._done(req, first):
+                self._admissions.remove(adm)
                 self.kv.release(adm.slot)
                 self.sched.evict(req, self._reason(first))
                 finished.append(req)
                 continue
             self.tokens[adm.slot, 0] = first
+            if self.paged:
+                self._admissions.remove(adm)
+            elif self.budget is None:
+                self.kv.write_prefill(adm.state, adm.slot)
+                self._admissions.remove(adm)
         return finished
+
+    def _install_ready(self) -> None:
+        """Dense slots under a budget: install the admissions whose final
+        chunk ran last step; their rows join this step's decode."""
+        for adm in [a for a in self._admissions if a.done]:
+            self.kv.write_prefill(adm.state, adm.slot)
+            self._admissions.remove(adm)
 
     def _plan(self) -> StepPlan:
         """This step's mixed batch: every decodable row + prompt chunks
-        under the token budget (unchunked: whole prompts this step)."""
+        under the token budget (unchunked: whole prompts this step, split
+        only at the slot width)."""
+        self._install_ready()
         self._start_admissions()
         decode_rows = self._decode_rows()
         if self.budget is not None:
             return self.budget.plan(decode_rows, self._admissions)
         plan = StepPlan(decode_rows=decode_rows)
         for adm in self._admissions:
-            plan.chunks.append(ChunkTask(rid=adm.rid, slot=adm.slot,
-                                         lo=adm.next_lo, hi=adm.total,
-                                         last=True))
+            # prompts longer than the ring (unbounded SWA) split at
+            # slot_len, so no chunk overwrites itself
+            for lo in range(adm.next_lo, adm.total, self.slot_len):
+                hi = min(lo + self.slot_len, adm.total)
+                plan.chunks.append(ChunkTask(rid=adm.rid, slot=adm.slot,
+                                             lo=lo, hi=hi,
+                                             last=hi >= adm.total))
         return plan
 
     def _decode_rows(self) -> List[int]:
@@ -275,20 +412,40 @@ class ContinuousEngine:
                       key=lambda r: r.slot)
         active = np.zeros((self.max_slots,), bool)
         active[rows] = True
-        self._grow_running_rows(rows)
-        logits, state, self._pstate, route_ids = self._exec.decode(
-            self.kv.view(self.kv.live_width(rows)),
-            torch.as_tensor(self.tokens, device=self.device), self._pstate,
-            active)
-        self.usage.update(route_ids, rows=rows)
-        self.kv.adopt(state)
-        for r in rows:
-            self.kv.note_tokens(r, self.kv.length(r) + 1)
-        if self._greedy:
-            nxt = self._sample_rows(logits[:, -1], reqs)  # every slot's row
+        if self.paged:
+            self._grow_running_rows(rows)
+            step_state = self.kv.view(self.kv.live_width(rows))
+        else:
+            step_state = self.kv.state
+        if self.offload is not None:
+            # free slots bypass the expert pool: their dummy tokens never
+            # touch the cache or the counters
+            logits, state, self._pstate, route_ids = self._exec.decode(
+                step_state, self.tokens, self._pstate, active)
+            self.usage.update(route_ids, rows=rows)
+            nxt_dev = logits[:, -1]
+        else:
+            out = self._exec.decode_sampled(
+                step_state, self.tokens, collect_info=self._collect,
+                greedy=self._greedy, active=active)
+            nxt_dev, state = out[0], out[1]
+            if self._collect:
+                ids, _ = routing_from_info(self.cfg, out[2],
+                                           want_hiddens=False)
+                self.usage.update(ids, rows=rows)
+        if self.paged:
+            self.kv.adopt(state)
+            for r in rows:
+                self.kv.note_tokens(r, self.kv.length(r) + 1)
+        else:
+            self.kv.state = state
+        if self._greedy and self.offload is None:
+            nxt = nxt_dev.cpu().numpy()  # the step's one device read
+        elif self._greedy:
+            nxt = self._sample_rows(nxt_dev, reqs)  # every slot's row
         else:
             nxt = np.zeros((self.max_slots,), np.int32)
-            nxt[rows] = self._sample_rows(logits[rows, -1], reqs)
+            nxt[rows] = self._sample_rows(nxt_dev[rows], reqs)
         for req in reqs:
             t = int(nxt[req.slot])
             req.emit(t)
@@ -335,9 +492,10 @@ class ContinuousEngine:
 
     def stats(self) -> Dict[str, float]:
         """The reference's flat ``stats()`` keys: engine counters bare,
-        ``kv_*`` and ``offload_*``."""
+        ``kv_*`` and, with an offload engine, ``offload_*``."""
         out = dict(self._engine_metrics())
         out.update(self.kv.stats())
-        out.update({f"offload_{k}": v
-                    for k, v in self._offload_metrics().items()})
+        if self.offload is not None:
+            out.update({f"offload_{k}": v
+                        for k, v in self._offload_metrics().items()})
         return out

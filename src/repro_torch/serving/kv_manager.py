@@ -1,10 +1,19 @@
-"""Block-paged KV slots for continuous batching (port of the reference's
-``serving/kv_manager.py``, the paged plane: ``PagePool``,
-``PagedKVManager`` and the paged branch of ``StateManager``).
+"""KV slots for continuous batching (port of the reference's
+``serving/kv_manager.py``: ``KVSlotManager``, ``PagePool``,
+``PagedKVManager`` and ``StateManager``).
 
-KV lives in one pool of fixed-size pages per attention layer
-(``models/layers.init_paged_attn_cache``) and each slot owns an ordered
-page list, recorded in one page table shared by all layers:
+:class:`KVSlotManager` is the dense plane: one preallocated decode state
+of ``n_slots`` rows, each slot a ring of ``slot_len`` positions (the
+window's width on SWA layers) at its own position.  A request's prompt
+prefills into a fresh B = 1 row state (:meth:`KVSlotManager.new_row_state`)
+that :meth:`KVSlotManager.write_prefill` copies into its slot's row;
+nothing else in the batch is touched, and ring entries at position -1
+are invisible to attention, so a freed slot needs no scrubbing.
+
+On the paged plane KV lives in one pool of fixed-size pages per
+attention layer (``models/layers.init_paged_attn_cache``) and each slot
+owns an ordered page list, recorded in one page table shared by all
+layers:
 
 * a request reserves ``ceil((prompt + max_new) / page_size)`` pages at
   admission, so a mid-decode allocation never fails (no preemption);
@@ -14,11 +23,11 @@ page list, recorded in one page table shared by all layers:
   (:meth:`PagedKVManager.live_width`) for the plain path; the kernel's
   work list skips dead pages anyway.
 
-The page table and every row's position are host-authoritative numpy, so
-a step's positions and work list never need a device read.  Released
-pages have ``ppos`` scrubbed to -1 in every layer before reuse: the
-kernel trusts ``ppos``, so a stale position would leak another request's
-keys into a new row's attention.
+On both planes every row's position (and the page table) is
+host-authoritative numpy, so a step's positions and work list never
+need a device read.  Released pages have ``ppos`` scrubbed to -1 in
+every layer before reuse: the kernel trusts ``ppos``, so a stale
+position would leak another request's keys into a new row's attention.
 """
 from __future__ import annotations
 
@@ -31,6 +40,117 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+
+
+def _not_ported(what: str, item: int):
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP queue 1, item {item})")
+
+
+class KVSlotManager:
+    """Free list over the batch axis of one preallocated dense decode
+    state (module docstring): heap free list (lowest slot first), owners,
+    and per-row positions kept on the host."""
+
+    def __init__(self, cfg: ModelConfig, n_slots: int, slot_len: int, *,
+                 device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.n_slots = n_slots
+        self.slot_len = slot_len
+        self.state = T.init_decode_state(cfg, n_slots, slot_len, self.device)
+        self.state["pos"] = np.zeros((n_slots,), np.int32)
+        self._free: List[int] = list(range(n_slots))
+        heapq.heapify(self._free)
+        self._owner: List[Optional[object]] = [None] * n_slots
+        self.peak_slots = 0
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    def owner(self, slot: int):
+        return self._owner[slot]
+
+    def allocate(self, owner=None) -> int:
+        slot = heapq.heappop(self._free)
+        self._owner[slot] = owner
+        self.peak_slots = max(self.peak_slots, self.n_slots - self.n_free)
+        return slot
+
+    def release(self, slot: int) -> None:
+        assert self._owner[slot] is not None, f"slot {slot} already free"
+        self._owner[slot] = None
+        heapq.heappush(self._free, slot)
+
+    def remaining(self, slot: int) -> int:
+        """Decode steps this slot can still take before its ring would
+        overwrite live context (conservative where the window is
+        narrower than the slot)."""
+        return self.slot_len - int(self.state["pos"][slot])
+
+    def new_row_state(self):
+        """A fresh B = 1 decode state of slot width: chunked admission
+        writes each prompt chunk into it at the chunk's offset while the
+        batch decodes, then :meth:`write_prefill` installs it."""
+        return T.init_decode_state(self.cfg, 1, self.slot_len, self.device)
+
+    def write_prefill(self, small_state, slot: int) -> None:
+        """Install a prefilled B = 1 state (``max_len == slot_len``) into
+        ``slot``: every layer's ring row and the slot's position."""
+        width = small_state["layers"][0]["kv"]["k"].shape[1]
+        slot_width = self.state["layers"][0]["kv"]["k"].shape[1]
+        if width != slot_width:
+            raise ValueError(
+                f"prefill state width {width} != slot width {slot_width}; "
+                f"prefill with max_len == slot_len")
+        for big, small in zip(self.state["layers"], small_state["layers"]):
+            for name, t in big["kv"].items():
+                t[slot] = small["kv"][name][0]
+        pos = self.state["pos"].copy()
+        pos[slot] = int(np.reshape(small_state["pos"], -1)[0])
+        self.state = dict(self.state, pos=pos)
+
+    def snapshot(self, slot: int):
+        raise _not_ported("KVSlotManager.snapshot (recurrent rollback)", 6)
+
+    def restore(self, small_state, slot: int) -> None:
+        raise _not_ported("KVSlotManager.restore (recurrent rollback)", 6)
+
+    def truncate(self, slot: int, n_tokens: int) -> None:
+        raise _not_ported("KVSlotManager.truncate (draft rollback)", 4)
+
+    def metrics(self) -> Dict[str, object]:
+        """KV occupancy, the reference's ``layout: "dense"`` keys: every
+        occupied slot reserves ``slot_len`` positions whether used or
+        not (the waste the paged plane removes); live positions from the
+        host mirror."""
+        live = [int(self.state["pos"][s]) for s in range(self.n_slots)
+                if self._owner[s] is not None]
+        return {"layout": "dense",
+                "slots_in_use": self.n_slots - self.n_free,
+                "slots_free": self.n_free,
+                "positions_reserved":
+                    (self.n_slots - self.n_free) * self.slot_len,
+                "peak_positions_reserved": self.peak_slots * self.slot_len,
+                "positions_live": sum(live),
+                "slot_lengths": live}
+
+    def stats(self) -> Dict[str, object]:
+        """Flat projection of :meth:`metrics` (``kv_*`` keys)."""
+        return {f"kv_{k}": v for k, v in self.metrics().items()}
+
+    def check_invariants(self, cache_pages=()) -> None:
+        """The free list and the owner map partition the slots."""
+        free = sorted(self._free)
+        assert len(set(free)) == len(free), \
+            f"free list holds duplicates: {free}"
+        owned = {s for s in range(self.n_slots)
+                 if self._owner[s] is not None}
+        assert not (set(free) & owned), \
+            f"slots both free and owned: {sorted(set(free) & owned)}"
+        assert set(free) | owned == set(range(self.n_slots)), \
+            "slot free list + owner map do not cover all slots"
 
 
 class PagePool:
@@ -280,19 +400,20 @@ class PagedKVManager:
 
 
 class StateManager:
-    """Construction point of the slot-state manager for a config: the
-    paged plane (``kv_page`` set).  Dense slot rings in continuous mode
-    are not ported (ROADMAP queue 1, item 3)."""
+    """Construction point of the slot-state manager for a config: dense
+    slot rings (:class:`KVSlotManager`) or, with ``kv_page``, block-paged
+    KV (:class:`PagedKVManager`)."""
 
     @staticmethod
     def create(cfg: ModelConfig, n_slots: int, slot_len: int, *,
                kv_page: Optional[int] = None,
                kv_pages_total: Optional[int] = None,
-               bucket: bool = True, device=None) -> PagedKVManager:
+               bucket: bool = True, device=None):
         if kv_page is None:
-            raise NotImplementedError(
-                "dense slot rings in continuous mode (kv_page=None) are "
-                "not ported: ROADMAP queue 1, item 3")
+            if kv_pages_total is not None:
+                raise ValueError("kv_pages_total needs kv_page (it sizes "
+                                 "the paged pool)")
+            return KVSlotManager(cfg, n_slots, slot_len, device=device)
         max_pages = -(-slot_len // kv_page)
         pages_total = (kv_pages_total if kv_pages_total is not None
                        else n_slots * max_pages)

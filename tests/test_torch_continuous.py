@@ -151,17 +151,15 @@ def test_overlap_policy_serves_like_reference(engines):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(kv_page=None), dict(prefix_cache_pages=4), dict(preemption=True),
+    dict(prefix_cache_pages=4), dict(preemption=True),
     dict(kv_host_pages=2), dict(num_draft_tokens=2), dict(faults=object()),
     dict(telemetry=object())],
-    ids=["dense-kv", "prefix", "preemption", "host-swap", "drafts", "faults",
+    ids=["prefix", "preemption", "host-swap", "drafts", "faults",
          "telemetry"])
 def test_out_of_scope_arguments_are_refused(engines, kw):
     _, _, pcfg, peng = engines
     with pytest.raises(NotImplementedError):
         PContinuous(None, pcfg, offload=peng, **{"kv_page": 16, **kw})
-    with pytest.raises(NotImplementedError):
-        PContinuous(None, pcfg, offload=None, kv_page=16)
 
 
 def test_cancel_and_sampling_release_every_page(engines):

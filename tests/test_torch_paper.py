@@ -241,7 +241,7 @@ def test_speculative_scenario_is_refused():
 
 
 @pytest.mark.parametrize("only,match", [("kernels", "chip_smoke"),
-                                        ("serve", "item 3"),
+                                        ("serve,kernels", "chip_smoke"),
                                         ("fig2_lru,nope", "unknown")])
 def test_harness_refuses_unported_suites(only, match):
     with pytest.raises(SystemExit, match=match):

@@ -94,19 +94,25 @@ def test_plane_matches_reference(quantized, pipelined, vectorized, fused):
 
 
 def test_plain_plane_is_refused(quantized):
-    """The plain plane keeps no expert pool, and paged KV on it is not
-    ported: both raise instead of computing something else."""
+    """The plain plane keeps no expert pool, row chunks need a paged state,
+    and per-row chunks on dense rings (the draft-and-verify rows) are not
+    ported: each raises instead of computing something else.  The packed
+    planes refuse the static engine's padded prefill."""
     from repro_torch.runtime.executor import Executor
     _, _, _, params, store, pcfg, pspec = quantized
     ex = Executor(params, pcfg, device="cpu", plane="plain")
     with pytest.raises(ValueError, match="packed planes only"):
         ex.init_pool_state()
-    state = {"layers": [], "pos": np.zeros(1, np.int32),
-             "pages": np.zeros((1, 1), np.int32)}
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        ex.prefill_chunk_row(state, torch.zeros((1, 2), dtype=torch.int32), 0)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        ex.decode(state, torch.zeros((1, 1), dtype=torch.int32))
+    dense = ex.init_state(1, 8)
+    with pytest.raises(ValueError, match="paged-KV"):
+        ex.prefill_chunk_row(dense, torch.zeros((1, 2), dtype=torch.int32), 0)
+    rows = dict(dense, pos=np.zeros(1, np.int32))
+    with pytest.raises(NotImplementedError, match="item 4"):
+        ex.decode(rows, torch.zeros((1, 2), dtype=torch.int32))
+    packed = Executor(params, pcfg, spec=pspec, store=store, device="cpu",
+                      plane="packed_vectorized")
+    with pytest.raises(ValueError, match="chunks"):
+        packed.prefill_padded({"tokens": np.ones((1, 4), np.int32)}, 8)
 
 
 def _record(st, l, s, vectorized):

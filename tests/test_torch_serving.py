@@ -94,14 +94,25 @@ def test_paged_manager_matches_reference(model, seed):
     assert {k: pmet[k] for k in pmet} == {k: jmet[k] for k in pmet}
 
 
-def test_state_manager_takes_paged_only(model):
+def test_state_manager_matches_reference(model):
+    """The paged and the dense family, each built as the reference's
+    manager builds it; a page budget without a page size is refused by
+    both."""
     jcfg, pcfg, _, _ = model
     m = PKV.StateManager.create(pcfg, 2, 50, kv_page=16, device="cpu")
     j = JKV.StateManager.create(jcfg, 2, 50, kv_page=16)
     assert (m.slot_len, m.pool.n_pages, m.max_pages) == \
         (j.slot_len, j.pool.n_pages, j.max_pages)
-    with pytest.raises(NotImplementedError):
-        PKV.StateManager.create(pcfg, 2, 50, device="cpu")
+    assert m.metrics() == j.metrics()
+    m = PKV.StateManager.create(pcfg, 2, 50, device="cpu")
+    j = JKV.StateManager.create(jcfg, 2, 50)
+    assert type(m).__name__ == type(j).__name__ == "KVSlotManager"
+    assert m.slot_len == j.slot_len and m.metrics() == j.metrics()
+    assert m.state["layers"][0]["kv"]["k"].shape == \
+        np.asarray(j.state["stack"][0]["kv"]["k"]).shape[1:]
+    for mgr, cfg in ((PKV.StateManager, pcfg), (JKV.StateManager, jcfg)):
+        with pytest.raises(ValueError, match="kv_page"):
+            mgr.create(cfg, 2, 50, kv_pages_total=8)
 
 
 @pytest.mark.parametrize("seed", range(3))
