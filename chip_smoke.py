@@ -12,18 +12,21 @@ last line):
    main path's shapes (2- and 3-bit codes), with its time, the plain
    version's time and the bound; the slot and 2-D bindings must take the
    tensor-core GEMV (``csrc/dequant_gemv.cu``), and the FMA kernel they
-   ran before is checked and timed beside it on the same inputs.
+   ran before is checked and timed beside it on the same inputs; the
+   slot binding also at the verify chunks' B = 10 and 40 rows.
 3. ragged kernel: the paged-attention kernel against its plain version at
    Mixtral's attention shapes (H 32, Hkv 8, hd 128, pages of 16, bf16):
    a decode step of 4 rows (live lengths 37, 300, 1500, 4200, window
-   4096) and a 128-token admission chunk, on the tensor-core kernel
+   4096), a 128-token admission chunk and 4 rows of C = 5 verify
+   chunks, on the tensor-core kernel
    (``csrc/ragged_mma.cu``); time, plain time, bound, and the
    warp-reduction kernel it replaced checked and timed beside it.
 4. flash kernel: the flash-attention kernel against its plain version at
    Mixtral's attention shapes (H 32, Hkv 8, hd 128, bf16): the main
-   path's 64-token prefill chunk, a 4096-token prompt and a windowed
+   path's 64-token prefill chunk, a 4096-token prompt, a windowed
    1024-row chunk at position 7168 over 8192 keys (window 4096, the
-   KV-tile skip); time, plain time, bound and, where no window applies,
+   KV-tile skip) and a C = 5 verify chunk at position 64 over 69 keys;
+   time, plain time, bound and, where no window applies,
    ``scaled_dot_product_attention`` as a yardstick (``kernel_over_library``).
 5. parity: ``tiny-moe`` generated on the card (kernels) and on the CPU
    (plain versions) from the same seeded weights, on each (pipelined,
@@ -60,7 +63,17 @@ last line):
     batch 1 and ``ContinuousEngine`` (4 requests through 2 slots, pages of
     16), card (kernels) against CPU (plain versions), with the routes
     taken: the slot binding on the GEMV, the batched binding on the
-    grouped kernel, flash on ``wgmma``, ragged on ``ragged_mma``.
+    grouped kernel, flash on ``wgmma``, ragged on ``ragged_mma``; then
+    both as draft-and-verify (batch 1: a replay draft missing every third
+    proposal; continuous: a random bf16 ``tiny-draft``), held card
+    against CPU by position.
+10b. spec-parity: draft-and-verify on ``tiny-moe`` (f32) card against
+    CPU, exactly equal tokens, counters and speculation totals:
+    ``OffloadEngine`` on the three packed planes and accounting with the
+    dense ``tiny-draft``, a replay of the baseline and a replay missing
+    every third proposal (k = 3), and the replay at k = 1;
+    ``ContinuousEngine`` on the plain plane over the five KV overlays and
+    the packed engine on dense slots, pages and chunked admission.
 11. train: ``tiny-moe`` at full size (f32: 6 layers, d 256, 8 experts,
     top-2) trained with the paper-measurement recipe of
     ``repro_torch.benchmarks.common`` (sequences of 128, batches of 8, a
@@ -86,7 +99,13 @@ last line):
     p50/p95 ms per token, prefill s, counters, h2d bytes issued and the
     launch counts of every binding and route; equal tokens and counters
     across the three, and the 2-D dequant binding launched on ``pr2_sync``
-    only.  Where ``[main]``'s or ``[serve]``'s counters differ from the
+    only.  Then draft-and-verify on each plane (``[spec]``): the baseline,
+    then a ``ReplayDraft`` at k = 4 of the stream the speculative path
+    produces (acceptance 1.0) and of the same missing every third
+    proposal: decode tok/s beside the baseline's, rounds, acceptance,
+    tokens per round, h2d bytes per emitted token, hit ratio, launches
+    by route; tokens held to the baseline's by position under the
+    near-tie rule.  Where ``[main]``'s or ``[serve]``'s counters differ from the
     previous decode kernels' (``PREVIOUS_MAIN``/``PREVIOUS_SERVE``), the run
     is repeated on the FMA decode kernel, whose counters are printed with
     the first decision that differs and its gap.
@@ -124,7 +143,11 @@ last line):
     kernel bindings and of each route against the expected, the
     slot binding against its plain version (and timed) on the inputs of
     the decode launch that read farthest into the pool's overflow
-    records, and a profiler window over a few decode steps.
+    records, and a profiler window over a few decode steps.  Then the
+    same requests draft-and-verify (``[spec-serve]``) with a random
+    ``tiny-draft`` at the target's vocabulary, k = 4, on pages and on
+    dense slots: tokens/s, acceptance, h2d bytes, launches by route;
+    tokens held to ``[serve]``'s by position under the near-tie rule.
 18. paper: the paper's measurements on that checkpoint (the port's
     ``benchmarks`` package, on the card): ``fig2_lru`` hit ratios at k 1-8
     with decayed LFU and Belady at k 2 and 4, ``fig2_spec`` recall at
@@ -140,7 +163,8 @@ last line):
     ``[planes]``' ``pr2_sync`` and ``vectorized`` runs, the cells it was
     not fitted to.
 
-Phases 10, 14 and 15 trace every decision of both runs they compare (router
+Phases 10, 13 (``[spec]``), 14, 15 and 17 (``[spec-serve]``) trace every
+decision of both runs they compare (router
 top-k, lookahead prediction, sampled token) and hold them to one rule:
 equal, or the first decision that differs is a near-tie, its top-k
 probability gap (routing, prediction) or its top-2 logit gap over the
@@ -193,6 +217,10 @@ PARITY_PLANES = [dict(pipelined=True, vectorized=True, fused=True),
                  dict(pipelined=False, vectorized=False, fused=True),
                  dict(pipelined=False, vectorized=True, fused=False)]
 SERVE_REQUESTS, SERVE_NEW, SERVE_SLOTS = 8, 24, 4
+SPEC_K = 4                   # draft tokens per round, [spec] and [spec-serve]
+SPEC_MISSES = (0, 3)         # ReplayDraft miss_every: 0 = acceptance 1.0
+SPEC_PARITY_K = 3            # the reference's test matrix
+SPEC_FIXED_POINT = 8         # replay passes to reach the verify chunks' own stream
 # the counters the previous decode kernels (the FMA GEMV, the warp-reduction
 # ragged kernel) gave at these seeds, with attention quantized as the
 # reference does (on its period-stacked leaves), on an NVIDIA H100 80GB HBM3:
@@ -458,6 +486,169 @@ def _explain_difference(label, run):
         f"{where}")
 
 
+class _PosTrace:
+    """Every routing and token decision of the target's calls in one run,
+    keyed by (request, position, kind, layer): the key that lines up a
+    draft-and-verify run with plain decode (or the card with the CPU),
+    whose steps differ.  A later call that recomputes a position replaces
+    its decisions (the next round recomputes a rejected verify row), so
+    the trace ends with each position's canonical decisions.  Only the
+    watched executor's calls count (a draft's do not), and only rows in
+    use.  ``slot_req(slot)`` names the request a batch row holds (None:
+    not recorded); ``state_slot(state)`` the slot a dense admission's row
+    state belongs to; ``prompt_len(req)`` says which prefill row decides
+    the first generated token.  Routing: the k-th minus the (k+1)-th
+    probability; tokens: the top-2 logit gap over the row's largest
+    |logit|."""
+
+    def __init__(self, ex, slot_req, state_slot, prompt_len):
+        self.ex, self.slot_req = ex, slot_req
+        self.state_slot, self.prompt_len = state_slot, prompt_len
+        self.ev, self.rows, self.layer, self._undo = {}, None, 0, []
+
+    def _put(self, key_of, chosen, top, k):
+        import torch
+        sel = [t for t, key in enumerate(key_of) if key is not None]
+        if not sel:
+            return
+        idx = torch.as_tensor(sel, device=chosen.device)
+        top = torch.sort(top[idx].float(), -1, descending=True).values
+        gap = ((top[:, k - 1] - top[:, k]) if k else
+               (top[:, 0] - top[:, 1]) / top.abs().amax(-1).clamp_min(1e-30))
+        ch = chosen[idx]
+        ch = (torch.sort(ch, -1).values if k else ch).cpu().numpy()
+        for i, (c, g) in enumerate(zip(ch, gap.cpu().numpy())):
+            self.ev[key_of[sel[i]]] = (np.asarray(c).tolist(), float(g))
+
+    def _call(self, name, fn):
+        import torch
+
+        def traced(state, tokens, *a, **kw):
+            B, C = tokens.shape
+            if name == "decode":
+                active = a[1] if len(a) > 1 else kw.get("active")
+                slots = [(b, b) for b in range(B)
+                         if active is None or active[b]]
+            elif name == "prefill_chunk_row":
+                slots = [(0, a[0])]
+            else:
+                slots = [(0, self.state_slot(state))]
+            pos = state["pos"]
+            rows = [None] * (B * C)
+            for b, s in slots:
+                req = self.slot_req(s)
+                p0 = int(pos if np.ndim(pos) == 0 else pos[s])
+                for j in range(C):
+                    rows[b * C + j] = None if req is None else (req, p0 + j)
+            self.rows, self.layer = rows, 0
+            try:
+                out = fn(state, tokens, *a, **kw)
+            finally:
+                self.rows = None
+            logits = out[0].reshape(B * C, -1)
+            toks = [None] * (B * C)
+            for t, key in enumerate(rows):
+                if key is None:
+                    continue
+                last = name == "decode" or key[1] + 1 == self.prompt_len(key[0])
+                toks[t] = (key[0], key[1], 1, 0) if last else None
+            self._put(toks, torch.argmax(logits, -1), logits, 0)
+            return out
+        return traced
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        route = moe.route_topk
+
+        def traced_route(p, spec, x2d):
+            w, ids, probs = route(p, spec, x2d)
+            if self.rows is not None:
+                self._put([None if r is None else (r[0], r[1], 0, self.layer)
+                           for r in self.rows], ids, probs, spec.top_k)
+                self.layer += 1
+            return w, ids, probs
+        moe.route_topk = traced_route
+        self._undo.append(lambda: setattr(moe, "route_topk", route))
+        for name in ("decode", "prefill_chunk", "prefill_chunk_row"):
+            setattr(self.ex, name, self._call(name, getattr(self.ex, name)))
+            self._undo.append(lambda n=name: self.ex.__dict__.pop(n, None))
+        return self
+
+    def __exit__(self, *exc):
+        for undo in reversed(self._undo):
+            undo()
+        self._undo.clear()
+
+
+def _pos_trace_offload(eng, S):
+    """A :class:`_PosTrace` of an ``OffloadEngine``'s batch-1 run of a
+    prompt of S tokens (request 0)."""
+    return _PosTrace(eng._exec, lambda s: 0, lambda st: 0, lambda r: S)
+
+
+def _pos_trace_serving(ce, prompts):
+    """A :class:`_PosTrace` of a ``ContinuousEngine`` serving ``prompts``,
+    submitted in order: request i is the i-th submitted."""
+    first = []
+
+    def req(slot):
+        if not first:  # rids count up from the first request submitted
+            first.append(min(q.rid for q in ce.sched.running
+                             + list(ce.sched.waiting)))
+        return next((r.rid - first[0] for r in ce.sched.running
+                     if r.slot == slot), None)
+
+    def state_slot(state):
+        return next(a.slot for a in ce._admissions if a.state is state)
+    return _PosTrace(ce._exec, req, state_slot, lambda r: len(prompts[r]))
+
+
+def _traced_serve(eng, cfg, prompts, news, **kw):
+    """:func:`_serve` under a :class:`_PosTrace` of the engine it makes.
+    Returns (trace, what ``_serve`` returned)."""
+    held = []
+
+    def watch(ce):
+        held.append(_pos_trace_serving(ce, prompts).__enter__())
+    try:
+        out = _serve(eng, cfg, prompts, news, on_engine=watch, **kw)
+    finally:
+        if held:
+            held[0].__exit__()
+    return held[0], out
+
+
+def _hold_positions(label, a, b, names, tokens_equal):
+    """Per request, the first decision (in position order) where traces
+    ``a`` and ``b`` differ, printed with its gap; fails unless each is a
+    near-tie (gap below ``NEAR_TIE`` in both runs), or when the tokens
+    differ and no decision does.  Returns the number of requests with a
+    difference."""
+    reqs = sorted({k[0] for k in a.ev} | {k[0] for k in b.ev})
+    found = 0
+    for r in reqs:
+        keys = sorted(k for k in a.ev if k[0] == r and k in b.ev)
+        diff = next((k for k in keys if a.ev[k][0] != b.ev[k][0]), None)
+        if diff is None:
+            continue
+        found += 1
+        gap = max(a.ev[diff][1], b.ev[diff][1])
+        kind = "token" if diff[2] else f"route (layer {diff[3]})"
+        log(f"[{label}] request {r}: first decision that differs at position "
+            f"{diff[1]}: {kind} {a.ev[diff][0]} ({names[0]}) vs "
+            f"{b.ev[diff][0]} ({names[1]}), gap {gap:.3g}; limit {NEAR_TIE:.3g}")
+        if not gap < NEAR_TIE:
+            fail(f"{label}: {names[0]} and {names[1]} differ from a decision "
+                 f"that is no near-tie (request {r}, position {diff[1]}, "
+                 f"{kind}, gap {gap:.3g})")
+    log(f"[{label}] {len(reqs) - found} of {len(reqs)} requests with every "
+        f"decision equal ({names[0]} vs {names[1]}), "
+        f"{len(a.ev)} / {len(b.ev)} decisions traced")
+    if found == 0 and not tokens_equal:
+        fail(f"{label}: every decision equal but the tokens differ")
+    return found
+
+
 def _event_ms(fn, n, flush):
     """Mean device time of ``fn``, each launch timed alone after the L2
     cache is overwritten (the main path finds its weights cold).  A spin
@@ -612,6 +803,41 @@ def phase_kernels(dev):
                 fail(f"{name} tiny-moe shape K={K} N={N}: {err:.3g}")
             acc[name]["err"] = max(acc[name]["err"], err)
             acc[name]["rel"] = max(acc[name]["rel"], err / scale)
+    # the slot binding at verify-chunk shapes: C x top_k rows of one k = 4
+    # chunk (B = 10) and of four serving rows' chunks (B = 40), 2-bit, the
+    # rows spread over the 8-record tier
+    verify = {}
+    for B in (10, 40):
+        v = dict(B=B, ms=0.0, plain_ms=0.0, bytes=0, flops=0, err=0.0)
+        slots = torch.randint(0, 8, (B,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        for K, N in shapes:
+            qt = tiers[2, K, N]
+            x = torch.randn((B, 1, K), generator=gen, device=dev).to(torch.bfloat16)
+            run = lambda: ops.dequant_matmul_slots(x, qt, slots)
+            plain = lambda: ref.dequant_matmul_slots(x, qt, slots)
+            gemv = DM.launch.routes["gemv"]
+            y, yp = run(), plain()
+            torch.cuda.synchronize()
+            err, scale = (y - yp).abs().max().item(), yp.abs().max().item()
+            if DM.launch.routes["gemv"] != gemv + 1:
+                fail(f"dequant_matmul_slots B={B}: not on the tensor-core GEMV")
+            if not (err <= KERNEL_RTOL * scale) or not torch.isfinite(y).all():
+                fail(f"dequant_matmul_slots B={B} K={K} N={N}: max |kernel - "
+                     f"plain| {err:.3g} > {KERNEL_RTOL} x {scale:.3g}")
+            v["ms"] += _event_ms(run, 20, flush)
+            v["plain_ms"] += _event_ms(plain, 3, flush)
+            v["bytes"] += (_stored_bytes(qt, len(set(slots.tolist())))
+                           + x.numel() * x.element_size() + y.numel() * 4)
+            v["flops"] += 2 * B * K * N
+            v["err"] = max(v["err"], err)
+            acc["dequant_matmul_slots"]["err"] = max(
+                acc["dequant_matmul_slots"]["err"], err)
+        v["bound_ms"], v["bound_by"] = _bound(v["bytes"], v["flops"])
+        v["bound_share"] = v["bound_ms"] / v["ms"]
+        log(f"[kernel] dequant_matmul_slots verify rows B={B}, per MoE layer "
+            f"(3 matrices, 2-bit): {json.dumps(v)}")
+        verify[B] = v
     out = {}
     for name, a in acc.items():
         bound_ms, bound_by = _bound(a["bytes"], a["flops"])
@@ -623,6 +849,8 @@ def phase_kernels(dev):
             out[name].update(previous_ms=a["previous_ms"],
                              previous_max_abs_err=a["previous_err"],
                              bound_share=bound_ms / a["ms"])
+        if name == "dequant_matmul_slots":
+            out[name]["verify_rows"] = verify
         per = "(token, k) expert" if name == "dequant_matmul" else "MoE layer"
         log(f"[kernel] {name} per {per} (3 matrices, 2-bit): "
             f"{json.dumps(out[name])}")
@@ -1060,7 +1288,8 @@ def phase_ragged_kernel(dev, flush):
     path calls (``ops.ragged_attention``, which counts the launch): a
     decode step of 4 rows whose live lengths straddle the 4096 window
     (its pages wholly outside the window are skipped, the rest masked
-    per key) and a 128-token admission chunk.  Each row is held against
+    per key), a 128-token admission chunk and four rows' C = 5 verify
+    chunks (draft-and-verify serving at k = 4).  Each row is held against
     the plain version run in f32 on the same (upcast) inputs, within
     ``RAGGED_BF16_RTOL`` of that row's own largest value.  Each launch
     timed alone after an L2 flush; the bound is the
@@ -1074,7 +1303,9 @@ def phase_ragged_kernel(dev, flush):
     gen.manual_seed(3)
     out = {}
     for case, lens, C in (("decode", [37, 300, 1500, 4200], 1),
-                          ("admission", [200], 128)):
+                          ("admission", [200], 128),
+                          # four serving rows' verify chunks (k = 4)
+                          ("verify", [69, 133, 1500, 4200], 5)):
         c = _paged_case(dev, lens, C, gen)
         args = (c["q"], c["kp"], c["vp"], c["ppos"])
         run = lambda: ops.ragged_attention(*args, c["pages"], c["qpos"],
@@ -1421,7 +1652,7 @@ def phase_serving(dev, eng, cfg):
         torch.cuda.synchronize(dev)
     report["profile"] = _device_split(prof, n_prof, "serve-profile",
                                       "serve_decode_trace.json")
-    return launches, report["slots_kernel"]
+    return launches, report["slots_kernel"], toks
 
 
 # ----------------------------------------------------------------------
@@ -1704,6 +1935,7 @@ FLASH_CASES = (  # (name, Sq, Skv, q_offset, window)
     ("prefill_chunk", PROMPT_LEN, PROMPT_LEN, 0, 4096),
     ("long_prompt", 4096, 4096, 0, None),
     ("windowed", 1024, 8192, 7168, 4096),
+    ("verify_chunk", 5, PROMPT_LEN + 5, PROMPT_LEN, 4096),  # a C = 5 chunk
 )
 
 
@@ -1771,8 +2003,14 @@ def phase_flash(dev, flush):
                  max_err_over_tolerance=float((err / tol).max()))
         r["library_ms"] = None
         if window is None or window >= q_offset + Sq:
+            # causal from the top left at q_offset 0, else an explicit mask
+            mask = (None if q_offset == 0 else
+                    FA._valid(Sq, Skv, True, window, q_offset, dev))
             sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True)
+                q, k, v, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True)
+            r["library_err_over_tolerance"] = float(
+                ((sdpa().float() - y32).abs().amax(-1) / tol).max())
             r["library_ms"] = _event_ms(sdpa, 10, flush)
         if name == "prefill_chunk":  # what the chunk ran before: the model's plain path
             from repro_torch.models import layers as L
@@ -1865,6 +2103,351 @@ def phase_planes(dev, eng, cfg):
     log(f"[planes] equal tokens and counters across {list(reports)}; decode "
         f"tok/s " + ", ".join(f"{n} {r['decode_tok_s']:.2f}" for n, r in reports.items()))
     return reports
+
+
+# ----------------------------------------------------------------------
+def _spec_totals(sm):
+    return (sm.rounds, sm.proposed_total, sm.accepted_total, sm.emitted_total)
+
+
+def _spec_delta(sm, before):
+    rounds, prop, acc, emitted = (a - b for a, b in zip(_spec_totals(sm), before))
+    return {"rounds": rounds, "proposed": prop, "accepted": acc,
+            "emitted": emitted, "acceptance": acc / max(1, prop),
+            "tokens_per_round": emitted / max(1, rounds)}
+
+
+def phase_spec(dev, eng, cfg):
+    """Draft-and-verify at full width: ``[main]``'s model, weights and
+    store, the 64-token prompt, ``NEW_TOKENS`` greedy, on the three planes
+    of ``[planes]``.  Per plane a non-speculative baseline, then a
+    ``ReplayDraft`` at ``SPEC_K`` with every ``miss_every`` in
+    ``SPEC_MISSES`` (0: acceptance 1.0) of the stream the speculative path
+    itself produces (the baseline's, replayed again on the output until
+    it reproduces itself: bf16 verify chunks round otherwise than C = 1
+    decode).  Each run after
+    a warm-up, launch counts set to 0 just before it.  Fails unless the
+    tokens equal the baseline's or first differ at a near-tie (both runs
+    traced by position, :class:`_PosTrace`), the h2d bytes issued equal
+    ``(demand_loads + spec_loads) * per_expert_nbytes``, the launches are
+    the expected ones on the tensor-core routes (every verify chunk's
+    attention through flash, its experts through the GEMV at B = C x
+    top_k rows, or the 2-D binding per (token, k) on ``pr2_sync``), the
+    pool is coherent and, at acceptance 1.0 with equal tokens, the h2d
+    bytes do not exceed the baseline's.  Returns the launches summed over
+    the speculative runs."""
+    import torch
+    from repro_torch.core import expert_pool as EP
+    from repro_torch.core.draft import ReplayDraft
+    from repro_torch.core.offload_engine import OffloadEngine
+    from repro_torch.kernels import ops
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, PROMPT_LEN))
+    L, K, S = eng.n_moe_layers, cfg.moe.top_k, PROMPT_LEN
+    per_expert = EP.per_expert_nbytes(eng.store)
+    total, summary = {}, []
+    for name, flags in PLANES.items():
+        e = OffloadEngine(eng.params, cfg, eng.spec, quantized=True,
+                          store=eng.store, device=dev, **flags)
+        warm, _ = e.generate(prompt[:, :8], 8)  # warm-up, both paths
+        e.generate(prompt[:, :8], 8, draft=ReplayDraft(
+            np.concatenate([prompt[0, :8], warm[0]]), vocab_size=cfg.vocab_size),
+            num_draft_tokens=SPEC_K)
+        torch.cuda.synchronize(dev)
+        btoks, bstats = e.generate(prompt, NEW_TOKENS)
+        bt = e.last_timing
+        base_rate = bt["decode_steps"] / bt["decode_s"]
+        base_trace = None
+        # acceptance 1.0 needs the stream the verify chunks produce: in bf16
+        # a C = 5 chunk rounds otherwise than C = 1 decode, a near-tie may
+        # flip, and the baseline's stream then stops matching.  Replay the
+        # speculative run's own output until it reproduces itself (each
+        # pass fixes at least one more full round)
+        stream, passes = btoks, []
+        for _ in range(SPEC_FIXED_POINT):
+            out, _ = e.generate(prompt, NEW_TOKENS, draft=ReplayDraft(
+                np.concatenate([prompt[0], stream[0]]),
+                vocab_size=cfg.vocab_size), num_draft_tokens=SPEC_K)
+            passes.append(int((out != stream).sum()))
+            if not passes[-1]:
+                break
+            stream = out
+        ref = np.concatenate([prompt[0], stream[0]])
+        log(f"[spec] {name} baseline: decode {base_rate:.2f} tok/s, h2d "
+            f"{bstats.bytes_h2d / max(1, bstats.n_tokens):.0f} B per token, hit "
+            f"ratio {bstats.hit_ratio:.4f}; replay stream: tokens changed by "
+            f"each pass {passes} (0 last: a fixed point), "
+            f"{int((stream != btoks).sum())} tokens off the baseline's")
+        for miss in SPEC_MISSES:
+            mk = lambda: ReplayDraft(ref, miss_every=miss, vocab_size=cfg.vocab_size)
+            before_sm = _spec_totals(e.spec_metrics)
+            ops.reset_launches()
+            before = _routes()
+            toks, stats = e.generate(prompt, NEW_TOKENS, draft=mk(),
+                                     num_draft_tokens=SPEC_K)
+            launches, routes = ops.launches(), _routes_since(before)
+            t, ps = e.last_timing, e._last_pool_state
+            sm = _spec_delta(e.spec_metrics, before_sm)
+            plain_steps = stats.n_tokens - sm["emitted"]
+            rows = sm["proposed"] + sm["rounds"] + plain_steps  # token rows decoded
+            calls = sm["rounds"] + plain_steps
+            pr2 = not flags["vectorized"]
+            expect = {"dequant_matmul": 3 * K * L * rows if pr2 else 0,
+                      "dequant_matmul_batched": 3 * L,
+                      "dequant_matmul_slots": 0 if pr2 else 3 * L * calls,
+                      "flash_attention": cfg.n_layers * (1 + sm["rounds"]),
+                      "ragged_attention": 0}
+            equal = bool((toks == btoks).all())
+            r = {"miss_every": miss, "k": SPEC_K,
+                 "decode_tok_s": t["decode_steps"] / t["decode_s"],
+                 "baseline_decode_tok_s": base_rate,
+                 "over_baseline": t["decode_steps"] / t["decode_s"] / base_rate,
+                 **sm, "plain_steps": plain_steps,
+                 "h2d_bytes_per_token": stats.bytes_h2d / max(1, stats.n_tokens),
+                 "baseline_h2d_bytes_per_token":
+                     bstats.bytes_h2d / max(1, bstats.n_tokens),
+                 "bytes_h2d": stats.bytes_h2d, "bytes_h2d_issued": ps.h2d_bytes,
+                 "baseline_bytes_h2d": bstats.bytes_h2d,
+                 "hit_ratio": stats.hit_ratio,
+                 "counters": {k: getattr(stats, k) for k in
+                              ("hits", "spec_hits", "demand_loads", "spec_loads")},
+                 "overflow_accesses": ps.overflow_accesses,
+                 "launches": launches, "launches_expected": expect,
+                 "routes": {k: v for k, v in routes.items() if v},
+                 "tokens_equal_baseline": equal}
+            log(f"[spec] {name} {json.dumps(r)}")
+            if launches != expect:
+                fail(f"spec {name} miss {miss}: launches {launches} != {expect}")
+            decode = expect["dequant_matmul"] + expect["dequant_matmul_slots"]
+            if (routes["dequant_gemv"] != decode or routes["dequant_fma"]
+                    or routes["flash_wgmma"] != expect["flash_attention"]
+                    or routes["flash_fma"]):
+                fail(f"spec {name} miss {miss}: a launch left the tensor-core "
+                     f"routes: {routes}")
+            if not (ps.h2d_bytes == stats.bytes_h2d == (
+                    stats.demand_loads + stats.spec_loads) * per_expert):
+                fail(f"spec {name} miss {miss}: h2d bytes issued {ps.h2d_bytes} "
+                     f"!= counters {stats.bytes_h2d}")
+            if not EP.pool_coherent(e.store, ps):
+                fail(f"spec {name} miss {miss}: pool incoherent")
+            if not equal:
+                if base_trace is None:
+                    with _pos_trace_offload(e, S) as base_trace:
+                        e.generate(prompt, NEW_TOKENS)
+                with _pos_trace_offload(e, S) as tr:
+                    again, _ = e.generate(prompt, NEW_TOKENS, draft=mk(),
+                                          num_draft_tokens=SPEC_K)
+                if not (again == toks).all():
+                    fail(f"spec {name} miss {miss}: a repeated run differs")
+                _hold_positions(f"spec] [{name} miss {miss}", tr, base_trace,
+                                ("speculative", "baseline"), False)
+            elif miss == 0 and stats.bytes_h2d > bstats.bytes_h2d:
+                fail(f"spec {name}: acceptance-1.0 replay moved more h2d bytes "
+                     f"({stats.bytes_h2d}) than the baseline ({bstats.bytes_h2d})")
+            _add(total, launches)
+            summary.append(f"{name}/miss {miss}: {r['decode_tok_s']:.2f} tok/s "
+                           f"({r['over_baseline']:.2f}x), acceptance "
+                           f"{sm['acceptance']:.3f}, {sm['tokens_per_round']:.2f} "
+                           f"tokens/round, h2d/token {r['h2d_bytes_per_token']:.0f} "
+                           f"vs {r['baseline_h2d_bytes_per_token']:.0f}")
+        del e, ps
+        torch.cuda.empty_cache()
+    log("[spec] " + "; ".join(summary))
+    return total
+
+
+def _spec_draft(cfg, dev, *, bf16=False):
+    """The serving draft: ``tiny-draft``'s config at the target's vocabulary
+    (random weights, seed 7); with ``bf16`` in bfloat16 at head_dim 64,
+    the flash kernel's tensor-core instance."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    dcfg = get_config("tiny-draft").replace(vocab_size=cfg.vocab_size)
+    if bf16:
+        dcfg = dcfg.replace(n_heads=4, n_kv_heads=2, head_dim=64,
+                            dtype="bfloat16")
+    return T.init_model(dcfg, seed=7, device=dev), dcfg
+
+
+def phase_spec_serve(dev, eng, cfg, serve_toks):
+    """``[serve]``'s 8 requests through 4 slots with a random ``tiny-draft``
+    (the target's vocabulary, seed 7) at ``SPEC_K``, on the packed engine,
+    on pages of 16 and on dense slot KV: tokens/s, steps, acceptance (near
+    0: the draft is random), h2d bytes, launches by binding and route
+    against the expected.  Tokens are held to ``[serve]``'s under the
+    near-tie rule (both runs traced by position when they differ).
+    Returns the launches summed over both runs."""
+    import torch
+    from repro_torch.kernels import ops
+    dparams, dcfg = _spec_draft(cfg, dev)
+    rng = np.random.default_rng(0)
+    lens = rng.integers(24, 97, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    news = [SERVE_NEW] * SERVE_REQUESTS
+    kw = dict(max_slots=SERVE_SLOTS, slot_len=256, draft_params=dparams,
+              draft_cfg=dcfg, num_draft_tokens=SPEC_K)
+    L = eng.n_moe_layers
+    total, base_trace = {}, None
+    for layout, kv_page in (("paged", 16), ("dense", None)):
+        _serve(eng, cfg, prompts[:2], [6, 6], kv_page=kv_page, **kw)  # warm-up
+        torch.cuda.synchronize(dev)
+        admits = [0]
+
+        def count_admits(ce):
+            fn = ce._draft_admit
+
+            def admit(req):
+                admits[0] += 1
+                fn(req)
+            ce._draft_admit = admit
+        ops.reset_launches()
+        before = _routes()
+        t0 = time.perf_counter()
+        ce, toks, _, calls = _serve(eng, cfg, prompts, news, kv_page=kv_page,
+                                    on_engine=count_admits, **kw)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches, routes = ops.launches(), _routes_since(before)
+        sm = ce.spec_metrics
+        st = ce._pstate
+        n_tok = sum(len(t) for t in toks)
+        flash_target = 0 if kv_page else cfg.n_layers * calls["chunks"]
+        expect = {"dequant_matmul": 0,
+                  "dequant_matmul_batched": 3 * L * calls["chunks"],
+                  "dequant_matmul_slots": 3 * L * calls["decode"],
+                  "flash_attention": flash_target + dcfg.n_layers * admits[0],
+                  "ragged_attention": (cfg.n_layers * (calls["decode"] + calls["chunks"])
+                                       if kv_page else 0)}
+        equal = [list(t) for t in toks] == [list(t) for t in serve_toks]
+        r = {"layout": layout, "wall_s": wall, "tokens": n_tok,
+             "tokens_per_s": n_tok / wall, "steps": ce.step_count,
+             "decode_calls": calls["decode"], "admission_chunks": calls["chunks"],
+             "draft_admissions": admits[0], "rounds": sm.rounds,
+             "proposed": sm.proposed_total, "accepted": sm.accepted_total,
+             "acceptance": sm.acceptance_rate,
+             "tokens_per_round_per_row": sm.emitted_total / max(1, sm.rounds),
+             "bytes_h2d": st.h2d_bytes,
+             "bytes_h2d_per_token": st.h2d_bytes / max(1, n_tok),
+             "bytes_h2d_per_emitted": sm.bytes_h2d_per_accepted,
+             "overflow_accesses": st.overflow_accesses,
+             "launches": launches, "launches_expected": expect,
+             "routes": {k: v for k, v in routes.items() if v},
+             "tokens_equal_serve": equal}
+        log(f"[spec-serve] {json.dumps(r)}")
+        if launches != expect:
+            fail(f"spec-serve {layout}: launches {launches} != {expect}")
+        if (routes["dequant_gemv"] != expect["dequant_matmul_slots"]
+                or routes["dequant_fma"] or routes["ragged_warp"]
+                or routes["ragged_mma"] != expect["ragged_attention"]
+                or routes["flash_wgmma"] != flash_target
+                or routes["grouped_grouped"] != expect["dequant_matmul_batched"]):
+            fail(f"spec-serve {layout}: a target launch left the tensor-core "
+                 f"routes: {routes}")
+        counters = (int(st.counts[2]) + int(st.counts[3])) * eng.expert_bytes
+        if st.h2d_bytes != counters:
+            fail(f"spec-serve {layout}: h2d bytes issued {st.h2d_bytes} != "
+                 f"counters {counters}")
+        if sm.rounds < 1 or any(len(t) != SERVE_NEW for t in toks):
+            fail(f"spec-serve {layout}: no verify round ran or a request is short")
+        ce.check_invariants()
+        if not equal:
+            if base_trace is None:
+                base_trace = _traced_serve(eng, cfg, prompts, news,
+                                           max_slots=SERVE_SLOTS,
+                                           slot_len=256)[0]
+            trace = _traced_serve(eng, cfg, prompts, news, kv_page=kv_page,
+                                  **kw)[0]
+            _hold_positions(f"spec-serve] [{layout}", trace, base_trace,
+                            ("speculative", "serve"), False)
+        _add(total, launches)
+    return total
+
+
+def phase_spec_parity(dev):
+    """Draft-and-verify on ``tiny-moe`` (f32, seeded weights), card
+    (kernels) against CPU (plain versions), exactly equal tokens, counters
+    and speculation totals: ``OffloadEngine`` on the three packed planes
+    and accounting with the dense ``tiny-draft`` (seed 7), a replay of the
+    baseline stream and a replay missing every third proposal, at k =
+    ``SPEC_PARITY_K``, plus the replay at k = 1; ``ContinuousEngine`` with
+    the dense draft on the plain plane over the five KV overlays; and the
+    packed continuous engine on dense slots, pages of 16 and chunked
+    admission.  Returns the card's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.draft import DenseDraft, ReplayDraft
+    from repro_torch.core.offload_engine import (OffloadEngine,
+                                                 quantize_for_offload)
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    t0 = time.perf_counter()
+    cfg, dcfg = get_config("tiny-moe"), get_config("tiny-draft")
+    spec = cfg.offload
+    params = T.init_model(cfg, seed=0, device="cpu")
+    dparams = T.init_model(dcfg, seed=7, device="cpu")
+    exec_params, _, store = quantize_for_offload(params, cfg, spec,
+                                                 pack_experts=True, device="cpu")
+    qdeq, _ = quantize_for_offload(params, cfg, spec, device="cpu")
+    prompt = np.random.default_rng(3).integers(1, cfg.vocab_size, (1, 9))
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in (5, 11, 3, 8)]
+    news = (6, 4, 8, 5)
+    k = SPEC_PARITY_K
+    runs, launches = {}, {}
+    for where in ("cpu", dev):
+        ops.reset_launches()
+        store_w = store if where == "cpu" else _cpu_store_to(store, where)
+        dp = _to(dparams, where)
+        engines = {n: OffloadEngine(_to(exec_params, where), cfg, spec,
+                                    quantized=True, store=store_w, device=where,
+                                    **PLANES[n]) for n in PLANES}
+        engines["accounting"] = OffloadEngine(_to(qdeq, where), cfg, spec,
+                                              device=where)
+        ref = None
+        for n, e in engines.items():
+            base = e.generate(prompt, 12)[0]
+            ref = ref if ref is not None else np.concatenate([prompt[0], base[0]])
+            drafts = {"dense": (lambda: DenseDraft(dp, dcfg, device=where), k),
+                      "replay": (lambda: ReplayDraft(ref, vocab_size=cfg.vocab_size), k),
+                      "replay_miss3": (lambda: ReplayDraft(
+                          ref, miss_every=3, vocab_size=cfg.vocab_size), k),
+                      "replay_k1": (lambda: ReplayDraft(
+                          ref, vocab_size=cfg.vocab_size), 1)}
+            for dn, (mk, kk) in drafts.items():
+                toks, st = e.generate(prompt, 12, draft=mk(), num_draft_tokens=kk)
+                runs[str(where), "offload", n, dn] = (
+                    toks[0].tolist(), base[0].tolist(), str(st))
+            runs[str(where), "offload", n, "totals"] = _spec_totals(e.spec_metrics)
+        p = _to(params, where)
+        skw = dict(draft_params=dp, draft_cfg=dcfg, num_draft_tokens=k)
+        for name, kw in SERVE_VARIANTS.items():
+            ce, toks, steps, _ = _serve(None, cfg, prompts, news, max_slots=2,
+                                        slot_len=64, params=p, device=where,
+                                        **kw, **skw)
+            ce.check_invariants()
+            runs[str(where), "plain", name] = (toks, steps,
+                                               _spec_totals(ce.spec_metrics))
+        off = engines["pipelined"]
+        for name, kw in (("dense", dict(kv_page=None)), ("paged", dict(kv_page=16)),
+                         ("chunked", dict(kv_page=None, prefill_chunk=4))):
+            ce, toks, steps, _ = _serve(off, cfg, prompts[:3], news[:3],
+                                        max_slots=2, slot_len=48, **kw, **skw)
+            ce.check_invariants()
+            runs[str(where), "offloaded", name] = (
+                toks, steps, _spec_totals(ce.spec_metrics),
+                {k2: v for k2, v in ce.stats().items() if k2.startswith("offload_")})
+        if where != "cpu":
+            launches = ops.launches()
+    card = {k[1:]: v for k, v in runs.items() if k[0] == str(dev)}
+    host = {k[1:]: v for k, v in runs.items() if k[0] == "cpu"}
+    unequal = sorted(" ".join(map(str, k)) for k in card if card[k] != host[k])
+    not_greedy = sorted(" ".join(k) for k, v in card.items()
+                        if k[0] == "offload" and k[-1] != "totals" and v[0] != v[1])
+    log(f"[spec-parity] tiny-moe f32, {len(card)} runs card vs cpu: differing "
+        f"{unequal}; speculative != greedy {not_greedy}; card launches "
+        f"{launches}; {time.perf_counter() - t0:.1f} s")
+    if unequal or not_greedy:
+        fail("spec-parity: card and CPU differ, or a speculative run differs "
+             "from greedy decode")
+    return launches
 
 
 # ----------------------------------------------------------------------
@@ -1998,8 +2581,9 @@ def phase_bf16_parity(dev):
     """``tiny-moe`` at 4 heads over 2 KV heads (head_dim 64) in bf16, card
     (kernels) against CPU (plain versions): packed ``pipelined`` batch 1
     (16 tokens) and ``ContinuousEngine`` (4 requests through 2 slots,
-    pages of 16).  Each card run must take the tensor-core routes on every
-    launch; card and CPU are held to the near-tie rule."""
+    pages of 16), each also speculative (:func:`_bf16_spec`).  Each card
+    run must take the tensor-core routes on every launch; card and CPU are
+    held to the near-tie rule."""
     from repro_torch.configs import get_config
     from repro_torch.core.offload_engine import (OffloadEngine,
                                                  quantize_for_offload)
@@ -2049,6 +2633,68 @@ def phase_bf16_parity(dev):
                                  traces["cpu"][0], ("card", "cpu"))
         if diff is None and not equal:
             fail(f"bf16 {case}: every decision equal but the tokens differ")
+        if case == "batch-1":
+            stream = np.concatenate([prompt[0], toks["cpu"][0]])
+    _bf16_spec(dev, cfg, engines, prompt, stream, prompts, news)
+
+
+def _bf16_spec(dev, cfg, engines, prompt, stream, prompts, news):
+    """``[bf16-parity]``'s two cases as draft-and-verify, card against CPU:
+    batch 1 with a replay of the CPU's stream missing every third proposal
+    (k = ``SPEC_PARITY_K``: flash on ``wgmma`` at Sq = C, the GEMV at C x
+    top_k rows), and the continuous engine on pages with a random bf16
+    ``tiny-draft`` at head_dim 64 (``ragged_mma`` over B x C rows, the
+    draft's prefill on flash ``wgmma``).  Every card launch on the
+    tensor-core routes; card and CPU held to the near-tie rule by
+    position (:class:`_PosTrace`)."""
+    from repro_torch.core.draft import ReplayDraft
+    from repro_torch.kernels import ops
+    k = SPEC_PARITY_K
+    drafts = {w: _spec_draft(cfg, "cpu" if w == "cpu" else dev, bf16=True)
+              for w in engines}
+
+    def batch1(where, e):
+        with _pos_trace_offload(e, prompt.shape[1]) as tr:
+            toks = e.generate(prompt, 16, draft=ReplayDraft(
+                stream, miss_every=3, vocab_size=cfg.vocab_size),
+                num_draft_tokens=k)[0]
+        return tr, toks[0].tolist(), e.spec_metrics
+
+    def continuous(where, e):
+        tr, (ce, toks, _, _) = _traced_serve(
+            e, cfg, prompts, news, max_slots=2, slot_len=64,
+            draft_params=drafts[where][0], draft_cfg=drafts[where][1],
+            num_draft_tokens=k)
+        return tr, toks, ce.spec_metrics
+
+    for case, run in (("batch-1 speculative", batch1),
+                      ("continuous speculative", continuous)):
+        out = {}
+        for where, e in engines.items():
+            ops.reset_launches()
+            before = _routes()
+            out[where] = run(where, e)
+            launches, routes = ops.launches(), _routes_since(before)
+        equal = out["cpu"][1] == out["card"][1]
+        sm = out["card"][2]
+        log(f"[bf16-parity] {case}: card launches {launches}, routes "
+            f"{ {k2: v for k2, v in routes.items() if v} }; tokens equal "
+            f"{equal}; card rounds {sm.rounds}, acceptance "
+            f"{sm.acceptance_rate:.3f}")
+        used = ("dequant_gemv", "grouped_grouped", "flash_wgmma") + (
+            ("ragged_mma",) if case.startswith("continuous") else ())
+        tc = {"dequant_gemv": launches["dequant_matmul_slots"],
+              "grouped_grouped": launches["dequant_matmul_batched"],
+              "flash_wgmma": launches["flash_attention"],
+              "ragged_mma": launches["ragged_attention"]}
+        other = ("dequant_fma", "grouped_fma", "flash_fma", "ragged_warp")
+        if (any(routes[k2] != n for k2, n in tc.items())
+                or any(routes[k2] for k2 in other)
+                or any(routes[k2] < 1 for k2 in used) or sm.rounds < 1):
+            fail(f"bf16 {case}: a launch left the tensor-core routes or no "
+                 f"verify round ran: {routes}")
+        _hold_positions(f"bf16-parity] [{case}", out["card"][0], out["cpu"][0],
+                        ("card", "cpu"), equal)
 
 
 # ----------------------------------------------------------------------
@@ -2251,11 +2897,13 @@ def main():
     serve_extra = phase_serve_plain_parity(dev)
     _add(serve_extra, phase_serve_bench(dev))
     phase_bf16_parity(dev)
+    phase_spec_parity(dev)
     phase_train(dev)
     launches, batches, eng, cfg, prompt, main_run, main_report = phase_main(dev)
     # the host-bound decode runs come before any profiler window
     planes = phase_planes(dev, eng, cfg)
     launches["dequant_matmul"] = planes["pr2_sync"]["launches"]["dequant_matmul"]
+    spec_launches = phase_spec(dev, eng, cfg)
     accounting, dense = phase_accounting(dev, eng, cfg, prompt, main_run)
     launches["flash_attention"] += accounting["flash_attention"]
     _add(serve_extra, phase_serve_plain(dev, eng, cfg, dense))
@@ -2268,7 +2916,8 @@ def main():
                                  kern["dequant_matmul_batched"]["max_abs_err"])
     kern["dequant_matmul_batched"] = batched
     del tiers, flush
-    serve_launches, serve_slots = phase_serving(dev, eng, cfg)
+    serve_launches, serve_slots, serve_toks = phase_serving(dev, eng, cfg)
+    _add(spec_launches, phase_spec_serve(dev, eng, cfg, serve_toks))
     launches["ragged_attention"] = serve_launches["ragged_attention"]
     slots = kern["dequant_matmul_slots"]
     slots["max_abs_err"] = max(slots["max_abs_err"], serve_slots["err"])
@@ -2278,6 +2927,8 @@ def main():
     for name in ("ragged_attention", "flash_attention", "dequant_matmul_slots",
                  "dequant_matmul_batched"):
         launches[name] += serve_extra.get(name, 0)
+    for name in launches:  # the draft-and-verify paths ([spec], [spec-serve])
+        launches[name] += spec_launches.get(name, 0)
     csrc = "src/repro_torch/kernels/csrc/"
     src = {"dequant_matmul_batched": csrc + "dequant_grouped.cu",
            "dequant_matmul_slots": csrc + "dequant_gemv.cu",

@@ -18,25 +18,34 @@ second run prefill seconds, decode tokens/s with p50/p95 ms per token
 issued and counted, hit ratio, and the kernel launches by binding and
 route (all 0 on the CPU, where the plain versions run).
 
+``--speculative`` adds the reference's draft-and-verify scenario: the
+pipelined plane at a cache of 6 of 8 experts, greedy decode without a
+draft, then a ``ReplayDraft`` of that stream (acceptance 1.0) at k = 4;
+the tokens must equal the baseline's and the h2d bytes must not exceed
+its.  Rows ``spec_baseline``, ``speculative`` and ``spec_summary``; the
+measured ratio of decode rates is printed beside the device's name and
+held to no bar.
+
 Results go to ``experiments/torch/bench/offload_bench.json``.
 
-    PYTHONPATH=src python -m repro_torch.benchmarks.offload_bench [--smoke] [--trained]
+    PYTHONPATH=src python -m repro_torch.benchmarks.offload_bench [--smoke] [--trained] [--speculative]
 
-The reference's ``speculative`` scenario (draft-and-verify decoding) is
-not ported: ``--speculative`` raises ``NotImplementedError``.  Nor is
-its router top-k ablation, which belongs with the serving CLI's
-``--top-k-override`` (ROADMAP queue 1, item 7).
+The reference's router top-k ablation is not ported: it belongs with the
+serving CLI's ``--top-k-override`` (ROADMAP queue 1, item 7).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
+import torch
 
 from repro_torch import resolve_device
 from repro_torch.benchmarks import common
 from repro_torch.configs import get_config
+from repro_torch.core.draft import ReplayDraft
 from repro_torch.core.offload_engine import (OffloadEngine, generate_plain,
                                              quantize_for_offload)
 from repro_torch.kernels import ops
@@ -55,10 +64,6 @@ def _counts():
 
 def run(smoke=False, trained=False, max_new=None, seed=0, device=None,
         speculative=False):
-    if speculative:
-        raise NotImplementedError(
-            "the speculative (draft-and-verify) scenario is not ported yet: "
-            "ROADMAP queue 1, item 4")
     dev = resolve_device(device)
     if trained:
         params, cfg = common.get_trained_tiny_moe(device=dev)
@@ -127,9 +132,64 @@ def run(smoke=False, trained=False, max_new=None, seed=0, device=None,
           f"{speedup:.2f}x")
     results.append({"name": "offload_bench", "variant": "summary",
                     "speedup": round(speedup, 3)})
+    if speculative:
+        results += _speculative(params, cfg, spec, prompt, oracle, max_new,
+                                dev)
 
     common.emit(results, "offload_bench")
     return results
+
+
+def _speculative(params, cfg, spec, prompt, oracle, max_new, dev, k=4):
+    """The reference's speculative scenario: pipelined plane, cache 6 of
+    8, greedy decode, then a replay draft of that stream (acceptance 1.0)
+    at ``k``; each timed on a second run.  The expert and attention bits
+    are those of the oracle's weights, so its tokens are the target."""
+    eng = OffloadEngine(params, cfg, dataclasses.replace(spec, cache_size=6),
+                        quantized=True, device=dev)
+    ref = np.concatenate([prompt[0], oracle[0]])
+
+    def timed_gen(**kw):
+        for _ in range(2):  # the first run warms up
+            out, stats = eng.generate(prompt, max_new, **kw)
+            assert (out == oracle).all(), "speculative scenario: diverged"
+        t = eng.last_timing
+        return t["decode_steps"] / t["decode_s"], stats
+
+    rate_base, s_base = timed_gen()
+    rate_spec, s_spec = timed_gen(
+        draft=ReplayDraft(ref, vocab_size=cfg.vocab_size), num_draft_tokens=k)
+    assert s_spec.bytes_h2d <= s_base.bytes_h2d, \
+        f"speculation increased the h2d bytes at acceptance 1.0: " \
+        f"{s_spec.bytes_h2d} > {s_base.bytes_h2d}"
+    sm = eng.spec_metrics
+    rows = []
+    for variant, rate, stats, kk in (("spec_baseline", rate_base, s_base, 0),
+                                     ("speculative", rate_spec, s_spec, k)):
+        rows.append({
+            "name": "offload_bench", "variant": variant, "max_new": max_new,
+            "num_draft_tokens": kk, "tok_s": round(rate, 2),
+            "decode_ms_per_token": round(1e3 / rate, 2),
+            "bytes_per_token": round(stats.bytes_h2d / max(1, stats.n_tokens), 1),
+            "hit_ratio": round(stats.hit_ratio, 4)})
+        print(f"[offload_bench] {variant:13s}: {rate:8.2f} tok/s decode, "
+              f"hit_ratio={stats.hit_ratio:.3f}, "
+              f"h2d={stats.bytes_h2d / 1e6:.2f}MB")
+    where = _device_name(dev)
+    ratio = rate_spec / rate_base
+    print(f"[offload_bench] speculative / non-speculative decode rate (k={k}, "
+          f"acceptance {sm.acceptance_rate:.2f}): {ratio:.2f}x on {where}")
+    rows.append({"name": "offload_bench", "variant": "spec_summary",
+                 "num_draft_tokens": k, "device_name": where,
+                 "acceptance_rate": round(sm.acceptance_rate, 3),
+                 "rounds": sm.rounds,
+                 "hit_ratio": round(s_base.hit_ratio, 4),
+                 "spec_rate_ratio": round(ratio, 3)})
+    return rows
+
+
+def _device_name(dev) -> str:
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
 
 
 def main():
@@ -144,8 +204,8 @@ def main():
     ap.add_argument("--device", default=None,
                     help="the card unless 'cpu' is given")
     ap.add_argument("--speculative", action="store_true",
-                    help="the reference's draft-and-verify scenario (not "
-                         "ported: raises)")
+                    help="add the draft-and-verify scenario (replay draft "
+                         "at acceptance 1.0, k = 4, cache 6 of 8)")
     args = ap.parse_args()
     run(smoke=args.smoke, trained=args.trained, max_new=args.max_new,
         seed=args.seed, device=args.device, speculative=args.speculative)

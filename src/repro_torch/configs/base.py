@@ -124,6 +124,15 @@ class ModelConfig:
     def moe_layer_count(self) -> int:
         return sum(1 for k in self.layer_kinds() if parse_block(k)[1] == "moe")
 
+    @property
+    def attention_only_stack(self) -> bool:
+        """Every mixer is causal self-attention (attn/swa) and there is no
+        encoder: the stacks whose decode state rolls back by a position
+        reset (a draft model's condition)."""
+        return (self.encoder_layers == 0
+                and all(parse_block(k)[0] in ("attn", "swa")
+                        for k in self.block_pattern))
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 

@@ -29,8 +29,12 @@ serving scheduler's expert-overlap policy also reads).
 (``OffloadStats.per_token``) into the cost model's tokens/s on a
 hardware row (``cost_model.HARDWARE``).
 
-Not ported yet (ROADMAP queue 1): draft-and-verify (item 4) and
-telemetry (item 7).
+Greedy generation may run as draft-and-verify (``draft=``,
+``num_draft_tokens=``, ``core/draft``): per round the draft proposes up
+to k tokens and the target verifies them in one C = k + 1 chunk, on the
+packed planes and in accounting mode; the tokens are those of greedy
+decode.  Telemetry is not ported yet (ROADMAP queue 1 item 7); the
+speculation totals are :attr:`OffloadEngine.spec_metrics`.
 """
 from __future__ import annotations
 
@@ -42,10 +46,12 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig, OffloadSpec
+from repro_torch.configs.base import ModelConfig, OffloadSpec, parse_block
 from repro_torch.core import cost_model, expert_pool as EP, speculative
+from repro_torch.core.draft import verify_round
 from repro_torch.core.lru_cache import PyLRU
 from repro_torch.core.trace import moe_positions, stacked_routers
+from repro_torch.obs import SpecMetrics
 from repro_torch.quant import hqq
 from repro_torch.runtime.executor import Executor
 from repro_torch.serving.sampler import SamplerConfig, sample
@@ -273,13 +279,15 @@ class OffloadEngine:
     ``params`` are then its ``exec_params`` and ``store`` its packed host
     store (``quantize_for_offload(..., pack_experts=True)``).
     ``fused``/``pipelined``/``vectorized`` select the packed plane
-    (:func:`PackedDecoder`)."""
+    (:func:`PackedDecoder`).  ``draft``/``num_draft_tokens`` are the
+    defaults of :meth:`generate`'s draft-and-verify decoding."""
 
     def __init__(self, params, cfg: ModelConfig,
                  spec: Optional[OffloadSpec] = None, quantized: bool = False,
                  *, packed: Optional[bool] = None, store=None, device=None,
                  fused: bool = True, pipelined: bool = True,
-                 vectorized: bool = True):
+                 vectorized: bool = True, draft=None,
+                 num_draft_tokens: int = 0):
         assert cfg.moe is not None, "offloading targets MoE architectures"
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -319,12 +327,17 @@ class OffloadEngine:
                                         cfg.moe.num_experts)
         self._last_pool_state: Optional[EP.PoolState] = None
         self.last_timing: dict = {}
+        self.draft = draft
+        self.num_draft_tokens = int(num_draft_tokens or 0)
+        # speculation totals, cumulative over generate() calls
+        self.spec_metrics = SpecMetrics()
 
     # ------------------------------------------------------------------
     def generate(self, prompt, max_new_tokens: int, greedy: bool = True,
                  rng: Optional[torch.Generator] = None,
                  sampler: Optional[SamplerConfig] = None, *,
-                 prefill_chunk: Optional[int] = None, on_step=None
+                 prefill_chunk: Optional[int] = None, on_step=None,
+                 draft=None, num_draft_tokens: Optional[int] = None
                  ) -> Tuple[np.ndarray, OffloadStats]:
         """prompt: (1, S) ints.  Returns (generated (1, n), stats).
 
@@ -339,9 +352,23 @@ class OffloadEngine:
 
         ``on_step(logits, route_ids)``, when given, sees the last-position
         logits of every step (prefill first, route_ids None there) and
-        the host copies of every decode step's routed ids."""
+        the host copies of every decode step's routed ids.
+
+        ``draft``/``num_draft_tokens`` (default: the engine's; an explicit
+        ``num_draft_tokens=0`` turns it off) switch greedy decode to
+        draft-and-verify (:meth:`_generate_speculative`): the same tokens,
+        several per verify chunk.  Greedy only."""
         sampler = sampler or SamplerConfig(
             kind="greedy" if greedy else "categorical")
+        draft = self.draft if draft is None else draft
+        k = (self.num_draft_tokens if num_draft_tokens is None
+             else int(num_draft_tokens))
+        if draft is not None and k >= 1:
+            if sampler.kind != "greedy":
+                raise ValueError("draft-and-verify speculation is greedy "
+                                 "decoding only")
+            return self._generate_speculative(prompt, max_new_tokens, draft,
+                                              k, prefill_chunk=prefill_chunk)
         if sampler.kind != "greedy" and rng is None:
             rng = torch.Generator(self.device)
             rng.manual_seed(0)
@@ -375,17 +402,92 @@ class OffloadEngine:
                 on_step(logits[:, -1], route_ids)
         self._sync()
         t2 = time.perf_counter()
-        if self.packed:
-            c = pstate.counts
-            counts = [int(c[0]), int(c[1]), int(c[2]), int(c[3])]
-            self._last_pool_state = pstate
-        else:
-            counts = [sum(getattr(lru, f) for lru in caches)
-                      for f in ("hits", "spec_hits", "demand", "spec_loads")]
-        stats = OffloadStats(max_new_tokens - 1, *counts,
+        stats = OffloadStats(max_new_tokens - 1, *self._counts(pstate, caches),
                              expert_bytes=self.expert_bytes)
         self.last_timing = {"prefill_s": t1 - t0, "decode_s": t2 - t1,
                             "decode_steps": max_new_tokens - 1}
+        return np.asarray(out)[None], stats
+
+    def _generate_speculative(self, prompt, max_new_tokens: int, draft,
+                              k: int, *, prefill_chunk: Optional[int] = None
+                              ) -> Tuple[np.ndarray, OffloadStats]:
+        """Draft-and-verify greedy decode (the reference's
+        ``_generate_speculative``).  Per round the draft proposes ``k_eff
+        = min(k, remaining - 1)`` tokens; the target verifies them in ONE
+        C = k_eff + 1 chunk through ``Executor.decode`` (one pool acquire
+        per MoE layer per chunk; accounting mode replays the C positions
+        through PyLRU, staging nothing), emits the longest matching prefix
+        plus its own next token, and rolls back by a position reset to
+        ``S + len(out) - 1``: ring entries past it are hidden by the
+        attention mask and overwritten by the real tokens.  The last token
+        is a plain C = 1 step.  Needs a ring that never wraps, so on an
+        SWA stack the request must fit the window."""
+        cfg = self.cfg
+        prompt = np.asarray(prompt).reshape(1, -1).astype(np.int32)
+        S = int(prompt.shape[1])
+        win = cfg.sliding_window
+        if (win and any(parse_block(b)[0] == "swa" for b in cfg.block_pattern)
+                and S + max_new_tokens > win):
+            raise ValueError(
+                f"speculative decoding needs the request inside the SWA "
+                f"window ({S} + {max_new_tokens} > window={win}): a wrapped "
+                f"ring cannot roll back rejected verify chunks")
+        dec = self._exec
+        pstate = dec.init_pool_state(max_rows=k + 1) if self.packed else None
+        caches = None if self.packed else [
+            PyLRU(self.spec.cache_size, self.spec.num_speculative)
+            for _ in range(self.n_moe_layers)]
+        spec_m = self.spec_metrics
+        max_len = S + max_new_tokens
+        self._sync()
+        t0 = time.perf_counter()
+        pre_logits, state = dec.prefill(torch.as_tensor(prompt), max_len,
+                                        chunk=prefill_chunk)
+        out = [int(torch.argmax(pre_logits[0, -1]))]
+        t1 = time.perf_counter()
+        # the draft's ring gets k positions of headroom: after a rejection
+        # it has fed itself up to k - 1 tokens past the stream
+        draft.start(prompt, max_len + k)
+        prompt_list = [int(t) for t in prompt.reshape(-1)]
+        n_tokens = rounds = 0
+
+        def verify(chunk):
+            nonlocal state, pstate
+            if self.packed:
+                logits, state, pstate, route_ids = dec.decode(state, chunk,
+                                                              pstate)
+                self.usage.update(route_ids)
+            else:
+                logits, state, _, infos = dec.decode(state, chunk,
+                                                     collect_info=True)
+                self._account(infos, caches)
+            # the round's one blocking read: the chunk's argmax rows
+            return torch.argmax(logits[0], dim=-1).cpu().numpy()
+
+        while len(out) < max_new_tokens:
+            k_eff = min(k, max_new_tokens - len(out) - 1)
+            if k_eff < 1:  # the last token: a plain C = 1 step
+                out.append(int(verify(np.asarray([[out[-1]]], np.int32))[0]))
+                n_tokens += 1
+                continue
+            canon = prompt_list + out
+            d = draft.propose(canon[draft.consumed:], k_eff)
+            chunk = np.concatenate([[out[-1]], d]).astype(np.int32)[None]
+            emitted, a = verify_round(d, verify(chunk))
+            out.extend(emitted)
+            n_tokens += len(emitted)
+            rounds += 1
+            # target rollback: a position reset to the canonical frontier
+            state = dict(state, pos=S + len(out) - 1)
+            draft.accept(a)
+            spec_m.round(k_eff, a)
+        self._sync()
+        t2 = time.perf_counter()
+        stats = OffloadStats(n_tokens, *self._counts(pstate, caches),
+                             expert_bytes=self.expert_bytes)
+        spec_m.add_bytes(stats.bytes_h2d)
+        self.last_timing = {"prefill_s": t1 - t0, "decode_s": t2 - t1,
+                            "decode_steps": n_tokens, "rounds": rounds}
         return np.asarray(out)[None], stats
 
     def throughput_estimate(self, stats: OffloadStats, hw_name: str) -> float:
@@ -396,6 +498,16 @@ class OffloadEngine:
         bits = self.spec.expert_bits if self.quantized else 16
         return cost_model.tokens_per_second(self.cfg, hw, stats.per_token(),
                                             bits, self.spec.attn_bits)
+
+    def _counts(self, pstate, caches) -> List[int]:
+        """hits, spec_hits, demand_loads, spec_loads of one generation:
+        the pool's measured counters (packed; the pool state is kept for
+        inspection) or the PyLRU replay's (accounting)."""
+        if self.packed:
+            self._last_pool_state = pstate
+            return [int(c) for c in pstate.counts]
+        return [sum(getattr(lru, f) for lru in caches)
+                for f in ("hits", "spec_hits", "demand", "spec_loads")]
 
     def _sync(self):
         if self.device.type == "cuda":

@@ -216,12 +216,13 @@ def attention_decode(p, cfg, x_t, cache, cur_pos, *, window=None,
     updated in place.
 
     Rows at their own positions (continuous batching, a left-padded
-    batch) pass a :class:`RingStep`: a decode step (C = 1) whose row b writes
-    ring slot ``pos[b] mod W`` of its own ring row and attends through
-    ``attention_core`` with its own query position.  Every row computes
-    and writes: a free slot's writes stay in its own ring row.
+    batch) pass a :class:`RingStep`: row b's C tokens (C = 1 in decode,
+    k + 1 in a verify chunk) write ring slots ``(pos[b] + j) mod W`` of
+    its own ring row and attend through ``attention_core`` with its own
+    query positions.  Every row computes and writes: a free slot's
+    writes stay in its own ring row.
 
-    A prefill chunk (C > 1) whose last position still fits the ring
+    A prefill or verify chunk (C > 1) whose last position still fits the ring
     (``cur_pos + C <= W``) attends through the flash binding
     (``ops.flash_attention``) over ring slots ``[0, cur_pos + C)`` with
     ``q_offset = cur_pos``, reading the ring and the queries in place.
@@ -290,55 +291,60 @@ def attention_decode(p, cfg, x_t, cache, cur_pos, *, window=None,
 
 
 class RingStep(NamedTuple):
-    """The per-row inputs of one dense-ring decode step, built on the
-    host from the host-authoritative positions (:func:`ring_step`) and
-    uploaded in one copy, with the step's tokens when they are given."""
+    """The per-row inputs of one dense-ring step, built on the host from
+    the host-authoritative positions (:func:`ring_step`) and uploaded in
+    one copy, with the step's tokens when they are given."""
 
-    posq: torch.Tensor      # (B, 1) int32 query positions
+    posq: torch.Tensor      # (B, C) int32 query positions
     bidx: torch.Tensor      # (B,) long: arange(B)
-    rows: torch.Tensor      # (r,) long: the active rows
-    tokens: Optional[torch.Tensor]  # (B, 1) int32, or None
+    rows: torch.Tensor      # (r * C,) long: the token rows of the active rows
+    tokens: Optional[torch.Tensor]  # (B, C) int32, or None
 
 
 def ring_step(pos, C: int, device, staging: Optional[HostStaging] = None,
               active=None, tokens=None) -> RingStep:
-    """Build a :class:`RingStep`: ``pos`` (B,) each row's position,
-    ``active`` (B,) bool or None (all rows), ``tokens`` (B, 1) host ints
-    or None.  Rows at their own positions decode one token each; per-row
-    chunks (the draft-and-verify rows) are ROADMAP queue 1 item 4."""
-    if C != 1:
-        raise NotImplementedError(
-            "per-row chunks (C > 1) on a dense ring are the draft-and-verify "
-            "verify rows, ROADMAP queue 1 item 4")
+    """Build a :class:`RingStep`: ``pos`` (B,) each row's first position,
+    C tokens per row (1 in decode, k + 1 in a verify chunk), ``active``
+    (B,) bool or None (all rows), ``tokens`` (B, C) host ints or None.
+    ``rows`` lists the active rows' token rows ``b * C + j`` (the token-
+    major order of the step's B * C rows)."""
     pos = np.asarray(pos, np.int64).reshape(-1)
     B = pos.shape[0]
     act = np.ones(B, bool) if active is None else np.asarray(active, bool)
-    parts = [pos, np.arange(B), np.flatnonzero(act)]
+    rows = (np.flatnonzero(act)[:, None] * C + np.arange(C)).ravel()
+    parts = [(pos[:, None] + np.arange(C)).ravel(), np.arange(B), rows]
     if tokens is not None:
         parts.append(np.asarray(tokens).reshape(-1))
     seg = _upload(parts, device, staging)
-    return RingStep(posq=seg[0].view(B, 1), bidx=seg[1].long(),
+    return RingStep(posq=seg[0].view(B, C), bidx=seg[1].long(),
                     rows=seg[2].long(),
-                    tokens=seg[3].view(B, 1) if tokens is not None else None)
+                    tokens=seg[3].view(B, C) if tokens is not None else None)
 
 
 def _attention_decode_rows(p, cfg, x_t, cache, step: RingStep, *,
                            window=None):
-    """One decode token per row at the row's own position (the
-    reference's per-row ``attention_decode``, C = 1): row b's K/V go to
-    ring slot ``pos[b] mod W`` of its ring row, then it attends over its
-    ring with its position mask.  The ring is updated in place."""
+    """C tokens per row at the row's own positions (the reference's
+    per-row ``attention_decode``): row b's K/V go to ring slots
+    ``(pos[b] + j) mod W`` of its ring row, then its queries attend over
+    its ring with the position mask (``attention_core``, no kernel: no
+    binding takes per-row query offsets, and the reference runs no
+    kernel here either).  Entries a rollback left past a row's position
+    are hidden by ``kpos <= qpos`` until overwritten.  The ring is
+    updated in place."""
     W = cache["k"].shape[1]
+    C = x_t.shape[1]
+    assert C <= W, f"chunk of {C} tokens exceeds KV width {W}"
     q = _project_q(p, cfg, x_t)
     k_new, v_new = _project_kv(p, cfg, x_t)
     q = apply_rope(q, step.posq, cfg)
     k_new = apply_rope(k_new, step.posq, cfg)
-    slot = torch.remainder(step.posq[:, 0], W).long()
-    cache["k"][step.bidx, slot] = k_new[:, 0]
-    cache["v"][step.bidx, slot] = v_new[:, 0]
-    cache["pos"][step.bidx, slot] = step.posq[:, 0]
+    slots = torch.remainder(step.posq, W).long()
+    bidx = step.bidx[:, None]
+    cache["k"][bidx, slots] = k_new
+    cache["v"][bidx, slots] = v_new
+    cache["pos"][bidx, slots] = step.posq
     o = attention_core(q, cache["k"], cache["v"], step.posq, cache["pos"],
-                       causal=True, window=window)
+                       causal=True, window=window, q_chunk=C)
     return _out_proj(p, cfg, o), cache
 
 
@@ -404,7 +410,7 @@ class PagedStep(NamedTuple):
     w_src: torch.Tensor     # (n,) long: b * C + c of each write that lands
     w_page: torch.Tensor    # (n,) long
     w_off: torch.Tensor     # (n,) long
-    rows: torch.Tensor      # (r,) long: the active rows
+    rows: torch.Tensor      # (r * C,) long: the active rows' token rows
     worklists: Dict[Optional[int], RA.DeviceWorklist]
     tokens: Optional[torch.Tensor] = None  # (B, C) int32
 
@@ -426,8 +432,9 @@ def paged_step(pos, pages, active, C: int, page_size: int, device,
     ords, off = posq // page_size, posq % page_size
     pid = np.take_along_axis(pages, np.clip(ords, 0, T - 1), axis=1)
     ok = (pid >= 0) & (ords < T) & act[:, None]
+    rows = (np.flatnonzero(act)[:, None] * C + np.arange(C)).ravel()
     parts = [posq.ravel(), pages.ravel(), np.flatnonzero(ok), pid[ok],
-             off[ok], np.flatnonzero(act)]
+             off[ok], rows]
     n_seg = {}
     if device.type == "cuda":
         n_live = np.where(act, pos + C, 0)

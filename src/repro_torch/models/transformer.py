@@ -285,16 +285,17 @@ def decode_step(params, cfg: ModelConfig, state, tokens, *,
                 collect_info: bool = False, active=None, row=None,
                 step=None):
     """The plain plane's step: tokens (B, C) at each row's position (C = 1
-    decode, C > 1 a prompt chunk, whose attention over an unwrapped dense
-    ring takes the flash binding).  KV is written in place.  Returns
-    ``(logits (B, C, V), state)``, and the per-layer infos
-    (:func:`block_decode`) with ``collect_info``.
+    decode, C > 1 a prompt chunk or a draft-and-verify chunk, whose
+    attention over an unwrapped lock-step dense ring takes the flash
+    binding).  KV is written in place.  Returns ``(logits (B, C, V),
+    state)``, and the per-layer infos (:func:`block_decode`) with
+    ``collect_info``.
 
     * Dense rings, ``pos`` an int: the rows in lock-step; ``pos``
       advances by C.
     * Dense rings, ``pos`` a host (B,) array (continuous batching, a
-      left-padded batch): one token per row at its own position; every
-      row computes, writes its own ring row and advances (``active`` is
+      left-padded batch): C tokens per row from its own position; every
+      row computes, writes its own ring row and advances C (``active`` is
       not needed: a free slot's writes stay in its row).
     * Paged states (``"pages"``): ``active`` (B,) bool gates which rows
       write KV and advance (the others advance 0), and ``row=slot`` runs
@@ -389,15 +390,20 @@ def decode_block_packed_moe(p, cfg: ModelConfig, x_t, h2, store, pstate,
                             n_spec: int = 0, active=None, rows_dev=None,
                             fused: bool = True, vectorized: bool = True,
                             overlap: bool = True):
-    """MoE half of a packed block's decode step: route + acquire (+ the
+    """MoE half of a packed block's decode step over B rows of C tokens
+    (C = 1 in decode, k + 1 in a verify chunk): route + acquire (+ the
     lookahead layer's staging) + packed compute + residual, over the
-    active rows (C = 1); ``fused``/``vectorized``/``overlap`` select the
-    plane (``moe.moe_apply_packed``).  Returns (x_t, pstate, info)."""
+    B * C token rows in token-major order (row b's tokens at ``b * C +
+    j``, the reference's route-id order).  ``active`` (B,) is per row and
+    is repeated over each row's tokens; ``rows_dev`` already lists token
+    rows.  ``fused``/``vectorized``/``overlap`` select the plane
+    (``moe.moe_apply_packed``).  Returns (x_t, pstate, info)."""
     B, S, D = h2.shape
     h2d = h2.reshape(B * S, D)
+    act_tok = None if active is None else np.repeat(np.asarray(active, bool), S)
     y2d, route, pstate = M.moe_apply_packed(
         p["moe"], cfg, h2d, store, pstate, l_moe, routers,
-        lookahead=lookahead, n_spec=n_spec, active=active, rows_dev=rows_dev,
+        lookahead=lookahead, n_spec=n_spec, active=act_tok, rows_dev=rows_dev,
         fused=fused, vectorized=vectorized, overlap=overlap)
     return (x_t + y2d.reshape(B, S, D), pstate,
             {"route": route, "hidden_pre_moe": h2d})

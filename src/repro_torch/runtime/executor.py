@@ -37,19 +37,20 @@ Prefill is chunked prefill (one chunk by default): the same mixer, and
 on the packed planes MoE store-direct through a reusable device tier,
 with no pool traffic and no counter.
 
-Decode takes B >= 1 rows of one token each: dense KV rings in
+Decode takes B >= 1 rows of C >= 1 tokens each (C = 1 in decode, C =
+k + 1 in a draft-and-verify chunk, ``core/draft``): dense KV rings in
 lock-step (``pos`` an int), dense rings at per-row positions (``pos`` a
 host (B,) array: the continuous engine's slots and the static engine's
 padded batch), or block-paged KV (``state["pages"]``) at per-row
 positions; ``active`` marks the rows in use (paged rows outside it write
-nothing and stay; on the packed planes they bypass the expert pool).  A
+nothing and stay; on the packed planes they bypass the expert pool).
+On the packed planes a step's B * C token rows go through one pool
+acquire per MoE layer, in token-major order.  A
 step's positions, row indices, page table, write indices and ragged work
 lists are built once on the host and uploaded in one copy with the
 step's tokens when the caller passes them as a host array
 (``transformer.prepare_step``); :meth:`prefill_chunk_row` writes one
 slot's prompt chunk into its pages.
-
-Not ported yet (ROADMAP queue 1): C > 1 verify chunks (item 4).
 """
 from __future__ import annotations
 
@@ -111,7 +112,8 @@ class Executor:
         return T.init_decode_state(self.cfg, batch, max_len, self.device)
 
     def init_pool_state(self, max_rows: int = 1) -> EP.PoolState:
-        """Pool state for decode batches of up to ``max_rows`` rows."""
+        """Pool state for decode steps of up to ``max_rows`` token rows
+        (B * C: rows times tokens per row)."""
         if not self.packed:
             raise ValueError("buffer pools exist on the packed planes only")
         return EP.init_pool_state(self.store, self.spec, self.device,
@@ -144,15 +146,18 @@ class Executor:
         hidden states on the device with ``collect_info``
         (``transformer.decode_step``), else None.
 
-        Packed planes (C = 1): ``state`` is dense rings (in lock-step or
-        at per-row positions) or paged (``"pages"``), where ``active`` (B,)
+        Packed planes: ``state`` is dense rings (in lock-step or at
+        per-row positions) or paged (``"pages"``), where ``active`` (B,)
         numpy bool marks the rows that go through the expert pool (and,
         paged, write KV and advance ``pos``); the others compute nothing
-        that is kept.  Speculative staging runs only for a single row (on
-        the side stream on the pipelined plane, inside the layer
-        otherwise).  KV and ``pstate`` are updated in place.  Returns
-        ``(logits (B, 1, V), state, pstate, route_ids)`` with every row's
-        routed ids of every MoE layer as host arrays."""
+        that is kept.  The B * C token rows go through one acquire per MoE
+        layer (``pstate`` made for at least B * C rows).  Speculative
+        staging runs only for a single token (B * C = 1: on the side
+        stream on the pipelined plane, inside the layer otherwise).  KV
+        and ``pstate`` are updated in place.  Returns ``(logits (B, C,
+        V), state, pstate, route_ids)``, ``route_ids`` one (B * C, K) host
+        array per MoE layer, token-major (row b's tokens at ``b * C +
+        j``)."""
         step, tokens = self._prepare(state, tokens, active)
         if not self.packed:
             out = T.decode_step(self.params, self.cfg, state, tokens,
@@ -160,10 +165,6 @@ class Executor:
                                 step=step)
             return out[0], out[1], None, (out[2] if collect_info else None)
         B, C = tokens.shape
-        if C != 1:
-            raise NotImplementedError(
-                "C > 1 decode rows (speculative verify chunks) on the packed "
-                "planes are ROADMAP queue 1 item 4")
         cfg, spec = self.cfg, self.spec
         rows_dev = step.rows if step is not None else None
         n_spec = spec.num_speculative if B * C == 1 else 0

@@ -19,14 +19,21 @@
   plain plane's dense resident ones, or, with ``offload``, the packed
   experts served from the offload engine's device pool, shared by the
   whole batch.  Which waiting request joins next is the scheduler
-  policy's call (FCFS or expert overlap).
+  policy's call (FCFS or expert overlap).  With a dense draft model
+  (``draft_params``/``draft_cfg``, ``num_draft_tokens`` = k) greedy
+  decode runs as draft-and-verify: each step the draft proposes up to k
+  tokens per row and the target verifies every row's proposals in one C
+  = k + 1 chunk, then each row's KV rolls back past its rejection point
+  (:meth:`ContinuousEngine._step_speculative`); the tokens are those of
+  greedy decode.
 
 Each step's positions, row indices, page table and ragged work list are
 built on the host from the managers' tables and uploaded with the step's
 tokens, so nothing is read back from the device but the sampled tokens
 (on the plain plane, greedy: the (max_slots,) argmax) and, where routing
 is needed (the packed planes, or a policy that reads usage), the routed
-ids.
+ids (in a draft-and-verify round: every row's C argmax values, after
+the draft's own proposal reads).
 """
 from __future__ import annotations
 
@@ -37,12 +44,14 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, parse_block
+from repro_torch.core.draft import verify_round
 from repro_torch.core.offload_engine import (ExpertUsageTracker,
                                              routing_from_info)
+from repro_torch.obs import SpecMetrics
 from repro_torch.runtime.executor import Executor
 from repro_torch.runtime.plan import (Admission, ChunkTask, StepPlan,
                                       TokenBudgetPolicy)
-from repro_torch.serving.kv_manager import StateManager
+from repro_torch.serving.kv_manager import KVSlotManager, StateManager
 from repro_torch.serving.sampler import SamplerConfig, sample
 from repro_torch.serving.scheduler import (GenRequest, Scheduler,
                                            admission_cost)
@@ -139,6 +148,8 @@ class ContinuousEngine:
     full provisioning, ``max_slots * ceil(slot_len / kv_page)``.
     ``ragged_bucket=False`` pins the paged step's table to full width.
     ``prefill_chunk``/``token_budget``: budgeted chunked admission.
+    ``draft_params``/``draft_cfg``/``num_draft_tokens``: draft-and-verify
+    decoding with a dense attention-only draft (greedy only).
     ``device``: the plain plane's device (the card unless ``"cpu"``)."""
 
     def __init__(self, params, cfg: ModelConfig, *, max_slots: int = 4,
@@ -161,8 +172,6 @@ class ContinuousEngine:
                  device=None):
         if prefix_cache_pages or preemption or kv_host_pages:
             raise _not_ported("prefix caching, preemption and host swap", 5)
-        if num_draft_tokens or draft_params is not None or draft_cfg is not None:
-            raise _not_ported("draft-and-verify decoding", 4)
         if faults is not None:
             raise _not_ported("fault injection", 5)
         if telemetry is not None:
@@ -173,7 +182,9 @@ class ContinuousEngine:
             if offload.cfg != cfg:
                 raise ValueError("offload engine config mismatch")
             self._exec = offload._exec
-            self._pstate = self._exec.init_pool_state(max_rows=max_slots)
+            # a verify chunk brings max_slots * (k + 1) token rows
+            self._pstate = self._exec.init_pool_state(
+                max_rows=max_slots * (1 + int(num_draft_tokens or 0)))
             params = offload.params
         else:
             self._exec = Executor(params, cfg, device=device)
@@ -226,6 +237,54 @@ class ContinuousEngine:
         self.step_count = 0
         self._gen = torch.Generator(self.device)
         self._gen.manual_seed(seed)
+        self.spec_k = int(num_draft_tokens or 0)
+        self.spec_metrics: Optional[SpecMetrics] = None
+        if self.spec_k > 0:
+            self._init_draft(draft_params, draft_cfg)
+
+    def _init_draft(self, draft_params, draft_cfg) -> None:
+        """Check and set up draft-and-verify decoding (the reference's
+        checks): a dense attention-only draft sharing the vocabulary, a
+        greedy engine, and requests bounded by a ring that never wraps."""
+        cfg = self.cfg
+        if draft_params is None or draft_cfg is None:
+            raise ValueError("num_draft_tokens >= 1 needs draft_params "
+                             "and draft_cfg (the dense draft model)")
+        if not self._greedy:
+            raise ValueError(
+                "draft-and-verify decoding is greedy-only: the acceptance "
+                "rule compares the target's argmax stream")
+        # a wrapped ring cannot roll back: a rejected verify-chunk write
+        # would overwrite the live entry W positions back.  Dense rings
+        # are min(slot_len, window) wide; pages never wrap
+        self._unbounded = False
+        self._spec_cap = self.slot_len
+        if (not self.paged and cfg.sliding_window
+                and any(parse_block(k)[0] == "swa"
+                        for k in cfg.block_pattern)):
+            self._spec_cap = min(self.slot_len, cfg.sliding_window)
+        if draft_cfg.vocab_size != cfg.vocab_size:
+            raise ValueError(
+                f"draft vocab {draft_cfg.vocab_size} != target vocab "
+                f"{cfg.vocab_size}; draft and target must share tokens")
+        if not draft_cfg.attention_only_stack or draft_cfg.moe is not None:
+            raise ValueError(
+                f"draft {draft_cfg.name!r} must be a dense causal-attention "
+                f"stack (rollback = pos reset; an MoE draft would compete "
+                f"for the h2d bus)")
+        self._draft_exec = Executor(draft_params, draft_cfg,
+                                    device=self.device)
+        # k positions of headroom: rejected self-feeds land past the
+        # canonical stream and must never wrap onto live context
+        self._draft_kv = KVSlotManager(draft_cfg, self.max_slots,
+                                       self.slot_len + self.spec_k,
+                                       device=self.device)
+        self._draft_consumed = np.zeros(self.max_slots, np.int64)
+        # the request whose draft state each slot row holds (-1: none);
+        # a row is bound lazily, at its first speculative step
+        self._draft_rid = np.full(self.max_slots, -1, np.int64)
+        self.spec_metrics = SpecMetrics()
+        self._spec_last_h2d = 0.0
 
     # ------------------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 32, on_token=None,
@@ -237,11 +296,15 @@ class ContinuousEngine:
             raise ValueError(
                 "per-request temperature needs a stochastic sampler; this "
                 "engine decodes greedily")
-        if (not self._unbounded
-                and prompt.size + max_new_tokens > self.slot_len):
+        cap = self.slot_len if self.spec_metrics is None else self._spec_cap
+        if not self._unbounded and prompt.size + max_new_tokens > cap:
+            detail = (f"slot_len={self.slot_len}" if cap == self.slot_len
+                      else f"the speculative ring cap {cap} (= min(slot_"
+                           f"len, sliding_window); a wrapped ring cannot "
+                           f"roll back rejected verify chunks)")
             raise ValueError(
                 f"request needs {prompt.size + max_new_tokens} KV "
-                f"positions > slot_len={self.slot_len}")
+                f"positions > {detail}")
         req = GenRequest(prompt=prompt, max_new_tokens=max_new_tokens,
                          arrival=self.step_count, on_token=on_token,
                          on_finish=on_finish, temperature=temperature)
@@ -323,8 +386,7 @@ class ContinuousEngine:
             req.emit(first)
             if self._done(req, first):
                 self._admissions.remove(adm)
-                self.kv.release(adm.slot)
-                self.sched.evict(req, self._reason(first))
+                self._finish(req, self._reason(first))
                 finished.append(req)
                 continue
             self.tokens[adm.slot, 0] = first
@@ -375,6 +437,14 @@ class ContinuousEngine:
         return ("eos" if self.eos_id is not None and tok == self.eos_id
                 else "length")
 
+    def _finish(self, req: GenRequest, reason: str) -> None:
+        """A running request ends: its slot (and pages) and its draft row
+        are released before the scheduler sees the eviction."""
+        self.kv.release(req.slot)
+        if self.spec_k > 0:
+            self._draft_rid[req.slot] = -1
+        self.sched.evict(req, reason)
+
     # ------------------------------------------------------------------
     def cancel(self, rid: int) -> bool:
         """Client abandonment: terminal status ``cancelled``, wherever the
@@ -387,10 +457,18 @@ class ContinuousEngine:
         self._admissions = [a for a in self._admissions if a.rid != rid]
         for req in self.sched.running:
             if req.rid == rid:
-                self.kv.release(req.slot)
-                self.sched.evict(req, "cancelled")
+                self._finish(req, "cancelled")
                 return True
         return False
+
+    def check_invariants(self) -> None:
+        """Step-boundary audit of the host-side bookkeeping: the
+        scheduler's lists, the KV manager's free/owned partition and, with
+        a draft, the draft rings' slot ledger."""
+        self.sched.check_invariants()
+        self.kv.check_invariants()
+        if self.spec_metrics is not None:
+            self._draft_kv.check_invariants()
 
     # ------------------------------------------------------------------
     def step(self) -> List[GenRequest]:
@@ -410,6 +488,15 @@ class ContinuousEngine:
             return finished
         reqs = sorted((r for r in self.sched.running if r.slot in set(rows)),
                       key=lambda r: r.slot)
+        if self.spec_metrics is not None:
+            # one draft-and-verify round for the whole batch; k is clipped
+            # so no row emits past its budget (a row with one token left
+            # sends the batch to the plain step below)
+            k_round = min([self.spec_k]
+                          + [r.max_new_tokens - len(r.generated) - 1
+                             for r in reqs])
+            if k_round >= 1:
+                return self._step_speculative(finished, rows, reqs, k_round)
         active = np.zeros((self.max_slots,), bool)
         active[rows] = True
         if self.paged:
@@ -450,11 +537,153 @@ class ContinuousEngine:
             t = int(nxt[req.slot])
             req.emit(t)
             if self._done(req, t):
-                self.kv.release(req.slot)
-                self.sched.evict(req, self._reason(t))
+                self._finish(req, self._reason(t))
                 finished.append(req)
             else:
                 self.tokens[req.slot, 0] = t
+        self.step_count += 1
+        self.sched.check_invariants()
+        return finished
+
+    # ------------------------------------------------------------------
+    # draft-and-verify decoding
+    def _draft_admit(self, req: GenRequest) -> None:
+        """Bind a running request to its slot's draft row: a B = 1 draft
+        prefill of the prompt, installed at the draft ring's width.  Lazy:
+        it runs at the first speculative step that touches the row, so
+        every admission mode (whole, chunked, paged) binds alike."""
+        slot = req.slot
+        _, st = self._draft_exec.prefill(req.prompt[None],
+                                         self._draft_kv.slot_len)
+        self._draft_kv.write_prefill(st, slot)
+        self._draft_consumed[slot] = req.prompt.size
+        self._draft_rid[slot] = req.rid
+
+    def _draft_propose(self, reqs: List[GenRequest], k: int
+                       ) -> Dict[int, List[int]]:
+        """Batched draft catch-up and proposal: every row first consumes
+        its canonical tail (the tokens emitted since the draft last saw
+        the stream), then proposes k greedy tokens, feeding itself the
+        first k - 1.  The rows run in lock-step sub-steps of all
+        ``max_slots`` rows; a row that is done parks one position past its
+        last real feed (dead under the mask, overwritten when a real token
+        lands there).  The draft's positions are host-authoritative, set
+        from ``_draft_consumed`` before every sub-step (which also rolls
+        rejected feeds back) and uploaded with the sub-step's tokens."""
+        kvd = self._draft_kv
+        queues: Dict[int, List[int]] = {}
+        total: Dict[int, int] = {}
+        fed: Dict[int, int] = {}
+        props: Dict[int, List[int]] = {}
+        for req in reqs:
+            r = req.slot
+            canon = np.concatenate([req.prompt.astype(np.int64),
+                                    np.asarray(req.generated, np.int64)])
+            q = [int(t) for t in canon[int(self._draft_consumed[r]):]]
+            assert q, "draft ahead of the canonical stream"
+            queues[r], total[r] = q, len(q) + k - 1
+            fed[r], props[r] = 0, []
+        state = kvd.state
+        for _ in range(max(total.values())):
+            toks = np.zeros((self.max_slots, 1), np.int32)
+            pos = np.zeros((self.max_slots,), np.int32)
+            for req in reqs:
+                r = req.slot
+                i = min(fed[r], total[r])  # done rows park one past last
+                pos[r] = int(self._draft_consumed[r]) + i
+                if fed[r] < len(queues[r]):
+                    toks[r, 0] = queues[r][fed[r]]
+                elif fed[r] < total[r]:
+                    toks[r, 0] = props[r][fed[r] - len(queues[r])]
+            logits, state, _, _ = self._draft_exec.decode(
+                dict(state, pos=pos), toks)
+            am = torch.argmax(logits[:, -1], dim=-1).cpu().numpy()
+            for req in reqs:
+                r = req.slot
+                if fed[r] < total[r]:
+                    fed[r] += 1
+                    if fed[r] >= len(queues[r]):
+                        props[r].append(int(am[r]))
+        kvd.state = state  # its pos is stale; _draft_consumed is the truth
+        for req in reqs:
+            self._draft_consumed[req.slot] += len(queues[req.slot])
+        return props
+
+    def _step_speculative(self, finished: List[GenRequest], rows: List[int],
+                          reqs: List[GenRequest], k_round: int
+                          ) -> List[GenRequest]:
+        """One draft-and-verify round over the running rows: the draft
+        proposes ``k_round`` tokens per row, the target verifies every
+        row's in one C = k_round + 1 chunk (on the packed plane one pool
+        acquire per MoE layer over the B * C token rows), each row emits
+        its longest matching prefix plus the target's own next token, and
+        the target's KV (``truncate``: a position reset on dense rings,
+        the table trim on pages) and the draft's bookkeeping roll back
+        past each row's rejection point."""
+        C = k_round + 1
+        for req in reqs:
+            if self._draft_rid[req.slot] != req.rid:
+                self._draft_admit(req)
+        props = self._draft_propose(reqs, k_round)
+        chunk = np.zeros((self.max_slots, C), np.int32)
+        for req in reqs:
+            chunk[req.slot, 0] = self.tokens[req.slot, 0]
+            chunk[req.slot, 1:] = props[req.slot]
+        active = np.zeros((self.max_slots,), bool)
+        active[rows] = True
+        base_len = {}
+        if self.paged:
+            for r in rows:
+                base_len[r] = self.kv.length(r)
+                self.kv.ensure(r, base_len[r] + C)
+            step_state = self.kv.view(self.kv.live_width(rows))
+        else:
+            step_state = self.kv.state
+        # the route ids are token-major (B * C, K): row r's at r * C + j
+        tok_rows = [r * C + j for r in rows for j in range(C)]
+        if self.offload is not None:
+            logits, state, self._pstate, route_ids = self._exec.decode(
+                step_state, chunk, self._pstate, active)
+            self.usage.update(route_ids, rows=tok_rows)
+        else:
+            logits, state, _, infos = self._exec.decode(
+                step_state, chunk, active=active, collect_info=self._collect)
+            if self._collect:
+                ids, _ = routing_from_info(self.cfg, infos,
+                                           want_hiddens=False)
+                self.usage.update(ids, rows=tok_rows)
+        if self.paged:
+            self.kv.adopt(state)
+            for r in rows:
+                self.kv.note_tokens(r, base_len[r] + C)
+        else:
+            self.kv.state = state
+        # the round's one blocking read: every row's target argmax
+        tgt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        for req in reqs:
+            r = req.slot
+            emitted, a = verify_round(props[r], tgt[r])
+            self.spec_metrics.round(k_round, a)
+            stopped = False
+            for t in emitted:
+                req.emit(int(t))
+                if self._done(req, int(t)):
+                    stopped = True
+                    break
+            if stopped:
+                self._finish(req, self._reason(req.generated[-1]))
+                finished.append(req)
+            else:
+                # roll back to where non-speculative decode would stand:
+                # prompt + generated, minus the last token not yet fed
+                self.tokens[r, 0] = req.generated[-1]
+                self.kv.truncate(r, len(req.prompt) + len(req.generated) - 1)
+                self._draft_consumed[r] += min(a, k_round - 1)
+        if self.offload is not None:
+            total = (int(self._pstate.counts[2]) + int(self._pstate.counts[3])
+                     ) * self.offload.expert_bytes
+            self.spec_metrics.add_bytes(total - self._spec_last_h2d)
+            self._spec_last_h2d = total
         self.step_count += 1
         self.sched.check_invariants()
         return finished

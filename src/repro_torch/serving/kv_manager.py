@@ -25,7 +25,10 @@ layers:
 
 On both planes every row's position (and the page table) is
 host-authoritative numpy, so a step's positions and work list never
-need a device read.  Released pages have ``ppos`` scrubbed to -1 in
+need a device read.  ``truncate`` rolls a slot back after a rejected
+draft-and-verify chunk: a position reset on dense rings; on pages also
+the pages past the new length go back to the pool (``PagePool.trim``,
+keeping the reservation) and are scrubbed.  Released pages have ``ppos`` scrubbed to -1 in
 every layer before reuse: the kernel trusts ``ppos``, so a stale
 position would leak another request's keys into a new row's attention.
 """
@@ -118,7 +121,17 @@ class KVSlotManager:
         raise _not_ported("KVSlotManager.restore (recurrent rollback)", 6)
 
     def truncate(self, slot: int, n_tokens: int) -> None:
-        raise _not_ported("KVSlotManager.truncate (draft rollback)", 4)
+        """Roll the slot back so exactly ``n_tokens`` positions are live
+        (a rejected verify chunk): a position reset only.  Ring entries
+        at positions >= ``n_tokens`` carry kpos > qpos for every later
+        query, so the attention mask hides them, and the next real token
+        overwrites the same ring slot.  Valid while the ring has never
+        wrapped, which the speculative engines guarantee."""
+        assert 0 <= n_tokens <= int(self.state["pos"][slot]), \
+            f"truncate({slot}, {n_tokens}) would extend, not roll back"
+        pos = self.state["pos"].copy()
+        pos[slot] = n_tokens
+        self.state = dict(self.state, pos=pos)
 
     def metrics(self) -> Dict[str, object]:
         """KV occupancy, the reference's ``layout: "dense"`` keys: every
@@ -224,6 +237,20 @@ class PagePool:
             heapq.heappush(self._free, pid)
         return ids
 
+    def trim(self, slot, n_tokens: int) -> List[int]:
+        """Give back the pages beyond ``pages_for(n_tokens)`` (a rejected
+        verify chunk), keeping the reservation: the request may regrow
+        into it.  Returns the freed page ids, highest ordinal first, for
+        scrubbing."""
+        keep = self.pages_for(n_tokens)
+        assert slot in self.owned, f"slot {slot} not reserved"
+        freed = []
+        while len(self.owned[slot]) > keep:
+            pid = self.owned[slot].pop()
+            heapq.heappush(self._free, pid)
+            freed.append(pid)
+        return freed
+
     def stats(self) -> Dict[str, object]:
         return {"pages_total": self.n_pages,
                 "pages_free": self.n_free,
@@ -301,6 +328,25 @@ class PagedKVManager:
         base = len(self.pool.owned[slot]) - len(new)
         for j, pid in enumerate(new):
             self._pages_np[slot, base + j] = pid
+
+    def truncate(self, slot: int, n_tokens: int) -> None:
+        """Roll the slot back so exactly ``n_tokens`` positions are live
+        (a rejected verify chunk): the pages past ``pages_for(n_tokens)``
+        go back to the pool, their table entries to -1 and their ``ppos``
+        to -1 (a reused page must not leak the rejected positions into
+        another row's mask), and the position and length mirror reset.
+        Entries of a kept page past ``n_tokens`` stay, hidden by kpos >
+        qpos until the real tokens overwrite them.  The slot's table is
+        then what non-speculative decode at that position holds."""
+        assert 0 <= n_tokens <= self._len[slot], \
+            f"truncate({slot}, {n_tokens}) would extend, not roll back"
+        freed = self.pool.trim(slot, n_tokens)
+        self._pages_np[slot, len(self.pool.owned[slot]):] = -1
+        self._scrub(freed)
+        self._len[slot] = n_tokens
+        pos = self.state["pos"].copy()
+        pos[slot] = n_tokens
+        self.state = dict(self.state, pos=pos)
 
     def note_tokens(self, slot: int, n_tokens: int) -> None:
         """Record the slot's live token count (the host mirror of its

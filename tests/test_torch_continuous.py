@@ -150,15 +150,19 @@ def test_overlap_policy_serves_like_reference(engines):
     assert pres == jres, first_divergence(jcalls, pcalls)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(prefix_cache_pages=4), dict(preemption=True),
-    dict(kv_host_pages=2), dict(num_draft_tokens=2), dict(faults=object()),
-    dict(telemetry=object())],
+@pytest.mark.parametrize("kw,exc", [
+    (dict(prefix_cache_pages=4), NotImplementedError),
+    (dict(preemption=True), NotImplementedError),
+    (dict(kv_host_pages=2), NotImplementedError),
+    # draft-and-verify is ported: k >= 1 without a draft model is refused
+    (dict(num_draft_tokens=2), ValueError),
+    (dict(faults=object()), NotImplementedError),
+    (dict(telemetry=object()), NotImplementedError)],
     ids=["prefix", "preemption", "host-swap", "drafts", "faults",
          "telemetry"])
-def test_out_of_scope_arguments_are_refused(engines, kw):
+def test_out_of_scope_arguments_are_refused(engines, kw, exc):
     _, _, pcfg, peng = engines
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(exc):
         PContinuous(None, pcfg, offload=peng, **{"kv_page": 16, **kw})
 
 

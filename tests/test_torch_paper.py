@@ -19,9 +19,11 @@ held-out tokens.
   ``OffloadStats.per_token`` and ``throughput_estimate`` equal.
 * ``offload_bench --trained --smoke`` on the CPU: every plane's tokens
   and counters equal to the reference's packed engine.
-* The harness refuses the suites it does not port, the speculative
-  scenario raises, and the recipe's checkpoint and trace are cached and
-  read back under the port's own directory.
+* ``offload_bench --speculative``: its baseline and replay-draft rows
+  carry the reference's engine's hit ratios and h2d bytes per token.
+* The harness refuses the suites it does not port, and the recipe's
+  checkpoint and trace are cached and read back under the port's own
+  directory.
 """
 import dataclasses
 
@@ -235,9 +237,29 @@ def test_offload_bench_planes_match_the_reference(benches):
         assert r["launches"] == {} and r["device"] == "cpu"
 
 
-def test_speculative_scenario_is_refused():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        offload_bench.run(speculative=True, device="cpu")
+def test_speculative_scenario_is_refused(benches):
+    """The speculative scenario is no longer refused: on the shared
+    trained model it runs, and its baseline and replay-draft rows carry
+    the reference's engine's hit ratios and h2d bytes per token on the
+    same weights (pipelined plane, cache 6 of 8, k = 4, acceptance 1.0)."""
+    from repro.core.draft import ReplayDraft as JReplay
+    rows = {r["variant"]: r for r in offload_bench.run(
+        smoke=True, trained=True, speculative=True, device="cpu")}
+    jcfg = benches["jcfg"]
+    prompt = np.random.default_rng(0).integers(
+        1, jcfg.vocab_size, (1, 12)).astype(np.int32)
+    eng = JOE.OffloadEngine(benches["params"], jcfg,
+                            dataclasses.replace(jcfg.offload, cache_size=6),
+                            quantized=True)
+    toks, base = eng.generate(prompt, 8)
+    ref = np.concatenate([prompt[0], np.asarray(toks)[0]])
+    _, spec = eng.generate(prompt, 8, draft=JReplay(
+        ref, vocab_size=jcfg.vocab_size), num_draft_tokens=4)
+    for variant, st in (("spec_baseline", base), ("speculative", spec)):
+        assert rows[variant]["hit_ratio"] == round(st.hit_ratio, 4), variant
+        assert rows[variant]["bytes_per_token"] == round(
+            st.bytes_h2d / max(1, st.n_tokens), 1), variant
+    assert rows["spec_summary"]["acceptance_rate"] == 1.0
 
 
 @pytest.mark.parametrize("only,match", [("kernels", "chip_smoke"),

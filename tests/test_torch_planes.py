@@ -95,9 +95,9 @@ def test_plane_matches_reference(quantized, pipelined, vectorized, fused):
 
 def test_plain_plane_is_refused(quantized):
     """The plain plane keeps no expert pool, row chunks need a paged state,
-    and per-row chunks on dense rings (the draft-and-verify rows) are not
-    ported: each raises instead of computing something else.  The packed
-    planes refuse the static engine's padded prefill."""
+    and a per-row chunk on dense rings (the draft-and-verify rows) wider
+    than the ring is refused: each raises instead of computing something
+    else.  The packed planes refuse the static engine's padded prefill."""
     from repro_torch.runtime.executor import Executor
     _, _, _, params, store, pcfg, pspec = quantized
     ex = Executor(params, pcfg, device="cpu", plane="plain")
@@ -107,8 +107,8 @@ def test_plain_plane_is_refused(quantized):
     with pytest.raises(ValueError, match="paged-KV"):
         ex.prefill_chunk_row(dense, torch.zeros((1, 2), dtype=torch.int32), 0)
     rows = dict(dense, pos=np.zeros(1, np.int32))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        ex.decode(rows, torch.zeros((1, 2), dtype=torch.int32))
+    with pytest.raises(AssertionError, match="exceeds KV width"):
+        ex.decode(rows, torch.zeros((1, 9), dtype=torch.int32))
     packed = Executor(params, pcfg, spec=pspec, store=store, device="cpu",
                       plane="packed_vectorized")
     with pytest.raises(ValueError, match="chunks"):

@@ -359,10 +359,17 @@ def test_slot_manager_matches_reference(model, seed):
     with pytest.raises(ValueError, match="width"):
         pm.write_prefill(wide, 0)
     for call, item in ((lambda: pm.snapshot(0), "item 6"),
-                       (lambda: pm.restore(None, 0), "item 6"),
-                       (lambda: pm.truncate(0, 1), "item 4")):
+                       (lambda: pm.restore(None, 0), "item 6")):
         with pytest.raises(NotImplementedError, match=item):
             call()
+    # truncate (the draft-and-verify rollback) is ported: a position reset
+    # that never extends
+    s = pm.allocate("t")
+    pm.state["pos"][s] = 5
+    pm.truncate(s, 2)
+    assert int(pm.state["pos"][s]) == 2
+    with pytest.raises(AssertionError, match="would extend"):
+        pm.truncate(s, 3)
 
 
 def test_unbounded_swa_slots_decode_past_slot_len(model):
