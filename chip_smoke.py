@@ -56,8 +56,9 @@ last line):
 9. serve-bench: the port's ``benchmarks/serve_bench.run(quick=True)`` on
    the card (``tiny-moe``, random weights): continuous against static,
    chunked-prefill latency on the plain and packed planes, dense slots
-   against pages, each scenario asserting its own parities; its rows
-   printed.
+   against pages, prefix reuse (TTFT, the reference's 1.5x floor),
+   overload with preemption and chaos goodput (the 0.7x floor), each
+   scenario asserting its own parities; its rows printed.
 10. bf16 parity: ``tiny-moe`` at 4 heads over 2 KV heads (head_dim 64) in
     bf16, inside every tensor-core route's scope, packed ``pipelined``
     batch 1 and ``ContinuousEngine`` (4 requests through 2 slots, pages of
@@ -74,6 +75,13 @@ last line):
     every third proposal (k = 3), and the replay at k = 1;
     ``ContinuousEngine`` on the plain plane over the five KV overlays and
     the packed engine on dense slots, pages and chunked admission.
+10c. item5-parity: ``tiny-moe`` (f32) card against CPU, exactly equal
+    tokens, emit steps, statuses and the prefix, host-swap, fault,
+    offload and page counters: prefix hits on the plain and packed
+    planes, swap resume, recompute resume and priority preemption, the
+    chaos schedule with cancelling clients, a cancel while swapped out, a
+    step deadline, NaN quarantine on both planes, and every expert fetch
+    failing (each decode MoE layer degraded to store-direct).
 11. train: ``tiny-moe`` at full size (f32: 6 layers, d 256, 8 experts,
     top-2) trained with the paper-measurement recipe of
     ``repro_torch.benchmarks.common`` (sequences of 128, batches of 8, a
@@ -148,6 +156,22 @@ last line):
     ``tiny-draft`` at the target's vocabulary, k = 4, on pages and on
     dense slots: tokens/s, acceptance, h2d bytes, launches by route;
     tokens held to ``[serve]``'s by position under the near-tie rule.
+17b. prefix, preempt, chaos (after ``[spec-serve]``, on the main phase's
+    model and pool, pages of 16): ``[prefix]`` serves the reference's full
+    prefix-reuse workload (a 160-token system prompt, five tails, 8 new
+    tokens, one slot, chunks of 16, a 12-page cache) cold and with the
+    cache: time to first token of the follow-ups, prefills skipped, hit
+    tokens, the prefill tier's h2d bytes, launches by route, hit tokens
+    equal to cold ones.  ``[preempt]`` serves ``[serve]``'s 8 requests
+    (priorities ``i % 2``) over a pool of one worst case plus one page:
+    stalling admission, preemption with a host pool, preemption by
+    recompute; tokens/s, preemptions, swap bytes and GB/s, every staged
+    and restored page byte for byte, tokens held to the stall run's by
+    position.  ``[chaos]`` serves the reference's chaos workload
+    (16 requests, ``expert_fetch=0.05,nan_logits@3``, every 6th client
+    cancelling) against the same traffic fault-free: goodput ratio
+    (floor 0.7), retries, degraded layers, statuses, launches against
+    the expected, the pool empty at teardown, survivors held by position.
 18. paper: the paper's measurements on that checkpoint (the port's
     ``benchmarks`` package, on the card): ``fig2_lru`` hit ratios at k 1-8
     with decayed LFU and Belady at k 2 and 4, ``fig2_spec`` recall at
@@ -163,7 +187,8 @@ last line):
     ``[planes]``' ``pr2_sync`` and ``vectorized`` runs, the cells it was
     not fitted to.
 
-Phases 10, 13 (``[spec]``), 14, 15 and 17 (``[spec-serve]``) trace every
+Phases 10, 13 (``[spec]``), 14, 15, 17 (``[spec-serve]``) and 17b
+(``[preempt]``, ``[chaos]``) trace every
 decision of both runs they compare (router
 top-k, lookahead prediction, sampled token) and hold them to one rule:
 equal, or the first decision that differs is a near-tie, its top-k
@@ -1376,13 +1401,14 @@ def phase_ragged_kernel(dev, flush):
 
 # ----------------------------------------------------------------------
 def _serve(eng, cfg, prompts, max_news, *, max_slots, on_engine=None,
-           params=None, device=None, **kw):
-    """Serve ``prompts`` through a ContinuousEngine over ``eng``'s pool
-    (``eng`` None: the plain plane over ``params`` on ``device``), on
-    paged KV of 16-position pages unless ``kv_page`` says otherwise;
-    returns (engine, tokens per request, emit step of every token, decode
-    calls and active rows, admission chunks).  ``on_engine`` is called
-    with the engine before it serves."""
+           params=None, device=None, priorities=None, **kw):
+    """Serve ``prompts`` (with ``priorities``, default 0) through a
+    ContinuousEngine over ``eng``'s pool (``eng`` None: the plain plane
+    over ``params`` on ``device``), on paged KV of 16-position pages
+    unless ``kv_page`` says otherwise; returns (engine, tokens per
+    request, emit step of every token, decode calls and active rows,
+    admission chunks).  ``on_engine`` is called with the engine before it
+    serves."""
     from repro_torch.serving.engine import ContinuousEngine
     ce = ContinuousEngine(params, cfg, offload=eng, max_slots=max_slots,
                           eos_id=None, device=device, **{"kv_page": 16, **kw})
@@ -1421,8 +1447,9 @@ def _serve(eng, cfg, prompts, max_news, *, max_slots, on_engine=None,
     ex.prefill_chunk_row = counted(ex.prefill_chunk_row)
     steps = {}
     try:
-        reqs = [ce.submit(p, m, on_token=lambda r, t: steps.setdefault(
-            r.rid, []).append(ce.step_count)) for p, m in zip(prompts, max_news)]
+        reqs = [ce.submit(p, m, priority=q, on_token=lambda r, t: steps.setdefault(
+            r.rid, []).append(ce.step_count))
+            for p, m, q in zip(prompts, max_news, priorities or [0] * len(prompts))]
         ce.run(max_steps=1000)
     finally:
         for n, fn in saved.items():
@@ -2884,6 +2911,457 @@ def phase_paper(dev, eng, cfg, main_report, planes, decode_split, kern):
 
 
 # ----------------------------------------------------------------------
+# prefix cache, host swap with preemption, the fault plane (item 5)
+def _counted_exec(ce, calls):
+    """Count ``ce``'s decode calls and admission chunks into ``calls``."""
+    ex = ce._exec
+    for name in ("decode", "prefill_chunk_row"):
+        fn = getattr(ex, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*a, **kw)
+        setattr(ex, name, counted)
+
+
+def _uncount_exec(ex):
+    for name in ("decode", "prefill_chunk_row"):
+        ex.__dict__.pop(name, None)
+
+
+def phase_prefix(dev, eng, cfg):
+    """``[main]``'s model (packed, 8 layers) serving the reference's full
+    ``prefix_reuse`` workload: a 160-token system prompt, tails 8/12/10/
+    14/9, 8 new tokens each, one slot, pages of 16, chunks of 16, a cache
+    of 12 pages, one request at a time; cold (no cache) then hit.  Time to
+    first token of the requests after the first, prefills skipped, hit
+    tokens, the prefill tier's h2d bytes, launches by binding and route;
+    the hit run's tokens must equal the cold run's (the chunk boundaries
+    coincide, so the KV it adopts is the KV a cold prefill computes)."""
+    import torch
+    from repro_torch.benchmarks import serve_bench
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    prompts, page, sys_pages, max_new = serve_bench.prefix_reuse_workload(cfg)
+    tier = eng._exec.prefill_tier
+    runs, total = {}, {}
+    for name, cache in (("cold", 0), ("hit", sys_pages + 2)):
+        torch.cuda.synchronize(dev)
+        ops.reset_launches()
+        before, h2d0 = _routes(), tier.h2d_bytes
+        t0 = time.perf_counter()
+        ttft, toks, ce = serve_bench.drive_prefix_reuse(
+            None, cfg, prompts, page=page, sys_pages=sys_pages,
+            max_new=max_new, cache_pages=cache, offload=eng)
+        torch.cuda.synchronize(dev)
+        launches = ops.launches()
+        s = ce.stats()
+        runs[name] = {
+            "wall_s": time.perf_counter() - t0, "ttft_ms": ttft,
+            "ttft_ms_median_follow_ups": float(np.median(ttft[1:])),
+            "prefills_skipped": ce._prefills_skipped,
+            "hit_tokens": ce._prefix_hit_tokens,
+            "prefill_tier_h2d_bytes": tier.h2d_bytes - h2d0,
+            "decode_h2d_bytes": s["offload_bytes_h2d"],
+            "launches": launches,
+            "routes": {k: v for k, v in _routes_since(before).items() if v},
+            "tokens": toks}
+        ce.check_invariants()
+        _add(total, launches)
+        log(f"[prefix] {name}: {json.dumps({k: v for k, v in runs[name].items() if k != 'tokens'}, default=int)}")
+    cold, hit = runs["cold"], runs["hit"]
+    ratio = cold["ttft_ms_median_follow_ups"] / hit["ttft_ms_median_follow_ups"]
+    diff = next(((i, j) for i, (a, b) in enumerate(zip(cold["tokens"], hit["tokens"]))
+                 for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    log(f"[prefix] {cfg.name} {cfg.n_layers} layers, system prompt "
+        f"{page * sys_pages}: TTFT cold {cold['ttft_ms_median_follow_ups']:.1f} ms -> "
+        f"hit {hit['ttft_ms_median_follow_ups']:.1f} ms ({ratio:.2f}x); prefill-tier "
+        f"h2d {cold['prefill_tier_h2d_bytes']} -> {hit['prefill_tier_h2d_bytes']} B "
+        f"({cold['prefill_tier_h2d_bytes'] / max(1, hit['prefill_tier_h2d_bytes']):.2f}x); "
+        f"prefills skipped {hit['prefills_skipped']}, hit tokens {hit['hit_tokens']}; "
+        f"hit tokens == cold tokens {diff is None}"
+        + ("" if diff is None else f", first difference request {diff[0]} "
+           f"token {diff[1]}") + f"; {time.perf_counter() - t_phase:.1f} s")
+    if diff is not None:
+        fail(f"prefix hits changed the tokens (request {diff[0]}, token {diff[1]})")
+    if hit["prefills_skipped"] != len(prompts) - 1 or \
+            hit["hit_tokens"] != (len(prompts) - 1) * page * sys_pages:
+        fail(f"prefix: expected {len(prompts) - 1} hits of {page * sys_pages} tokens")
+    for r in runs.values():
+        if r["launches"]["ragged_attention"] != r["routes"].get("ragged_mma", 0) or \
+                r["routes"].get("ragged_warp"):
+            fail(f"prefix: a paged attention launch left ragged_mma: {r['routes']}")
+    return total
+
+
+def phase_preempt(dev, eng, cfg, serve_toks):
+    """``[serve]``'s 8 requests (24 new tokens, priorities ``i % 2``)
+    through 4 slots on pages of 16 over a pool of one worst case plus one
+    page: stalling admission, preemption with a host pool of twice the
+    pool, and preemption with none (every resume recomputes).  Tokens/s,
+    preemptions / resumes / recomputes, swap bytes and the d2h / h2d GB/s
+    of the swaps (each timed alone between synchronisations); every
+    restored page's kp/vp/ppos bytes equal to what was gathered; tokens
+    held to the stall run's (and it to ``[serve]``'s) by request and
+    position under the near-tie rule; the pool empty at teardown."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving import kv_manager as KV
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(0)
+    lens = rng.integers(24, 97, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    news = [SERVE_NEW] * SERVE_REQUESTS
+    pri = [i % 2 for i in range(SERVE_REQUESTS)]
+    pool_pages = -(-(max(lens) + SERVE_NEW) // 16) + 1
+    kw = dict(max_slots=SERVE_SLOTS, slot_len=256, kv_page=16,
+              kv_pages_total=pool_pages, priorities=pri)
+    swaps = {"out_s": 0.0, "out_bytes": 0, "in_s": 0.0, "in_bytes": 0,
+             "round_trips": 0}
+    orig_out, orig_in = KV.PagedKVManager.swap_out, KV.PagedKVManager.swap_in
+
+    def gathered(kv, pids):
+        idx = torch.as_tensor(pids, device=kv.device)
+        return {n: torch.stack([b["kv"][n][idx] for b in kv.state["layers"]]).cpu()
+                for n in ("kp", "vp", "ppos")}
+
+    def swap_out(kv, slot):
+        torch.cuda.synchronize(dev)
+        want = gathered(kv, kv.pool.owned[slot])
+        t0 = time.perf_counter()
+        blob = orig_out(kv, slot)
+        torch.cuda.synchronize(dev)
+        if blob is not None:
+            swaps["out_s"] += time.perf_counter() - t0
+            swaps["out_bytes"] += blob["n_pages"] * kv.page_nbytes()
+            if any(not torch.equal(blob["data"][n], want[n]) for n in want):
+                fail("preempt: a staged blob differs from the pages gathered")
+        return blob
+
+    def swap_in(kv, owner, blob, reserve):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        slot = orig_in(kv, owner, blob, reserve)
+        torch.cuda.synchronize(dev)
+        swaps["in_s"] += time.perf_counter() - t0
+        swaps["in_bytes"] += blob["n_pages"] * kv.page_nbytes()
+        got = gathered(kv, kv.pool.owned[slot])
+        if any(not torch.equal(got[n], blob["data"][n]) for n in got):
+            fail("preempt: the restored pages differ from the staged blob")
+        swaps["round_trips"] += 1
+        return slot
+
+    KV.PagedKVManager.swap_out, KV.PagedKVManager.swap_in = swap_out, swap_in
+    runs, total = {}, {}
+    try:
+        for name, extra in (("stall", {}),
+                            ("swap", dict(preemption=True,
+                                          kv_host_pages=2 * pool_pages)),
+                            ("recompute", dict(preemption=True, kv_host_pages=0))):
+            torch.cuda.synchronize(dev)
+            ops.reset_launches()
+            before = _routes()
+            t0 = time.perf_counter()
+            ce, toks, _, calls = _serve(eng, cfg, prompts, news, **kw, **extra)
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+            launches = ops.launches()
+            s = ce.stats()
+            n_tok = sum(len(t) for t in toks)
+            r = {"wall_s": wall, "tokens_per_s": n_tok / wall,
+                 "steps": ce.step_count, "decode_calls": calls["decode"],
+                 "admission_chunks": calls["chunks"],
+                 "mean_active_rows": calls["rows"] / max(1, calls["decode"]),
+                 "preemptions": ce.sched.preemptions, "resumes": ce.sched.resumes,
+                 "recomputes": ce._recomputes, "host": ce.kv.host_stats(),
+                 "peak_pages_committed": s["kv_pages_peak_committed"],
+                 "bytes_h2d": s["offload_bytes_h2d"], "launches": launches,
+                 "routes": {k: v for k, v in _routes_since(before).items() if v}}
+            if name == "swap":
+                r["swaps"] = dict(swaps)
+                r["swap_d2h_gb_s"] = swaps["out_bytes"] / max(1e-9, swaps["out_s"]) / 1e9
+                r["swap_h2d_gb_s"] = swaps["in_bytes"] / max(1e-9, swaps["in_s"]) / 1e9
+            log(f"[preempt] {name}: {json.dumps(r, default=int)}")
+            pool = ce.kv.pool
+            if pool.n_free != pool.n_pages or pool.refs or ce.kv.host_stats()["pages_in_use"]:
+                fail(f"preempt {name}: pages leaked at teardown")
+            ce.check_invariants()
+            if any(len(t) != SERVE_NEW for t in toks):
+                fail(f"preempt {name}: a request is short")
+            runs[name] = (toks, r)
+            _add(total, launches)
+    finally:
+        KV.PagedKVManager.swap_out, KV.PagedKVManager.swap_in = orig_out, orig_in
+    sw, rc = runs["swap"][1], runs["recompute"][1]
+    if sw["preemptions"] < 1 or sw["recomputes"] or swaps["round_trips"] < 1 or \
+            sw["host"]["swap_out_bytes"] != sw["host"]["swap_in_bytes"]:
+        fail(f"preempt: the swap run did not swap out and back: {sw}")
+    if rc["preemptions"] < 1 or rc["recomputes"] != rc["resumes"] or \
+            rc["host"]["swap_out_bytes"]:
+        fail(f"preempt: the recompute run did not recompute: {rc}")
+    stall = runs["stall"][0]
+    traces = {}
+    for name, (toks, _) in list(runs.items()) + [("serve", (serve_toks, None))]:
+        equal = [list(t) for t in toks] == [list(t) for t in stall]
+        log(f"[preempt] tokens of {name} == stall run's: {equal}")
+        if equal:
+            continue
+        for n in ("stall", name):
+            if n not in traces:
+                extra = ({} if n in ("stall", "serve") else
+                         dict(preemption=True,
+                              kv_host_pages=2 * pool_pages if n == "swap" else 0))
+                kw_n = (dict(max_slots=SERVE_SLOTS, slot_len=256) if n == "serve"
+                        else dict(kw, **extra))
+                traces[n] = _traced_serve(eng, cfg, prompts, news, **kw_n)[0]
+        _hold_positions(f"preempt] [{name}", traces[name], traces["stall"],
+                        (name, "stall"), False)
+    log(f"[preempt] {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def phase_chaos(dev, eng, cfg):
+    """``[main]``'s model (packed, 8 layers) on pages of 16 under the
+    reference's chaos workload (16 requests, prompts of 8/16, 8-24 new
+    tokens, 3 slots, ``expert_fetch=0.05,nan_logits@3``, every 6th client
+    cancelling after its first token) with the audit on every step,
+    against the same traffic fault-free.  Goodput ratio, retries, degraded
+    layers, statuses, the host reads of the fault mode's logits per step,
+    launches by binding and route (a degraded layer runs the batched
+    binding: 3 launches each instead of the slot binding's 3); the pool
+    empty with no reference left at teardown; the survivors' tokens held
+    to the fault-free run's by request and position under the near-tie
+    rule."""
+    import torch
+    from repro_torch.benchmarks import serve_bench
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    workload, stride = serve_bench.chaos_workload(cfg)
+    prompts = [p for p, _ in workload]
+    L = eng.n_moe_layers
+    runs, total = {}, {}
+    for name, inject in (("clean", False), ("chaos", True)):
+        calls = {}
+        torch.cuda.synchronize(dev)
+        ops.reset_launches()
+        before = _routes()
+        tps, ce, reqs = serve_bench.drive_chaos(
+            cfg, eng, workload, inject=inject, cancel_stride=stride, page=16,
+            on_engine=lambda e: _counted_exec(e, calls))
+        _uncount_exec(ce._exec)
+        launches, routes = ops.launches(), _routes_since(before)
+        s = ce.stats()
+        dec, chunks = calls.get("decode", 0), calls.get("prefill_chunk_row", 0)
+        degraded = s["faults_fetch_degraded"]
+        expect = {"dequant_matmul": 0,
+                  "dequant_matmul_batched": 3 * (L * chunks + degraded),
+                  "dequant_matmul_slots": 3 * (L * dec - degraded),
+                  "flash_attention": 0,
+                  "ragged_attention": cfg.n_layers * (dec + chunks)}
+        r = {"delivered_tok_s": tps, "steps": ce.step_count, "decode_calls": dec,
+             "admission_chunks": chunks,
+             "statuses": [q.status for q in reqs],
+             "faults": {k[7:]: v for k, v in s.items() if k.startswith("faults_")},
+             "host_logit_bytes_per_decode_step":
+                 (ce.max_slots * cfg.padded_vocab * 4) if inject else 0,
+             "pool_empty": ce.kv.pool.n_free == ce.kv.pool.n_pages,
+             "refs": dict(ce.kv.pool.refs), "launches": launches,
+             "launches_expected": expect,
+             "routes": {k: v for k, v in routes.items() if v}}
+        log(f"[chaos] {name}: {json.dumps(r, default=int)}")
+        if launches != expect:
+            fail(f"chaos {name}: launches {launches} != expected {expect}")
+        runs[name] = (reqs, r)
+        _add(total, launches)
+    (clean, rc), (chaos, rx) = runs["clean"], runs["chaos"]
+    ratio = rx["delivered_tok_s"] / rc["delivered_tok_s"]
+    f = rx["faults"]
+    survivors = [i for i, q in enumerate(chaos) if q.status == "completed"]
+    equal = all(chaos[i].generated == clean[i].generated for i in survivors)
+    log(f"[chaos] goodput {rx['delivered_tok_s']:.2f} vs {rc['delivered_tok_s']:.2f} "
+        f"tok/s: ratio {ratio:.3f} (floor 0.7); fired expert_fetch "
+        f"{f['fired_expert_fetch']}, retries {f['fetch_retries']}, degraded layers "
+        f"{f['fetch_degraded']}; completed {f['completed']}, cancelled "
+        f"{f['cancelled']}, failed {f['failed']}; survivors' tokens equal the "
+        f"clean run's: {equal}; {time.perf_counter() - t_phase:.1f} s")
+    if not (rx["pool_empty"] and rc["pool_empty"]) or rx["refs"] or rc["refs"]:
+        fail("chaos: the pool is not empty at teardown")
+    if f["fired_expert_fetch"] < 1 or f["failed"] != 1 or \
+            f["cancelled"] != len(workload) // stride:
+        fail(f"chaos: the schedule did not play out: {f}")
+    if ratio < 0.7:
+        fail(f"chaos goodput {ratio:.3f}x below the 0.7x floor")
+    if not equal:
+        traces = {}
+        for name, inject in (("clean", False), ("chaos", True)):
+            held = []
+            serve_bench.drive_chaos(
+                cfg, eng, workload, inject=inject, cancel_stride=stride, page=16,
+                on_engine=lambda e: held.append(
+                    _pos_trace_serving(e, prompts).__enter__()))
+            held[0].__exit__()
+            traces[name] = held[0]
+        for i in range(len(workload)):  # survivors only
+            if i not in survivors:
+                for t in traces.values():
+                    t.ev = {k: v for k, v in t.ev.items() if k[0] != i}
+        _hold_positions("chaos", traces["chaos"], traces["clean"],
+                        ("chaos", "clean"), False)
+    return total
+
+
+ITEM5_CASES = ("prefix_plain", "prefix_packed", "swap_resume",
+               "recompute_resume", "priority_packed", "chaos_packed",
+               "cancel_swapped", "step_deadline", "nan_plain", "nan_packed",
+               "fetch_degraded")
+
+
+def _item5_case(name, cfg, params, off, where):
+    """One case of ``[item5-parity]`` on ``where``: the plain plane over
+    ``params`` or the packed one over ``off``; returns what card and CPU
+    must agree on exactly."""
+    from repro_torch.serving.engine import ContinuousEngine
+    from repro_torch.serving.faults import FaultInjector
+    rng = np.random.default_rng(7)
+    sys_p = rng.integers(1, cfg.vocab_size, 24)
+    shared = [np.concatenate([sys_p, rng.integers(1, cfg.vocab_size, n)])
+              for n in (5, 3, 6)]
+    tri = [rng.integers(1, cfg.vocab_size, n) for n in (9, 7, 8)]
+    four = [rng.integers(1, cfg.vocab_size, n) for n in (12, 14, 10, 12)]
+    pre = dict(max_slots=3, slot_len=48, kv_page=4, kv_pages_total=10,
+               preemption=True, kv_host_pages=8)
+    plane, prompts, news, pri, kw, sub, action = {
+        "prefix_plain": ("plain", shared, [6, 5, 4], None,
+                         dict(max_slots=1, slot_len=64, kv_page=8,
+                              prefix_cache_pages=12), {}, None),
+        "prefix_packed": ("packed", shared, [6, 5, 4], None,
+                          dict(max_slots=1, slot_len=64, kv_page=8,
+                               prefix_cache_pages=8), {}, None),
+        "swap_resume": ("plain", tri, [8] * 3, [0, 0, 5], pre, {}, None),
+        "recompute_resume": ("plain", tri, [8] * 3, [0, 0, 5],
+                             dict(pre, kv_host_pages=0), {}, None),
+        "priority_packed": ("packed", tri, [8] * 3, [0, 0, 5],
+                            dict(pre, kv_pages_total=6), {}, None),
+        "chaos_packed": ("packed", four * 2, [10, 6, 8, 9] * 2, None,
+                         dict(max_slots=3, slot_len=64, kv_page=8,
+                              faults="expert_fetch=0.05,nan_logits@3"), {},
+                         "cancel_every_4th"),
+        "cancel_swapped": ("plain", four, [10] * 4, None,
+                           dict(pre, kv_pages_total=13, kv_host_pages=12,
+                                slot_len=64), {}, "cancel_swapped"),
+        "step_deadline": ("plain", tri[:2], [20, 20], None,
+                          dict(max_slots=2, slot_len=64), dict(deadline_steps=3),
+                          None),
+        "nan_plain": ("plain", tri, [6, 8, 6], None,
+                      dict(max_slots=3, slot_len=64, faults="nan_logits@1"), {},
+                      None),
+        "nan_packed": ("packed", tri, [6, 8, 6], None,
+                       dict(max_slots=3, slot_len=48, faults="nan_logits@1"), {},
+                       None),
+        "fetch_degraded": ("packed", tri, [6, 8, 6], None,
+                           dict(max_slots=3, slot_len=48, kv_page=16,
+                                faults="expert_fetch=1.0"), {}, None),
+    }[name]
+    if "faults" in kw:
+        kw = dict(kw, faults=FaultInjector.parse(kw["faults"], seed=0))
+    ce = ContinuousEngine(params if plane == "plain" else None, cfg,
+                          offload=off if plane == "packed" else None,
+                          eos_id=None, check_invariants=True,
+                          device=where if plane == "plain" else None, **kw)
+    steps = {}
+    reqs = [ce.submit(p, n, priority=q, on_token=lambda r, t: steps.setdefault(
+        r.rid, []).append(ce.step_count), **sub)
+        for p, n, q in zip(prompts, news, pri or [0] * len(prompts))]
+    cancelled = set()
+    while ce.sched.has_waiting or ce.sched.n_running or ce._swapped:
+        ce.step()
+        if action == "cancel_every_4th":
+            for i, r in enumerate(reqs):
+                if i % 4 == 3 and r.generated and r.state != "finished":
+                    ce.cancel(r.rid)
+        elif action == "cancel_swapped" and ce._swapped and not cancelled:
+            cancelled.add(ce._swapped[0].req.rid)
+            ce.cancel(ce._swapped[0].req.rid)
+        if ce.step_count > 2000:
+            fail(f"item5-parity {name}: the engine hung")
+    cached = ce._prefix.n_pages if ce._prefix is not None else 0
+    if ce.paged and ce.kv.pool.n_free + cached != ce.kv.pool.n_pages:
+        fail(f"item5-parity {name}: pages leaked on {where}")
+    s = ce.stats()
+    return {"tokens": [r.generated for r in reqs],
+            "steps": [steps.get(r.rid, []) for r in reqs],
+            "status": [r.status for r in reqs],
+            "stats": {k: v for k, v in s.items() if k.startswith(
+                ("faults_", "prefix_", "kv_host_", "offload_", "kv_pages"))}}
+
+
+def phase_item5_parity(dev):
+    """``tiny-moe`` (f32, seeded weights, full size) card against CPU, on
+    the plain plane and the packed one (the model's offload spec): prefix
+    hits on both planes; swap resume, recompute resume and priority
+    preemption; the chaos schedule with cancelling clients; a cancel
+    while swapped out; a step deadline; NaN quarantine on both planes;
+    every fetch failing (each MoE layer of every decode step degraded to
+    store-direct, the batched binding) on pages.
+    Tokens, emit steps, statuses and the ``faults_*``, ``prefix_*``,
+    ``kv_host_*``, ``offload_*`` and page counters exactly equal.  Returns
+    the card's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.offload_engine import (OffloadEngine,
+                                                 quantize_for_offload)
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    t0 = time.perf_counter()
+    cfg = get_config("tiny-moe")
+    spec = cfg.offload
+    params = T.init_model(cfg, seed=0, device="cpu")
+    exec_params, _, store = quantize_for_offload(params, cfg, spec,
+                                                 pack_experts=True, device="cpu")
+    runs, launches = {}, {}
+    for where in ("cpu", dev):
+        ops.reset_launches()
+        p = _to(params, where)
+        off = OffloadEngine(_to(exec_params, where), cfg, spec, quantized=True,
+                            store=store if where == "cpu" else _cpu_store_to(store, where),
+                            device=where)
+        for name in ITEM5_CASES:
+            runs[str(where), name] = _item5_case(name, cfg, p, off, where)
+        if where != "cpu":
+            launches = ops.launches()
+    unequal = [n for n in ITEM5_CASES if runs[str(dev), n] != runs["cpu", n]]
+    summary = {n: {"status": runs[str(dev), n]["status"],
+                   **{k: v for k, v in runs[str(dev), n]["stats"].items()
+                      if k in ("prefix_prefills_skipped", "kv_host_preemptions",
+                               "kv_host_recomputes", "kv_host_swap_out_bytes",
+                               "faults_fetch_retries", "faults_fetch_degraded",
+                               "faults_nan_quarantined")}}
+               for n in ITEM5_CASES}
+    log(f"[item5-parity] tiny-moe card vs cpu: cases differing {unequal}; "
+        f"{json.dumps(summary, default=int)}; card launches {launches}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    for n in unequal:
+        a, b = runs[str(dev), n], runs["cpu", n]
+        key = next(k for k in a if a[k] != b[k])
+        log(f"[item5-parity] {n}: {key} card {a[key]} vs cpu {b[key]}")
+    if unequal:
+        fail(f"item5-parity: the card differs from the CPU on {unequal}")
+    checks = {"prefix_plain": ("prefix_prefills_skipped", 2),
+              "prefix_packed": ("prefix_prefills_skipped", 2)}
+    for n, (k, v) in checks.items():
+        if runs["cpu", n]["stats"][k] != v:
+            fail(f"item5-parity {n}: {k} {runs['cpu', n]['stats'][k]} != {v}")
+    for n in ("swap_resume", "recompute_resume", "priority_packed", "cancel_swapped"):
+        if runs["cpu", n]["stats"]["kv_host_preemptions"] < 1:
+            fail(f"item5-parity {n}: no preemption")
+    if runs["cpu", "chaos_packed"]["stats"]["faults_fired_expert_fetch"] < 1 or \
+            runs["cpu", "nan_packed"]["stats"]["faults_nan_quarantined"] != 1 or \
+            runs["cpu", "fetch_degraded"]["stats"]["offload_demand_loads"] or \
+            runs["cpu", "fetch_degraded"]["stats"]["faults_fetch_degraded"] < 1:
+        fail("item5-parity: the fault schedules did not fire")
+    return launches
+
+
+# ----------------------------------------------------------------------
 def main():
     card = phase_device()
     import torch
@@ -2898,6 +3376,7 @@ def main():
     _add(serve_extra, phase_serve_bench(dev))
     phase_bf16_parity(dev)
     phase_spec_parity(dev)
+    item5 = phase_item5_parity(dev)
     phase_train(dev)
     launches, batches, eng, cfg, prompt, main_run, main_report = phase_main(dev)
     # the host-bound decode runs come before any profiler window
@@ -2918,6 +3397,10 @@ def main():
     del tiers, flush
     serve_launches, serve_slots, serve_toks = phase_serving(dev, eng, cfg)
     _add(spec_launches, phase_spec_serve(dev, eng, cfg, serve_toks))
+    # prefix cache, host swap with preemption, the fault plane
+    _add(item5, phase_prefix(dev, eng, cfg))
+    _add(item5, phase_preempt(dev, eng, cfg, serve_toks))
+    _add(item5, phase_chaos(dev, eng, cfg))
     launches["ragged_attention"] = serve_launches["ragged_attention"]
     slots = kern["dequant_matmul_slots"]
     slots["max_abs_err"] = max(slots["max_abs_err"], serve_slots["err"])
@@ -2929,6 +3412,8 @@ def main():
         launches[name] += serve_extra.get(name, 0)
     for name in launches:  # the draft-and-verify paths ([spec], [spec-serve])
         launches[name] += spec_launches.get(name, 0)
+    for name in launches:  # [item5-parity], [prefix], [preempt], [chaos]
+        launches[name] += item5.get(name, 0)
     csrc = "src/repro_torch/kernels/csrc/"
     src = {"dequant_matmul_batched": csrc + "dequant_grouped.cu",
            "dequant_matmul_slots": csrc + "dequant_gemv.cu",

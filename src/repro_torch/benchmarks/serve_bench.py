@@ -31,9 +31,28 @@ go to ``experiments/torch/bench/serve_bench.json``.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.serve_bench [--quick] [--device cpu]
 
-The reference's ``telemetry_overhead``, ``prefix_reuse``,
-``overload_preempt``, ``chaos`` and ``zoo`` scenarios are not ported
-(ROADMAP queue 1 items 7, 5, 5, 5 and 6): they raise.
+Workload 5 (prefix reuse): requests sharing a long system prompt,
+served one at a time through one slot, with and without the prefix
+cache: time to first token of the requests after the first (a hit
+prefills only its tail), equal tokens, at least 2x (1.5x at the quick
+size).
+
+Workload 6 (overload): a pool that holds one request's worst case.
+Stalling admission runs the requests one at a time; preemption admits on
+the prompt's pages and swaps a victim to the host pool when the pool runs
+dry.  Tokens/s of both, equal tokens, at least one preemption.
+
+Workload 8 (chaos): packed serving on pages under a seeded fault schedule
+(5 % transient expert-fetch failures, one NaN row) with cancelling
+clients, against the same traffic fault-free: no hang, an empty pool at
+teardown, goodput at least 0.7x.
+
+Each of these three has a module-level drive function (what the card's
+smoke script and the CPU tests call) beside the ``run_*`` that times it
+and applies the reference's floor (``check_*``).
+
+The reference's ``telemetry_overhead`` and ``zoo`` scenarios are not
+ported (ROADMAP queue 1 items 7 and 6): they raise.
 """
 from __future__ import annotations
 
@@ -50,6 +69,7 @@ from repro_torch.configs.base import OffloadSpec
 from repro_torch.core.offload_engine import OffloadEngine
 from repro_torch.models import transformer as T
 from repro_torch.serving.engine import ContinuousEngine, Request, ServeEngine
+from repro_torch.serving.faults import FaultInjector
 from repro_torch.serving.sampler import SamplerConfig
 from repro_torch.serving.scheduler import ExpertOverlapPolicy
 
@@ -283,6 +303,307 @@ def run_paged_kv(params, cfg, *, smoke=False, max_slots=4, seed=0,
 
 
 # ----------------------------------------------------------------------
+# workload 5: prefix reuse, time to first token of a shared system prompt
+def prefix_reuse_workload(cfg, smoke=False, seed=0):
+    """Requests sharing a long system prompt, with their own tails: the
+    reference's sizes.  Returns (prompts, page, system pages, max_new)."""
+    page = 8 if smoke else 16
+    sys_pages = 6 if smoke else 10
+    tails = (4, 6, 5) if smoke else (8, 12, 10, 14, 9)
+    max_new = 4 if smoke else 8
+    rng = np.random.default_rng(seed)
+    sys_p = rng.integers(1, cfg.vocab_size, page * sys_pages).astype(np.int32)
+    prompts = [np.concatenate(
+        [sys_p, rng.integers(1, cfg.vocab_size, t).astype(np.int32)])
+        for t in tails]
+    return prompts, page, sys_pages, max_new
+
+
+def drive_prefix_reuse(params, cfg, prompts, *, page, sys_pages, max_new,
+                       cache_pages, offload=None, device=None):
+    """Serve ``prompts`` one at a time through one slot (each after the
+    first can hit what the earlier ones published), prefill chunks of one
+    page, with a prefix cache of ``cache_pages`` pages (0: none).  Returns
+    (time to first token of each request in ms, tokens, engine)."""
+    sys_len = page * sys_pages
+    eng = ContinuousEngine(
+        None if offload is not None else params, cfg, max_slots=1,
+        slot_len=sys_len + 4 * page, eos_id=None, kv_page=page,
+        kv_pages_total=2 * sys_pages + 8,  # the cached chain + a worst case
+        prefill_chunk=page, prefix_cache_pages=cache_pages, offload=offload,
+        device=device)
+    ttfts_ms, toks = [], []
+    for p in prompts:
+        req = eng.submit(p, max_new)
+        t0 = time.perf_counter()
+        while not req.generated:
+            eng.step()
+            assert eng.step_count < 100_000
+        ttfts_ms.append((time.perf_counter() - t0) * 1e3)
+        eng.run(max_steps=100_000)
+        assert req.state == "finished"
+        toks.append(req.generated)
+    return ttfts_ms, toks, eng
+
+
+def run_prefix_reuse(params, cfg, *, smoke=False, seed=0, offload=None,
+                     device=None):
+    """Time to first token of the requests after the first, with the
+    prefix cache against without, best of alternating passes after a
+    warm-up: equal greedy tokens, and every follow-up skips its shared
+    prefill.  The floor (:func:`check_prefix_reuse`) is the reference's."""
+    dev = resolve_device(device) if offload is None else offload.device
+    prompts, page, sys_pages, max_new = prefix_reuse_workload(cfg, smoke,
+                                                              seed)
+    cache_pages = sys_pages + 2
+
+    def drive(n):
+        return drive_prefix_reuse(params, cfg, prompts, page=page,
+                                  sys_pages=sys_pages, max_new=max_new,
+                                  cache_pages=n, offload=offload, device=dev)
+
+    drive(0)  # warm-up
+    drive(cache_pages)
+    best = {"cold": np.inf, "hit": np.inf}
+    for _ in range(2 if smoke else 3):
+        cold_t, cold_toks, _ = drive(0)
+        hit_t, hit_toks, eng = drive(cache_pages)
+        assert hit_toks == cold_toks, "prefix cache changed tokens"
+        best["cold"] = min(best["cold"], float(np.median(cold_t[1:])))
+        best["hit"] = min(best["hit"], float(np.median(hit_t[1:])))
+    assert eng._prefills_skipped == len(prompts) - 1, \
+        "every follow-up request should hit the cached system prompt"
+    row = {
+        "name": "serve_bench", "scenario": "prefix_reuse",
+        "device": _device_name(dev),
+        "kv_page": page, "sys_len": page * sys_pages,
+        "n_requests": len(prompts), "prefix_cache_pages": cache_pages,
+        "cold_ttft_ms": best["cold"], "hit_ttft_ms": best["hit"],
+        "ttft_speedup": best["cold"] / max(1e-9, best["hit"]),
+        "prefills_skipped": int(eng._prefills_skipped),
+        "hit_tokens": int(eng._prefix_hit_tokens),
+        "token_parity": True,
+    }
+    print(f"[serve_bench] prefix reuse (sys {row['sys_len']}, page {page}): "
+          f"TTFT cold {row['cold_ttft_ms']:.2f} ms -> hit "
+          f"{row['hit_ttft_ms']:.2f} ms ({row['ttft_speedup']:.2f}x, "
+          f"{row['hit_tokens']} prompt tokens not prefilled again)")
+    check_prefix_reuse(row, smoke)
+    return row
+
+
+def check_prefix_reuse(row, smoke=False):
+    floor = 1.5 if smoke else 2.0
+    assert row["ttft_speedup"] >= floor, \
+        f"prefix-hit TTFT speedup {row['ttft_speedup']:.2f}x below {floor}x"
+
+
+# ----------------------------------------------------------------------
+# workload 6: overload, optimistic admission + preemption against stalls
+def overload_workload(cfg, smoke=False, seed=0):
+    """The reference's starved pool: every request's worst case is the
+    whole pool.  Returns (prompts, max_new, page, max_slots, pages)."""
+    page, max_slots, plen = 4, 4, 3
+    n_req = 5 if smoke else 8
+    max_new = 10 if smoke else 28
+    pages_total = (plen + max_new + page - 1) // page + 1  # one worst case
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(1, cfg.vocab_size, plen).astype(np.int32)
+               for _ in range(n_req)]
+    return prompts, max_new, page, max_slots, pages_total
+
+
+def drive_overload(params, cfg, prompts, news, *, page, max_slots,
+                   pages_total, slot_len, host_pages=None, offload=None,
+                   device=None):
+    """Serve ``prompts`` (priorities ``i % 2``) over a pool of
+    ``pages_total`` pages: stalling admission at the worst case
+    (``host_pages`` None), or preemption with a host pool of
+    ``host_pages`` pages (0: every resume recomputes).  Returns (tokens,
+    tokens/s, engine)."""
+    dev = resolve_device(device) if offload is None else offload.device
+    kw = ({} if host_pages is None
+          else dict(preemption=True, kv_host_pages=host_pages))
+    eng = ContinuousEngine(None if offload is not None else params, cfg,
+                           max_slots=max_slots, slot_len=slot_len,
+                           eos_id=None, kv_page=page,
+                           kv_pages_total=pages_total, offload=offload,
+                           device=dev, **kw)
+    reqs = [eng.submit(p, m, priority=i % 2)
+            for i, (p, m) in enumerate(zip(prompts, news))]
+    t0 = time.perf_counter()
+    eng.run(max_steps=100_000)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    assert all(r.state == "finished" for r in reqs)
+    toks = [r.generated for r in reqs]
+    return toks, sum(len(t) for t in toks) / wall, eng
+
+
+def run_overload_preempt(params, cfg, *, smoke=False, seed=0, device=None):
+    """A pool so starved that stalling admission runs the requests one at
+    a time; preemption admits on prompt-size reservations, grows page by
+    page and swaps a victim to the host pool when the pool runs dry.
+    Tokens/s of both, best of alternating passes after a warm-up; tokens
+    must be equal and preemption must have happened."""
+    dev = resolve_device(device)
+    prompts, max_new, page, max_slots, pages_total = overload_workload(
+        cfg, smoke, seed)
+    host_pages = 2 * pages_total
+    news = [max_new] * len(prompts)
+
+    def drive(host):
+        return drive_overload(params, cfg, prompts, news, page=page,
+                              max_slots=max_slots, pages_total=pages_total,
+                              slot_len=3 + max_new + page, host_pages=host,
+                              device=dev)
+
+    drive(None)  # warm-up
+    drive(host_pages)
+    best = {"stall": 0.0, "preempt": 0.0}
+    for _ in range(2 if smoke else 3):
+        base_toks, tps, _ = drive(None)
+        best["stall"] = max(best["stall"], tps)
+        toks, tps, eng = drive(host_pages)
+        best["preempt"] = max(best["preempt"], tps)
+        assert toks == base_toks, "preemption changed generated tokens"
+    assert eng.sched.preemptions > 0, \
+        "overload workload never triggered a preemption"
+    hs = eng.kv.host_stats()
+    row = {
+        "name": "serve_bench", "scenario": "overload_preempt",
+        "device": _device_name(dev),
+        "kv_page": page, "kv_pages_total": pages_total,
+        "kv_host_pages": host_pages, "n_requests": len(prompts),
+        "max_new": max_new,
+        "stall_tok_s": best["stall"], "preempt_tok_s": best["preempt"],
+        "tok_s_speedup": best["preempt"] / max(1e-9, best["stall"]),
+        "preemptions": int(eng.sched.preemptions),
+        "resumes": int(eng.sched.resumes),
+        "recomputes": int(eng._recomputes),
+        "swap_out_bytes": int(hs["swap_out_bytes"]),
+        "token_parity": True,
+    }
+    print(f"[serve_bench] overload ({len(prompts)} requests, {pages_total}-"
+          f"page pool): stall {row['stall_tok_s']:.2f} tok/s -> preempt "
+          f"{row['preempt_tok_s']:.2f} tok/s ({row['tok_s_speedup']:.2f}x, "
+          f"{row['preemptions']} preemptions, {row['swap_out_bytes']} bytes "
+          f"swapped)")
+    return row
+
+
+# ----------------------------------------------------------------------
+# workload 8: chaos goodput, seeded faults against the fault-free run
+CHAOS_SCHEDULE = "expert_fetch=0.05,nan_logits@3"
+
+
+def chaos_workload(cfg, smoke=False, seed=0):
+    """The reference's chaos traffic: (prompt, max_new) pairs and the
+    cancel stride (every stride-th client leaves after its first token)."""
+    n_req = 8 if smoke else 16
+    rng = np.random.default_rng(seed)
+    lengths = (4, 8) if smoke else (8, 16)
+    news = (4, 10) if smoke else (8, 24)
+    workload = [(rng.integers(1, cfg.vocab_size, int(rng.choice(lengths))
+                              ).astype(np.int32), int(rng.integers(*news)))
+                for _ in range(n_req)]
+    return workload, 4 if smoke else 6
+
+
+def drive_chaos(cfg, off, workload, *, inject, cancel_stride, page=8,
+                max_slots=3, slot_len=64, seed=0, on_engine=None):
+    """Packed continuous serving on pages with the invariant audit on
+    every step, under ``CHAOS_SCHEDULE`` and the cancelling clients
+    (``inject``) or fault-free.  Each drive replays the schedule from a
+    fresh injector.  Asserts no hang and an empty pool at teardown.
+    ``on_engine`` is called with the engine before it serves (a tracer).
+    Returns (delivered tokens/s, engine, requests)."""
+    faults = (FaultInjector.parse(CHAOS_SCHEDULE, seed=seed)
+              if inject else None)
+    eng = ContinuousEngine(None, cfg, max_slots=max_slots, slot_len=slot_len,
+                           eos_id=None, offload=off, kv_page=page,
+                           faults=faults, check_invariants=True)
+    if on_engine is not None:
+        on_engine(eng)
+    reqs = [eng.submit(p, m) for p, m in workload]
+    victims = ([r for i, r in enumerate(reqs)
+                if i % cancel_stride == cancel_stride - 1] if inject else [])
+    t0 = time.perf_counter()
+    while eng.sched.has_waiting or eng.sched.n_running or eng._swapped:
+        eng.step()
+        for r in list(victims):  # a client leaves once it saw a token
+            if r.generated and r.state != "finished":
+                assert eng.cancel(r.rid)
+                victims.remove(r)
+        assert eng.step_count < 100_000
+    _sync(off.device)
+    wall = time.perf_counter() - t0
+    assert all(r.state == "finished" for r in reqs), "engine hung"
+    eng.check_invariants()
+    pool = eng.kv.pool
+    assert pool.n_free == pool.n_pages and pool.refs == {}, \
+        "chaos run leaked pages at teardown"
+    # goodput: the tokens delivered (a cancelled client got its prefix)
+    return sum(len(r.generated) for r in reqs) / wall, eng, reqs
+
+
+def run_chaos(params, cfg, off, *, smoke=False, seed=0):
+    """Goodput under the seeded fault schedule and cancelling clients
+    against the same traffic fault-free (best of alternating passes after
+    a warm-up).  The engine must not hang, the pool must be empty at
+    teardown, the schedule must have hit a fetch boundary, one request
+    must have been quarantined and the cancels counted; the floor
+    (:func:`check_chaos`) is the reference's."""
+    workload, stride = chaos_workload(cfg, smoke, seed)
+
+    def drive(inject):
+        return drive_chaos(cfg, off, workload, inject=inject,
+                           cancel_stride=stride, seed=seed)
+
+    drive(False)  # warm-up
+    drive(True)
+    best = {"clean": 0.0, "chaos": 0.0}
+    for _ in range(2 if smoke else 3):
+        best["clean"] = max(best["clean"], drive(False)[0])
+        tps, eng, _ = drive(True)
+        best["chaos"] = max(best["chaos"], tps)
+    s = eng.stats()
+    assert s["faults_fired_expert_fetch"] > 0, \
+        "fault schedule never hit a fetch boundary"
+    assert s["faults_failed"] == 1, \
+        "NaN poisoning should quarantine exactly one request"
+    assert s["faults_cancelled"] == len(workload) // stride
+    row = {
+        "name": "serve_bench", "scenario": "chaos_goodput",
+        "device": _device_name(off.device),
+        "n_requests": len(workload), "max_slots": 3, "kv_page": 8,
+        "fault_schedule": CHAOS_SCHEDULE,
+        "clean_tok_s": best["clean"], "chaos_tok_s": best["chaos"],
+        "goodput_ratio": best["chaos"] / max(1e-9, best["clean"]),
+        "fired_expert_fetch": int(s["faults_fired_expert_fetch"]),
+        "fetch_retries": int(s["faults_fetch_retries"]),
+        "fetch_degraded": int(s["faults_fetch_degraded"]),
+        "completed": int(s["faults_completed"]),
+        "cancelled": int(s["faults_cancelled"]),
+        "failed": int(s["faults_failed"]),
+        "pages_leaked": 0,
+        "no_crash": True,
+    }
+    print(f"[serve_bench] chaos ({CHAOS_SCHEDULE}): clean "
+          f"{row['clean_tok_s']:.2f} tok/s -> chaos {row['chaos_tok_s']:.2f} "
+          f"tok/s ({row['goodput_ratio']:.2f}x goodput, "
+          f"{row['fetch_retries']} retries, {row['fetch_degraded']} "
+          f"degraded, {row['cancelled']} cancelled, 0 pages leaked)")
+    check_chaos(row)
+    return row
+
+
+def check_chaos(row):
+    assert row["goodput_ratio"] >= 0.7, \
+        f"chaos goodput {row['goodput_ratio']:.2f}x below the 0.7x floor"
+
+
+# ----------------------------------------------------------------------
 def _not_ported(scenario: str, item: int):
     raise NotImplementedError(
         f"serve_bench scenario {scenario!r} is not ported yet (ROADMAP "
@@ -291,18 +612,6 @@ def _not_ported(scenario: str, item: int):
 
 def run_telemetry_overhead(*args, **kwargs):
     _not_ported("telemetry_overhead", 7)
-
-
-def run_prefix_reuse(*args, **kwargs):
-    _not_ported("prefix_reuse", 5)
-
-
-def run_overload_preempt(*args, **kwargs):
-    _not_ported("overload_preempt", 5)
-
-
-def run_chaos(*args, **kwargs):
-    _not_ported("chaos", 5)
 
 
 def run_zoo(*args, **kwargs):
@@ -389,8 +698,13 @@ def run(quick=False, trained=False, n_requests=None, max_slots=4,
                                        seed=seed))
     results.append(run_paged_kv(params, cfg, smoke=quick,
                                 max_slots=lat_slots, seed=seed, device=dev))
+    results.append(run_prefix_reuse(params, cfg, smoke=quick, seed=seed,
+                                    device=dev))
+    results.append(run_overload_preempt(params, cfg, smoke=quick, seed=seed,
+                                        device=dev))
+    results.append(run_chaos(params, cfg, off, smoke=quick, seed=seed))
     print("[serve_bench] not ported: telemetry_overhead (item 7), "
-          "prefix_reuse, overload_preempt, chaos (item 5), zoo (item 6)")
+          "zoo (item 6)")
     common.emit(results, "serve_bench")
     if quick:
         assert speedup > 0.2, "smoke: continuous path unreasonably slow"

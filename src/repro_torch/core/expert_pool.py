@@ -49,6 +49,12 @@ from repro_torch.quant import hqq
 
 EXPERT_MATS = ("w_gate", "w_up", "w_down")
 
+# the fault site of the h2d fetch ``acquire`` performs: the executor asks
+# the fault plane at this boundary, before a layer's acquire, and on a
+# fault that its retries do not clear runs the layer store-direct
+# (``models/moe.moe_apply_packed_stream``) without touching the pool
+FAULT_SITE = "expert_fetch"
+
 
 class PackedExperts(NamedTuple):
     """Three stacked packed QTensors (views into a :class:`Tier`)."""

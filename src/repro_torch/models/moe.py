@@ -339,7 +339,8 @@ def moe_apply_packed_stream(p, cfg, x2d, store: EP.Tier, l: int,
         ys = mm(h, wd).to(torch.float32)
     yk = ys[idx[R:]].reshape(T, K, -1)
     y = torch.einsum("tkd,tk->td", yk, w).to(x2d.dtype)
-    return y, {"ids": ids, "weights": w, "probs": probs}
+    return y, {"ids": ids, "ids_host": flat.reshape(T, K), "weights": w,
+               "probs": probs}
 
 
 def moe_apply_packed(p, cfg, x2d, store: EP.Tier, pstate: EP.PoolState,

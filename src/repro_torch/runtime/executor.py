@@ -54,6 +54,7 @@ slot's prompt chunk into its pages.
 """
 from __future__ import annotations
 
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -94,6 +95,13 @@ class Executor:
         self.device = resolve_device(device)
         self.kinds = cfg.layer_kinds()
         self.staging = L.HostStaging()
+        # the fault plane, asked at the expert-fetch boundary of the packed
+        # decode loop (the plain plane has no such boundary); executors are
+        # shared, so the last engine to attach one wins
+        self._finj = None
+        self._fetch_retries = 2
+        self._fetch_backoff_ms = 0.0
+        self.fault_counters = {"fetch_retries": 0, "fetch_degraded": 0}
         if not self.packed:
             return
         if spec is None or store is None:
@@ -106,6 +114,46 @@ class Executor:
             if parse_block(k)[1] == "moe":
                 self.moe_ordinal[l] = len(self.moe_ordinal)
         self.prefill_tier = EP.PrefillTier.for_store(store, self.device)
+
+    # ------------------------------------------------------------------
+    def set_fault_injector(self, inj, *, max_retries: int = 2,
+                           backoff_ms: float = 0.0) -> None:
+        """Attach (or clear with None) the fault plane.  Site here:
+        ``expert_fetch`` (``expert_pool.FAULT_SITE``), one opportunity per
+        MoE layer of a packed decode step: a fault is retried up to
+        ``max_retries`` times (``backoff_ms`` apart), and when every retry
+        fails too the layer runs store-direct (:meth:`_degraded_moe`).
+        The ladder's counters restart with each attach."""
+        self._finj = inj
+        self._fetch_retries = int(max_retries)
+        self._fetch_backoff_ms = float(backoff_ms)
+        self.fault_counters = {"fetch_retries": 0, "fetch_degraded": 0}
+
+    def _fetch_faulted(self) -> bool:
+        """One MoE layer's fetch boundary: did the (retried) fetch fail for
+        good?  True: run the layer degraded."""
+        inj = self._finj
+        if inj is None or not inj.fires(EP.FAULT_SITE):
+            return False
+        for _ in range(self._fetch_retries):
+            self.fault_counters["fetch_retries"] += 1
+            if self._fetch_backoff_ms > 0.0:
+                time.sleep(self._fetch_backoff_ms / 1e3)
+            if not inj.fires(EP.FAULT_SITE):
+                return False  # a retry went through
+        self.fault_counters["fetch_degraded"] += 1
+        return True
+
+    def _degraded_moe(self, p, x, h2, l: int):
+        """A decode step's MoE layer whose fetch failed: every token row
+        store-direct through the prefill tier, as a prefill chunk runs (the
+        batched binding over ragged expert groups).  The pool, its counters
+        and the staging are not touched.  Returns (x, route ids (B * C, K)
+        on the host)."""
+        x, route = T.prefill_block_packed_moe(
+            p, self.cfg, x, h2, self.store, self.moe_ordinal[l],
+            self.prefill_tier, fused=self.fused)
+        return x, route["ids_host"]
 
     # ------------------------------------------------------------------
     def init_state(self, batch: int, max_len: int):
@@ -176,13 +224,17 @@ class Executor:
             st_l = state["layers"][l]
             x, st_l, h2 = T.decode_block_packed_mixer(p, cfg, kind, x, st_l,
                                                       pos, step=step)
+            state["layers"][l] = st_l
+            if self._fetch_faulted():
+                x, ids = self._degraded_moe(p, x, h2, l)
+                route_ids.append(ids)
+                continue
             x, pstate, info = T.decode_block_packed_moe(
                 p, cfg, x, h2, self.store, pstate, self.moe_ordinal[l],
                 self.routers, lookahead=spec.lookahead, n_spec=n_spec,
                 active=active, rows_dev=rows_dev, fused=self.fused,
                 vectorized=self.vectorized, overlap=self.pipelined)
             route_ids.append(info["route"]["ids"])
-            state["layers"][l] = st_l
         logits = T.apply_head(self.params, cfg, x)
         return (logits, dict(state, pos=T.advance(state, C, active=active)),
                 pstate, route_ids)

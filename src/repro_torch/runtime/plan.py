@@ -42,9 +42,15 @@ class Admission:
     rid: int
     slot: int
     total: int              # prompt length
-    next_lo: int = 0
+    next_lo: int = 0        # > 0 at creation after a prefix-cache hit: the
+    #                         matched pages are mapped already
     state: Any = None       # dense slot KV: the B = 1 row state
     req: Any = None         # engine-side request handle
+    # a recompute resume re-prefills prompt + generated[:-1] (``tokens``
+    # replaces the prompt as the chunks' source) and its last chunk feeds
+    # ``resume_tok``, emitted before the preemption, instead of sampling
+    tokens: Any = None
+    resume_tok: Any = None
 
     @property
     def done(self) -> bool:

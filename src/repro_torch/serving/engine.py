@@ -25,18 +25,28 @@
   tokens per row and the target verifies every row's proposals in one C
   = k + 1 chunk, then each row's KV rolls back past its rejection point
   (:meth:`ContinuousEngine._step_speculative`); the tokens are those of
-  greedy decode.
+  greedy decode.  On pages, a radix prefix cache lets requests that share
+  a prompt prefix share its full pages and prefill from where they
+  diverge, and preemption admits optimistically and, when the pool runs
+  dry, swaps a victim's pages to pinned host memory (or drops them for a
+  recompute) and resumes it later, with the same tokens.  A seeded fault
+  plane (``serving/faults``) exercises the failure paths: a failed
+  expert fetch is retried, then served store-direct; a NaN row is
+  quarantined; a request can be cancelled, or run out its deadline,
+  wherever it is.
 
 Each step's positions, row indices, page table and ragged work list are
 built on the host from the managers' tables and uploaded with the step's
 tokens, so nothing is read back from the device but the sampled tokens
-(on the plain plane, greedy: the (max_slots,) argmax) and, where routing
+(on the plain plane, greedy: the (max_slots,) argmax; under the fault
+plane the (max_slots, V) last logits) and, where routing
 is needed (the packed planes, or a policy that reads usage), the routed
 ids (in a draft-and-verify round: every row's C argmax values, after
 the draft's own proposal reads).
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -51,9 +61,11 @@ from repro_torch.obs import SpecMetrics
 from repro_torch.runtime.executor import Executor
 from repro_torch.runtime.plan import (Admission, ChunkTask, StepPlan,
                                       TokenBudgetPolicy)
+from repro_torch.serving.faults import SITES as FAULT_SITES
 from repro_torch.serving.kv_manager import KVSlotManager, StateManager
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.sampler import SamplerConfig, sample
-from repro_torch.serving.scheduler import (GenRequest, Scheduler,
+from repro_torch.serving.scheduler import (RUNNING, GenRequest, Scheduler,
                                            admission_cost)
 
 EOS = 258  # the reference's byte tokenizer: PAD, BOS, EOS = 256, 257, 258
@@ -70,6 +82,18 @@ class Request:
     prompt: np.ndarray  # (S,) int32
     max_new_tokens: int = 32
     completed: List[int] = field(default_factory=list)
+
+
+@dataclass
+class _Swapped:
+    """A preempted request off the device: its pages staged to the host
+    (``blob``), or dropped for a recompute resume (``blob`` None)."""
+
+    req: GenRequest
+    blob: Optional[dict]
+    next_tok: int         # the pending (already emitted) token to feed
+    n_tokens: int         # live KV positions at the preemption
+    seq: int              # FIFO order within a priority
 
 
 class ServeEngine:
@@ -150,7 +174,29 @@ class ContinuousEngine:
     ``prefill_chunk``/``token_budget``: budgeted chunked admission.
     ``draft_params``/``draft_cfg``/``num_draft_tokens``: draft-and-verify
     decoding with a dense attention-only draft (greedy only).
-    ``device``: the plain plane's device (the card unless ``"cpu"``)."""
+
+    On pages only: ``prefix_cache_pages`` keeps up to that many full
+    prompt pages in a radix prefix index (``serving/prefix_cache``), and
+    a request whose prompt hits adopts them and prefills from where it
+    diverges; ``preemption`` admits on the prompt's pages and grows page
+    by page, and when the pool runs dry (or a higher-priority request
+    waits) preempts a victim, whose pages go to a host pool of
+    ``kv_host_pages`` pages and come back on resume, or, when the budget
+    cannot hold them (always at 0), are dropped and rebuilt by
+    re-prefilling prompt + generated.  Not with drafts.
+
+    ``faults``: a seeded ``serving.faults.FaultInjector`` (the fault
+    plane): a failed expert fetch is retried ``fetch_retries`` times
+    (``fetch_backoff_ms`` apart), then the layer runs store-direct;
+    page-pool and swap faults take the stall and recompute paths; a NaN
+    row is quarantined (status ``failed``); ``slow_step`` stalls.  With
+    an injector every decode step reads the last logits to the host.
+    ``check_invariants=True`` runs :meth:`check_invariants` after every
+    step.  ``queue_cap`` bounds the waiting queue (a request submitted to
+    a full queue ends ``rejected``).  ``deadline_ms`` is the default
+    wall-clock budget of a request; ``submit``'s ``deadline_ms`` /
+    ``deadline_steps`` override it.  ``device``: the plain plane's device
+    (the card unless ``"cpu"``)."""
 
     def __init__(self, params, cfg: ModelConfig, *, max_slots: int = 4,
                  slot_len: int = 256, sampler: Optional[SamplerConfig] = None,
@@ -168,12 +214,12 @@ class ContinuousEngine:
                  draft_params=None, draft_cfg=None,
                  num_draft_tokens: int = 0,
                  faults=None,
+                 check_invariants: bool = False,
                  queue_cap: Optional[int] = None,
+                 deadline_ms: Optional[float] = None,
+                 fetch_retries: int = 2,
+                 fetch_backoff_ms: float = 0.0,
                  device=None):
-        if prefix_cache_pages or preemption or kv_host_pages:
-            raise _not_ported("prefix caching, preemption and host swap", 5)
-        if faults is not None:
-            raise _not_ported("fault injection", 5)
         if telemetry is not None:
             raise _not_ported("telemetry", 7)
         self.offload = offload
@@ -202,6 +248,47 @@ class ContinuousEngine:
             device=self.device)
         self.slot_len = self.kv.slot_len  # per-request cap, page-rounded
         self.sched = Scheduler(max_slots, policy, queue_cap=queue_cap)
+        # the fault plane and the request lifecycle
+        self.faults = faults
+        self._check_inv = bool(check_invariants)
+        self._deadline_ms = deadline_ms
+        self._nan_quarantined = 0
+        self._exec.set_fault_injector(faults, max_retries=fetch_retries,
+                                      backoff_ms=fetch_backoff_ms)
+        if self.paged:
+            self.kv.set_fault_injector(faults)
+        # prefix reuse and preemption
+        self._prefix: Optional[PrefixCache] = None
+        self._preempt = bool(preemption)
+        self._swapped: List[_Swapped] = []
+        self._swap_seq = 0
+        self._recomputes = 0
+        self._prefills_skipped = 0
+        self._prefix_hit_tokens = 0
+        if prefix_cache_pages or preemption or kv_host_pages:
+            if not self.paged:
+                raise ValueError(
+                    "prefix caching / preemption need block-paged KV (set "
+                    "kv_page); dense rings have no shareable or swappable "
+                    "page unit")
+            if not cfg.attention_only_stack:
+                raise ValueError(
+                    f"prefix caching / preemption need a causal-attention "
+                    f"stack: {cfg.name!r} carries state that pages neither "
+                    f"share nor swap")
+            if kv_host_pages and not preemption:
+                raise ValueError("kv_host_pages without preemption would "
+                                 "never be used: enable preemption or drop "
+                                 "the host pool")
+            if preemption and num_draft_tokens:
+                raise ValueError(
+                    "preemption composes with plain decode only: a "
+                    "draft-and-verify round holds un-verified KV that a "
+                    "mid-round swap would tear")
+        if prefix_cache_pages:
+            self._prefix = PrefixCache(self.kv.page_size, prefix_cache_pages)
+        if preemption:
+            self.kv.enable_host_swap(kv_host_pages)
         self.prefill_chunk = prefill_chunk
         self.budget: Optional[TokenBudgetPolicy] = None
         if prefill_chunk is not None:
@@ -288,10 +375,21 @@ class ContinuousEngine:
 
     # ------------------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 32, on_token=None,
-               on_finish=None, temperature: Optional[float] = None
-               ) -> GenRequest:
+               on_finish=None, temperature: Optional[float] = None,
+               priority: int = 0, deadline_ms: Optional[float] = None,
+               deadline_steps: Optional[int] = None) -> GenRequest:
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         assert prompt.size > 0, "empty prompt"
+        if self._preempt:
+            # optimistic admission must still end: a request whose worst
+            # case exceeds the whole pool could preempt every other one
+            # and still run dry mid-decode
+            worst = self.kv.pool.pages_for(prompt.size + max_new_tokens)
+            if worst > self.kv.pool.n_pages:
+                raise ValueError(
+                    f"request needs {worst} pages > pool total "
+                    f"{self.kv.pool.n_pages}; even preemption cannot make "
+                    f"it fit")
         if temperature is not None and self._greedy:
             raise ValueError(
                 "per-request temperature needs a stochastic sampler; this "
@@ -307,7 +405,12 @@ class ContinuousEngine:
                 f"positions > {detail}")
         req = GenRequest(prompt=prompt, max_new_tokens=max_new_tokens,
                          arrival=self.step_count, on_token=on_token,
-                         on_finish=on_finish, temperature=temperature)
+                         on_finish=on_finish, temperature=temperature,
+                         priority=priority,
+                         deadline_ms=(deadline_ms if deadline_ms is not None
+                                      else self._deadline_ms),
+                         deadline_steps=deadline_steps,
+                         submit_ns=time.perf_counter_ns())
         if not self.sched.submit(req):
             req.finish("rejected")  # bounded queue full: backpressure
         return req
@@ -329,46 +432,219 @@ class ContinuousEngine:
     def _start_admissions(self) -> None:
         """Move policy-selected waiting requests into free slots.  On
         pages the pick must be able to reserve its worst case (prompt +
-        max_new), else admission stalls until releases free pages (head
-        of line on memory: no preemption); on dense slots it prefills
-        into a fresh row state.  Prompts prefill as chunks."""
-        while self.kv.n_free and self.sched.has_waiting:
-            idx, cand = self.sched.peek_next(self.usage)
-            state = None
-            if self.paged:
-                need = admission_cost(self.cfg, len(cand.prompt),
-                                      cand.max_new_tokens).kv_positions
-                if not self.kv.can_admit(need):
-                    break
-                req = self.sched.pop_at(idx)
-                req.slot = self.kv.allocate(req.rid, need)
-            else:
-                req = self.sched.pop_at(idx)
+        max_new), else admission stalls until releases free pages; under
+        preemption it reserves its prompt + 1 and a stalled pick may
+        preempt a strictly lower-priority row, and preempted requests
+        resume first.  A prefix hit's pages count as credit and its
+        prefill starts where it diverges.  On dense slots a request
+        prefills into a fresh row state.  Prompts prefill as chunks."""
+        while self.kv.n_free and (self.sched.has_waiting or self._swapped):
+            if not self.paged:
+                req = self.sched.pop_next(self.usage)
                 req.slot = self.kv.allocate(req.rid)
-                state = self.kv.new_row_state()
+                self._admissions.append(Admission(
+                    rid=req.rid, slot=req.slot, total=len(req.prompt),
+                    state=self.kv.new_row_state(), req=req))
+                continue
+            if self._swapped:
+                sw = min(self._swapped, key=lambda s: (-s.req.priority, s.seq))
+                pick = (self.sched.peek_next(self.usage)[1]
+                        if self.sched.has_waiting else None)
+                if pick is None or sw.req.priority >= pick.priority:
+                    if not self._try_resume():
+                        break  # no new admission past a stuck resume
+                    continue
+                # a strictly higher-priority arrival admits first: resuming
+                # its own victim here would hand back the pages just freed
+            idx, cand = self.sched.peek_next(self.usage)
+            need = admission_cost(self.cfg, len(cand.prompt),
+                                  cand.max_new_tokens).kv_positions
+            base, shared = self._prefix_lookup(cand.prompt)
+            reserve = len(cand.prompt) + 1 if self._preempt else need
+            if not self.kv.can_admit(reserve, len(shared)):
+                if self._make_room(cand):
+                    continue  # look up again: eviction may drop its pages
+                break
+            req = self.sched.pop_at(idx)
+            req.slot = self.kv.allocate(req.rid, reserve,
+                                        shared_pages=shared, base=base)
+            self._note_prefix_hit(base)
             self._admissions.append(Admission(
                 rid=req.rid, slot=req.slot, total=len(req.prompt),
-                state=state, req=req))
+                next_lo=base, req=req))
 
-    def _grow_running_rows(self, rows: List[int]) -> None:
-        """Cover every decoding row's next position with a page before the
-        step: the admission reservation guarantees it fits."""
-        for r in rows:
-            self.kv.ensure(r, self.kv.length(r) + 1)
+    # ------------------------------------------------------------------
+    # prefix reuse and preemption
+    def _prefix_lookup(self, tokens):
+        if self._prefix is None:
+            return 0, []
+        return self._prefix.lookup(np.asarray(tokens))
 
+    def _note_prefix_hit(self, base: int) -> None:
+        if base:
+            self._prefills_skipped += 1
+            self._prefix_hit_tokens += base
+
+    def _prefix_insert(self, tokens, slot: int) -> None:
+        """Index the slot's full prompt pages once its prefill finished
+        (they are immutable from then on: later writes land past them).
+        The registered pages gain the cache's reference BEFORE the evicted
+        ones are released: an insert that overflows the capacity may evict
+        a node it just registered."""
+        n_full = len(tokens) // self.kv.page_size
+        if not n_full:
+            return
+        pids = self.kv.pool.owned[slot][:n_full]
+        registered, evicted = self._prefix.insert(np.asarray(tokens), pids)
+        for pid in registered:
+            self.kv.pool.incref(pid)
+        if evicted:
+            self.kv.free_cached_pages(evicted)
+
+    def _evict_prefix_pages(self) -> int:
+        """Evict LRU prefix nodes until a device page actually frees (a
+        page other slots still map frees nothing); returns the number
+        freed, 0 when the cache is exhausted."""
+        if self._prefix is None:
+            return 0
+        while True:
+            pids = self._prefix.evict_lru()
+            if not pids:
+                return 0
+            freed = self.kv.free_cached_pages(pids)
+            if freed:
+                return len(freed)
+
+    def _pick_victim(self, exclude_slot: Optional[int] = None,
+                     max_priority: Optional[int] = None
+                     ) -> Optional[GenRequest]:
+        """The lowest-priority, latest-arrival running row (admitting rows
+        excluded: a half-prefilled slot has nothing consistent to swap).
+        ``max_priority`` admits only STRICTLY lower priorities (an
+        admission or resume never preempts its own class); decode growth
+        passes none (it must proceed)."""
+        admitting = {a.rid for a in self._admissions}
+        cands = [r for r in self.sched.running
+                 if r.rid not in admitting and r.slot != exclude_slot
+                 and (max_priority is None or r.priority < max_priority)]
+        if not cands:
+            return None
+        return min(cands, key=lambda r: (r.priority, -r.arrival, -r.rid))
+
+    def _preempt_req(self, req: GenRequest) -> None:
+        """Take a running row off the device: its pages staged to the host
+        pool when the budget holds them, else dropped for a recompute
+        resume; either way they free for the beneficiary."""
+        slot = req.slot
+        n_live = self.kv.length(slot)
+        blob = self.kv.swap_out(slot)  # None: drop and recompute
+        self.kv.release(slot)
+        self.sched.preempt(req)
+        self._swap_seq += 1
+        self._swapped.append(_Swapped(
+            req=req, blob=blob, next_tok=int(self.tokens[slot, 0]),
+            n_tokens=n_live, seq=self._swap_seq))
+        req.slot = None
+
+    def _make_room(self, cand: Optional[GenRequest] = None) -> bool:
+        """Free device pages for a stalled admission or resume: prefix
+        eviction first (cached pages are speculative capital), then, under
+        preemption, a strictly lower-priority victim.  True when pages
+        were freed."""
+        if self._evict_prefix_pages():
+            return True
+        if not self._preempt:
+            return False
+        victim = self._pick_victim(
+            max_priority=cand.priority if cand is not None else None)
+        if victim is None:
+            return False
+        self._preempt_req(victim)
+        return True
+
+    def _try_resume(self) -> bool:
+        """Re-admit the best swapped request (priority, then preemption
+        order).  Staged pages are copied back (h2d) and the row decodes
+        on; dropped KV re-prefills prompt + generated[:-1] through the
+        admission chunks (with prefix credit) and feeds the pending token
+        instead of sampling.  A ``swap_in`` fault discards the blob and
+        falls back to the recompute."""
+        sw = min(self._swapped, key=lambda s: (-s.req.priority, s.seq))
+        req = sw.req
+        if (sw.blob is not None and self.faults is not None
+                and self.faults.fires("swap_in")):
+            self.kv.discard_blob(sw.blob)
+            sw.blob = None
+        if sw.blob is not None:
+            while not self.kv.can_admit(sw.n_tokens + 1):
+                if not self._make_room(req):
+                    return False
+            req.slot = self.kv.swap_in(req.rid, sw.blob, sw.n_tokens + 1)
+            self.sched.resume(req)
+            self.tokens[req.slot, 0] = sw.next_tok
+            self._swapped.remove(sw)
+            return True
+        ext = np.concatenate(
+            [req.prompt, np.asarray(req.generated[:-1], np.int32)])
+        n_live = len(ext)
+        base, shared = self._prefix_lookup(ext)
+        while not self.kv.can_admit(n_live + 1, len(shared)):
+            if not self._make_room(req):
+                return False
+            base, shared = self._prefix_lookup(ext)  # eviction-safe redo
+        req.slot = self.kv.allocate(req.rid, n_live + 1,
+                                    shared_pages=shared, base=base)
+        self.sched.resume(req)
+        self._recomputes += 1
+        self._note_prefix_hit(base)
+        self._admissions.append(Admission(
+            rid=req.rid, slot=req.slot, total=n_live, next_lo=base, req=req,
+            tokens=ext, resume_tok=sw.next_tok))
+        self._swapped.remove(sw)
+        return True
+
+    def _grow_running_rows(self) -> None:
+        """Under preemption: secure every running row's next position
+        BEFORE the plan forms (a preemption mid-step would tear a row the
+        plan scheduled).  Rows grow best first (priority down, arrival
+        up), so the rows not yet grown are the preferred victims."""
+        admitting = {a.rid for a in self._admissions}
+        rows = sorted((r for r in self.sched.running
+                       if r.rid not in admitting),
+                      key=lambda r: (-r.priority, r.arrival, r.rid))
+        for req in rows:
+            if req.state != RUNNING:
+                continue  # already taken as an earlier row's victim
+            n = self.kv.length(req.slot) + 1
+            while not self.kv.can_grow(req.slot, n):
+                if self._evict_prefix_pages():
+                    continue
+                victim = self._pick_victim(exclude_slot=req.slot)
+                if victim is None:
+                    raise RuntimeError(
+                        "page pool exhausted with nothing left to preempt "
+                        "(submit() checks that a lone request fits)")
+                self._preempt_req(victim)
+            self.kv.grow(req.slot, n)
+
+    # ------------------------------------------------------------------
     def _run_chunks(self, chunks: List[ChunkTask]) -> List[GenRequest]:
         """Run this step's prefill chunks: into the slot's pages, or into
         the admission's row state.  An admission whose final chunk ran
-        samples its first token and joins the decode rows: this step when
-        unchunked (a dense row is installed at once), the next step under
-        a budget (a dense row is installed at that step's start, so this
-        step's batched decode cannot advance a row it did not plan)."""
+        publishes its full pages to the prefix cache, then samples its
+        first token (a recompute resume feeds its pending token instead)
+        and joins the decode rows: this step when unchunked (a dense row
+        is installed at once), the next step under a budget (a dense row
+        is installed at that step's start, so this step's batched decode
+        cannot advance a row it did not plan).  Under the fault plane a
+        non-finite first-token row fails before it ever decodes."""
         finished = []
         by_rid = {a.rid: a for a in self._admissions}
         for task in chunks:
             adm = by_rid[task.rid]
             req: GenRequest = adm.req
-            tokens = torch.as_tensor(req.prompt[None, task.lo: task.hi],
+            src = adm.tokens if adm.tokens is not None else req.prompt
+            tokens = torch.as_tensor(src[None, task.lo: task.hi],
                                      device=self.device)
             if self.paged:
                 self.kv.ensure(adm.slot, task.hi)
@@ -381,6 +657,21 @@ class ContinuousEngine:
                                                              tokens)
             adm.next_lo = task.hi
             if not task.last:
+                continue
+            if self._prefix is not None:
+                # before any release below: the cache's reference must
+                # outlive the slot
+                self._prefix_insert(src, adm.slot)
+            if adm.resume_tok is not None:
+                self.tokens[adm.slot, 0] = int(adm.resume_tok)
+                self._admissions.remove(adm)
+                continue
+            if self.faults is not None and not bool(
+                    torch.isfinite(logits[0, -1]).all()):
+                self._nan_quarantined += 1
+                self._admissions.remove(adm)
+                self._finish(req, "nan")
+                finished.append(req)
                 continue
             first = int(self._sample_rows(logits[:, -1], [req])[0])
             req.emit(first)
@@ -407,7 +698,10 @@ class ContinuousEngine:
     def _plan(self) -> StepPlan:
         """This step's mixed batch: every decodable row + prompt chunks
         under the token budget (unchunked: whole prompts this step, split
-        only at the slot width)."""
+        only at the slot width).  Under preemption every running row's
+        next position is secured first."""
+        if self._preempt:
+            self._grow_running_rows()
         self._install_ready()
         self._start_admissions()
         decode_rows = self._decode_rows()
@@ -446,35 +740,106 @@ class ContinuousEngine:
         self.sched.evict(req, reason)
 
     # ------------------------------------------------------------------
-    def cancel(self, rid: int) -> bool:
-        """Client abandonment: terminal status ``cancelled``, wherever the
-        request is (waiting, mid-admission or running); its slot and pages
-        are released.  False when the rid is unknown or already ended."""
+    # the request lifecycle
+    def _terminate(self, rid: int, reason: str) -> bool:
+        """End one in-flight request wherever it is (waiting, mid-
+        admission, running or swapped out), releasing its slot, pages,
+        draft row or host blob.  The prefix-cache references its prompt
+        registered stay: cached pages are the cache's."""
         for req in self.sched.waiting:
             if req.rid == rid:
-                self.sched.drop(req, "cancelled")
+                self.sched.drop(req, reason)
                 return True
-        self._admissions = [a for a in self._admissions if a.rid != rid]
+        for adm in self._admissions:
+            if adm.rid == rid:
+                self._admissions.remove(adm)
+                self._finish(adm.req, reason)
+                return True
         for req in self.sched.running:
             if req.rid == rid:
-                self._finish(req, "cancelled")
+                self._finish(req, reason)
+                return True
+        for sw in self._swapped:
+            if sw.req.rid == rid:
+                self._swapped.remove(sw)
+                self.kv.discard_blob(sw.blob)
+                self.sched.drop(sw.req, reason)
                 return True
         return False
 
+    def cancel(self, rid: int) -> bool:
+        """Client abandonment: terminal status ``cancelled``, callable
+        between steps, wherever the request is; every resource it held is
+        released.  False when the rid is unknown or already ended."""
+        return self._terminate(rid, "cancelled")
+
+    def _expire_deadlines(self) -> None:
+        """End the requests past their wall-clock (``deadline_ms``) or
+        engine-step (``deadline_steps``) budget, wherever they are."""
+        cands = [r for r in (self.sched.waiting + self.sched.running
+                             + [sw.req for sw in self._swapped])
+                 if r.deadline_ms is not None or r.deadline_steps is not None]
+        if not cands:
+            return
+        now = time.perf_counter_ns()
+        for req in cands:
+            over = (req.deadline_steps is not None
+                    and self.step_count - req.arrival >= req.deadline_steps)
+            if (not over and req.deadline_ms is not None
+                    and req.submit_ns is not None):
+                over = (now - req.submit_ns) > req.deadline_ms * 1e6
+            if over:
+                self._terminate(req.rid, "deadline")
+
+    def _quarantine(self, last: np.ndarray, reqs: List[GenRequest],
+                    finished: List[GenRequest]) -> List[GenRequest]:
+        """``last``: the step's (max_slots, V) last-position logits on the
+        host.  A ``nan_logits`` fault poisons the lowest-rid decode row;
+        every non-finite row fails (status ``failed``) and is released.
+        The other rows' logits are untouched.  Returns the survivors."""
+        if reqs and self.faults.fires("nan_logits"):
+            last[min(reqs, key=lambda r: r.rid).slot, :] = np.nan
+        finite = np.isfinite(last).all(axis=-1)
+        bad = [r for r in reqs if not finite[r.slot]]
+        for req in bad:
+            self._nan_quarantined += 1
+            self._finish(req, "nan")
+            finished.append(req)
+        return [r for r in reqs if finite[r.slot]]
+
+    def _audit_step(self) -> None:
+        if self._check_inv:
+            self.check_invariants()
+        else:
+            self.sched.check_invariants()
+
     def check_invariants(self) -> None:
         """Step-boundary audit of the host-side bookkeeping: the
-        scheduler's lists, the KV manager's free/owned partition and, with
-        a draft, the draft rings' slot ledger."""
+        scheduler's lists, the KV manager's free/referenced partition with
+        exact per-page refcounts (the prefix cache's included), the draft
+        rings' slot ledger, and the host pool's occupancy equal to the
+        pages the swapped requests staged."""
         self.sched.check_invariants()
-        self.kv.check_invariants()
+        self.kv.check_invariants(
+            self._prefix.pages() if self._prefix is not None else ())
         if self.spec_metrics is not None:
             self._draft_kv.check_invariants()
+        host = getattr(self.kv, "host", None)
+        if host is not None:
+            staged = sum(sw.blob["n_pages"] for sw in self._swapped
+                         if sw.blob is not None)
+            assert host.in_use == staged, \
+                f"host pool holds {host.in_use} pages but swapped " \
+                f"requests staged {staged}"
 
     # ------------------------------------------------------------------
     def step(self) -> List[GenRequest]:
         """One engine step: the plan's prefill chunks, then one batched
         decode over the planned rows.  Returns the requests finished this
         step."""
+        if self.faults is not None and self.faults.fires("slow_step"):
+            time.sleep(self.faults.stall_ms() / 1e3)
+        self._expire_deadlines()
         plan = self._plan()
         finished = self._run_chunks(plan.chunks)
         # unchunked admission: a request admitted this step decodes this
@@ -484,7 +849,7 @@ class ContinuousEngine:
         if not rows:
             if plan.chunks:
                 self.step_count += 1
-            self.sched.check_invariants()
+                self._audit_step()
             return finished
         reqs = sorted((r for r in self.sched.running if r.slot in set(rows)),
                       key=lambda r: r.slot)
@@ -500,10 +865,14 @@ class ContinuousEngine:
         active = np.zeros((self.max_slots,), bool)
         active[rows] = True
         if self.paged:
-            self._grow_running_rows(rows)
+            for r in rows:
+                self.kv.ensure(r, self.kv.length(r) + 1)
             step_state = self.kv.view(self.kv.live_width(rows))
         else:
             step_state = self.kv.state
+        # under the fault plane both planes read the last logits to the
+        # host, to quarantine a poisoned row before sampling
+        quar = self.faults is not None
         if self.offload is not None:
             # free slots bypass the expert pool: their dummy tokens never
             # touch the cache or the counters
@@ -511,22 +880,41 @@ class ContinuousEngine:
                 step_state, self.tokens, self._pstate, active)
             self.usage.update(route_ids, rows=rows)
             nxt_dev = logits[:, -1]
+        elif quar:
+            logits, state, _, infos = self._exec.decode(
+                step_state, self.tokens, active=active,
+                collect_info=self._collect)
+            nxt_dev = logits[:, -1]
         else:
             out = self._exec.decode_sampled(
                 step_state, self.tokens, collect_info=self._collect,
                 greedy=self._greedy, active=active)
             nxt_dev, state = out[0], out[1]
-            if self._collect:
-                ids, _ = routing_from_info(self.cfg, out[2],
-                                           want_hiddens=False)
-                self.usage.update(ids, rows=rows)
+            infos = out[2] if self._collect else None
+        if self._collect and self.offload is None:
+            ids, _ = routing_from_info(self.cfg, infos, want_hiddens=False)
+            self.usage.update(ids, rows=rows)
         if self.paged:
             self.kv.adopt(state)
             for r in rows:
                 self.kv.note_tokens(r, self.kv.length(r) + 1)
         else:
             self.kv.state = state
-        if self._greedy and self.offload is None:
+        if quar:
+            # (max_slots, V) to the host every step: the price of
+            # inspecting the logits before sampling
+            last = nxt_dev.float().cpu().numpy()
+            reqs = self._quarantine(last, reqs, finished)
+            nxt = np.zeros((self.max_slots,), np.int32)
+            if reqs:
+                srows = [r.slot for r in reqs]
+                if self._greedy:
+                    nxt[srows] = np.argmax(last[srows], axis=-1)
+                else:
+                    nxt[srows] = self._sample_rows(
+                        torch.as_tensor(last[srows], device=self.device),
+                        reqs)
+        elif self._greedy and self.offload is None:
             nxt = nxt_dev.cpu().numpy()  # the step's one device read
         elif self._greedy:
             nxt = self._sample_rows(nxt_dev, reqs)  # every slot's row
@@ -542,7 +930,7 @@ class ContinuousEngine:
             else:
                 self.tokens[req.slot, 0] = t
         self.step_count += 1
-        self.sched.check_invariants()
+        self._audit_step()
         return finished
 
     # ------------------------------------------------------------------
@@ -685,14 +1073,14 @@ class ContinuousEngine:
             self.spec_metrics.add_bytes(total - self._spec_last_h2d)
             self._spec_last_h2d = total
         self.step_count += 1
-        self.sched.check_invariants()
+        self._audit_step()
         return finished
 
     def run(self, max_steps: Optional[int] = None) -> List[GenRequest]:
         """Drive until every submitted request finishes; returns them in
         completion order."""
         steps = 0
-        while self.sched.has_waiting or self.sched.n_running:
+        while self.sched.has_waiting or self.sched.n_running or self._swapped:
             self.step()
             steps += 1
             if max_steps is not None and steps >= max_steps:
@@ -719,12 +1107,53 @@ class ContinuousEngine:
                 "bytes_h2d": bytes_h2d,
                 "bytes_per_token": bytes_h2d / max(1, emitted)}
 
+    def _prefix_metrics(self) -> Dict[str, float]:
+        out = {"lookups": self._prefix.lookups,
+               "hit_tokens": self._prefix_hit_tokens,
+               "prefills_skipped": self._prefills_skipped}
+        out.update(self._prefix.stats())
+        return out
+
+    def _kv_host_metrics(self) -> Dict[str, float]:
+        out = dict(self.kv.host_stats())
+        out.update(preemptions=self.sched.preemptions,
+                   resumes=self.sched.resumes,
+                   recomputes=self._recomputes,
+                   swapped_now=len(self._swapped))
+        return out
+
+    def _faults_metrics(self) -> Dict[str, float]:
+        """Injector fire counts (zeros without an injector), the fetch
+        ladder's counters, NaN quarantines, and the terminal statuses of
+        every request this engine has seen."""
+        out = {"enabled": int(self.faults is not None), "injected": 0}
+        for s in FAULT_SITES:
+            out[f"fired_{s}"] = 0
+        if self.faults is not None:
+            out.update(self.faults.stats())
+        out.update(self._exec.fault_counters)
+        out["nan_quarantined"] = self._nan_quarantined
+        counts = {"completed": 0, "cancelled": 0, "deadline_exceeded": 0,
+                  "failed": 0}
+        for r in self.sched.finished:
+            counts[r.status] += 1
+        counts["rejected"] = self.sched.queue_rejected
+        out.update(counts)
+        return out
+
     def stats(self) -> Dict[str, float]:
         """The reference's flat ``stats()`` keys: engine counters bare,
-        ``kv_*`` and, with an offload engine, ``offload_*``."""
+        ``kv_*``, ``faults_*`` and, where they apply, ``offload_*``,
+        ``prefix_*`` and ``kv_host_*``."""
         out = dict(self._engine_metrics())
         out.update(self.kv.stats())
+        spaces = {"faults": self._faults_metrics}
         if self.offload is not None:
-            out.update({f"offload_{k}": v
-                        for k, v in self._offload_metrics().items()})
+            spaces["offload"] = self._offload_metrics
+        if self._prefix is not None:
+            spaces["prefix"] = self._prefix_metrics
+        if self._preempt:
+            spaces["kv_host"] = self._kv_host_metrics
+        for ns, fn in spaces.items():
+            out.update({f"{ns}_{k}": v for k, v in fn().items()})
         return out

@@ -16,7 +16,14 @@ owns an ordered page list, recorded in one page table shared by all
 layers:
 
 * a request reserves ``ceil((prompt + max_new) / page_size)`` pages at
-  admission, so a mid-decode allocation never fails (no preemption);
+  admission, so a mid-decode allocation never fails; under preemption it
+  reserves its prompt and grows page by page (:meth:`PagedKVManager.grow`),
+  and a preempted slot's pages are staged to pinned host memory
+  (:meth:`PagedKVManager.swap_out`, budgeted by :class:`HostPagePool`) and
+  copied back into fresh pages on resume (:meth:`PagedKVManager.swap_in`);
+* pages are refcounted (:class:`PagePool`): a prefix-cache hit maps the
+  cache's pages as a slot's leading ordinals, and a page is freed, and
+  scrubbed, only when its last holder lets go;
 * admission chunks write straight into the slot's pages: there is no
   side state and no install copy;
 * a decode step's table is sliced to the live page horizon
@@ -38,6 +45,7 @@ import heapq
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -167,11 +175,16 @@ class KVSlotManager:
 
 
 class PagePool:
-    """Host-side page allocator: heap free list + per-slot ordered page
-    lists + admission reservations.  Pages are allocated lazily
-    (:meth:`ensure` covers positions as they are written) but admission
-    reserves a slot's worst case up front.  Invariants: free + owned
-    partition the pool, and no slot owns more than it reserved."""
+    """Host-side page allocator: heap free list, per-slot ordered page
+    lists, admission reservations and per-page reference counts.  Pages
+    are allocated lazily (:meth:`ensure` covers positions as they are
+    written) against a reservation made at admission (the worst case, or
+    under preemption the prompt, grown step by step).  With a prefix
+    cache a page can be held by several slots and the cache at once: a
+    slot's release drops its references and frees (and returns for
+    scrubbing) only the pages whose last reference dropped.  Invariants:
+    free + referenced partition the pool, no slot owns more than it
+    reserved, and every page's refcount equals its holders."""
 
     def __init__(self, n_pages: int, page_size: int):
         assert n_pages > 0 and page_size > 0
@@ -181,6 +194,7 @@ class PagePool:
         heapq.heapify(self._free)
         self.owned: Dict[object, List[int]] = {}
         self.reserved: Dict[object, int] = {}
+        self.refs: Dict[int, int] = {}  # page id -> live references
         self.peak_in_use = 0
         # allocated + reserved-but-unallocated: the committed footprint
         self.peak_committed = 0
@@ -200,18 +214,23 @@ class PagePool:
     def can_reserve(self, n_pages: int) -> bool:
         return n_pages <= self.n_free - self.n_reserved_unallocated
 
-    def reserve(self, slot, n_tokens: int) -> None:
+    def reserve(self, slot, n_tokens: int, prealloc_pages: int = 0) -> None:
+        """``prealloc_pages``: the prefix-hit credit, leading pages of the
+        reservation that will be adopted from the cache (already
+        allocated), so only the rest must be unreserved, and the committed
+        peak does not count them twice."""
         need = self.pages_for(n_tokens)
-        if not self.can_reserve(need):
+        if not self.can_reserve(max(0, need - prealloc_pages)):
             raise ValueError(
-                f"page pool exhausted: need {need} pages, "
+                f"page pool exhausted: need {need - prealloc_pages} pages, "
                 f"{self.n_free - self.n_reserved_unallocated} unreserved")
         assert slot not in self.reserved, f"slot {slot} already reserved"
         self.reserved[slot] = need
         self.owned[slot] = []
         self.peak_committed = max(
             self.peak_committed,
-            self.n_pages - self.n_free + self.n_reserved_unallocated)
+            self.n_pages - self.n_free + self.n_reserved_unallocated
+            - prealloc_pages)
 
     def ensure(self, slot, n_tokens: int) -> List[int]:
         """Allocate pages so positions ``0 .. n_tokens-1`` are covered;
@@ -225,30 +244,81 @@ class PagePool:
         while len(self.owned[slot]) < need:
             pid = heapq.heappop(self._free)
             self.owned[slot].append(pid)
+            self.refs[pid] = 1
             new.append(pid)
         self.peak_in_use = max(self.peak_in_use, self.n_pages - self.n_free)
         return new
 
+    def incref(self, pid: int) -> None:
+        assert self.refs.get(pid, 0) > 0, \
+            f"incref on unreferenced page {pid}"
+        self.refs[pid] += 1
+
+    def decref(self, pid: int) -> bool:
+        """Drop one reference; True when the page was FREED (the caller
+        scrubs it before reuse)."""
+        n = self.refs[pid] - 1
+        if n > 0:
+            self.refs[pid] = n
+            return False
+        del self.refs[pid]
+        heapq.heappush(self._free, pid)
+        return True
+
+    def adopt_shared(self, slot, page_ids: List[int]) -> None:
+        """Map live (cache-held) pages as the slot's leading ordinals: the
+        prefix-hit admission.  Runs right after :meth:`reserve`, whose
+        reservation counts them."""
+        assert slot in self.reserved and not self.owned[slot], \
+            f"adopt_shared({slot}) must follow reserve() immediately"
+        assert len(page_ids) <= self.reserved[slot]
+        for pid in page_ids:
+            self.incref(pid)
+            self.owned[slot].append(pid)
+
+    def can_grow_reservation(self, slot, n_tokens: int) -> bool:
+        need = self.pages_for(n_tokens)
+        cur = self.reserved.get(slot, 0)
+        return (need <= cur
+                or need - cur <= self.n_free - self.n_reserved_unallocated)
+
+    def grow_reservation(self, slot, n_tokens: int) -> None:
+        """Extend a slot's reservation to cover ``n_tokens``: optimistic
+        admission under preemption claims pages as decode grows."""
+        need = self.pages_for(n_tokens)
+        cur = self.reserved[slot]
+        if need <= cur:
+            return
+        if need - cur > self.n_free - self.n_reserved_unallocated:
+            raise ValueError(
+                f"page pool exhausted: slot {slot} needs {need - cur} more "
+                f"pages, {self.n_free - self.n_reserved_unallocated} "
+                f"unreserved")
+        self.reserved[slot] = need
+        self.peak_committed = max(
+            self.peak_committed,
+            self.n_pages - self.n_free + self.n_reserved_unallocated)
+
     def release(self, slot) -> List[int]:
-        """Free every page the slot owns; returns them (for scrubbing)."""
+        """Drop the slot's reference on every page it owns; returns the
+        pages FREED (for scrubbing): a page the prefix cache or another
+        adopter still holds stays live with its KV."""
         ids = self.owned.pop(slot, [])
         self.reserved.pop(slot, None)
-        for pid in ids:
-            heapq.heappush(self._free, pid)
-        return ids
+        return [pid for pid in ids if self.decref(pid)]
 
     def trim(self, slot, n_tokens: int) -> List[int]:
         """Give back the pages beyond ``pages_for(n_tokens)`` (a rejected
         verify chunk), keeping the reservation: the request may regrow
         into it.  Returns the freed page ids, highest ordinal first, for
-        scrubbing."""
+        scrubbing; a popped page another holder keeps is not freed."""
         keep = self.pages_for(n_tokens)
         assert slot in self.owned, f"slot {slot} not reserved"
         freed = []
         while len(self.owned[slot]) > keep:
             pid = self.owned[slot].pop()
-            heapq.heappush(self._free, pid)
-            freed.append(pid)
+            if self.decref(pid):
+                freed.append(pid)
         return freed
 
     def stats(self) -> Dict[str, object]:
@@ -259,6 +329,47 @@ class PagePool:
                 "pages_peak_committed": self.peak_committed,
                 "pages_reserved_unallocated": self.n_reserved_unallocated,
                 "page_size": self.page_size}
+
+
+class HostPagePool:
+    """Budget and byte counters of the KV pages staged to host memory by
+    preemption (``kv_host_pages``).  The blobs themselves live with the
+    engine's preempted-request records; a zero budget makes every
+    preemption drop its KV and resume by recompute."""
+
+    def __init__(self, n_pages: int):
+        assert n_pages >= 0
+        self.n_pages = int(n_pages)
+        self.in_use = 0
+        self.peak_in_use = 0
+        self.swap_out_bytes = 0
+        self.swap_in_bytes = 0
+
+    def can_hold(self, n_pages: int) -> bool:
+        return self.in_use + n_pages <= self.n_pages
+
+    def note_out(self, n_pages: int, nbytes: int) -> None:
+        self.in_use += n_pages
+        self.peak_in_use = max(self.peak_in_use, self.in_use)
+        self.swap_out_bytes += nbytes
+
+    def note_in(self, n_pages: int, nbytes: int) -> None:
+        assert self.in_use >= n_pages
+        self.in_use -= n_pages
+        self.swap_in_bytes += nbytes
+
+    def note_drop(self, n_pages: int) -> None:
+        """A blob discarded without a restore (cancelled while swapped, or
+        a failed h2d stage): its pages leave the budget, no bytes flow."""
+        assert self.in_use >= n_pages
+        self.in_use -= n_pages
+
+    def stats(self) -> Dict[str, int]:
+        return {"pages_total": self.n_pages,
+                "pages_in_use": self.in_use,
+                "peak_pages_in_use": self.peak_in_use,
+                "swap_out_bytes": self.swap_out_bytes,
+                "swap_in_bytes": self.swap_in_bytes}
 
 
 class PagedKVManager:
@@ -285,6 +396,8 @@ class PagedKVManager:
         self._owner: List[Optional[object]] = [None] * n_slots
         self._len = [0] * n_slots  # host mirror of live token counts
         self._staging = L.HostStaging()
+        self.host: Optional[HostPagePool] = None  # the swap budget
+        self._finj = None  # FaultInjector; None = no injection
 
     @property
     def _pages_np(self) -> np.ndarray:
@@ -294,23 +407,47 @@ class PagedKVManager:
     def n_free(self) -> int:
         return len(self._free)
 
-    def can_admit(self, n_tokens: int) -> bool:
-        return bool(self._free) and self.pool.can_reserve(
-            self.pool.pages_for(n_tokens))
+    def owner(self, slot: int):
+        return self._owner[slot]
 
-    def allocate(self, owner=None, n_tokens: int = 1) -> int:
-        """Claim a slot and reserve its worst-case page budget; its
-        position resets to 0."""
+    def set_fault_injector(self, inj) -> None:
+        """Attach (or clear) the fault plane.  Sites here: ``page_pool``
+        (admission sees no headroom) and ``swap_out`` (the d2h stage
+        fails: the KV is dropped and the request resumes by recompute)."""
+        self._finj = inj
+
+    def can_admit(self, n_tokens: int, prealloc_pages: int = 0) -> bool:
+        """``prealloc_pages``: the prefix-hit credit, pages the request
+        adopts from the cache, so only the rest of its reservation must
+        be unreserved."""
+        if self._finj is not None and self._finj.fires("page_pool"):
+            return False  # injected exhaustion: admission retries next step
+        need = max(0, self.pool.pages_for(n_tokens) - prealloc_pages)
+        return bool(self._free) and self.pool.can_reserve(need)
+
+    def allocate(self, owner=None, n_tokens: int = 1, *, shared_pages=(),
+                 base: int = 0) -> int:
+        """Claim a slot and reserve pages for ``n_tokens``.  A prefix hit
+        passes the cache's pages as ``shared_pages`` (the slot's leading
+        ordinals, refcounted, never written) and ``base`` = the matched
+        token count: the slot starts there and prefills ``[base,
+        total)``.  Otherwise its position resets to 0."""
+        assert base == len(shared_pages) * self.page_size
         slot = heapq.heappop(self._free)
-        self.pool.reserve(slot, n_tokens)
+        self.pool.reserve(slot, n_tokens, prealloc_pages=len(shared_pages))
+        if shared_pages:
+            self.pool.adopt_shared(slot, list(shared_pages))
+            self._pages_np[slot, :len(shared_pages)] = shared_pages
         self._owner[slot] = owner
-        self._len[slot] = 0
+        self._len[slot] = base
         pos = self.state["pos"].copy()
-        pos[slot] = 0
+        pos[slot] = base
         self.state = dict(self.state, pos=pos)
         return slot
 
     def release(self, slot: int) -> None:
+        """Free the slot; only the pages whose last reference dropped are
+        scrubbed (a page the cache still holds keeps its KV)."""
         assert self._owner[slot] is not None, f"slot {slot} already free"
         ids = self.pool.release(slot)
         self._pages_np[slot] = -1
@@ -318,6 +455,14 @@ class PagedKVManager:
         self._owner[slot] = None
         self._len[slot] = 0
         heapq.heappush(self._free, slot)
+
+    def free_cached_pages(self, page_ids: List[int]) -> List[int]:
+        """Drop the prefix cache's reference on evicted pages; the pages
+        whose last reference this was are freed and scrubbed.  Returns
+        them."""
+        freed = [pid for pid in page_ids if self.pool.decref(pid)]
+        self._scrub(freed)
+        return freed
 
     def remaining(self, slot: int) -> int:
         return self.slot_len - self._len[slot]
@@ -329,15 +474,106 @@ class PagedKVManager:
         for j, pid in enumerate(new):
             self._pages_np[slot, base + j] = pid
 
+    def can_grow(self, slot: int, n_tokens: int) -> bool:
+        """Could the slot's reservation stretch to ``n_tokens``?  When not,
+        the preempting engine frees pages first (cache eviction, then a
+        victim)."""
+        return self.pool.can_grow_reservation(slot, n_tokens)
+
+    def grow(self, slot: int, n_tokens: int) -> None:
+        """Extend the slot's reservation (optimistic admission under
+        preemption) and allocate the pages that cover ``n_tokens``."""
+        self.pool.grow_reservation(slot, n_tokens)
+        self.ensure(slot, n_tokens)
+
+    # -- host swap (preemption) ----------------------------------------
+    def enable_host_swap(self, n_pages: int) -> None:
+        self.host = HostPagePool(n_pages)
+
+    def page_nbytes(self) -> int:
+        """Bytes one page takes over every layer's kp/vp/ppos: the unit of
+        swap traffic."""
+        P = self.pool.n_pages
+        return sum(t.numel() * t.element_size() // P
+                   for blk in self.state["layers"] for t in blk["kv"].values())
+
+    def swap_out(self, slot: int):
+        """Stage the slot's pages to host memory so the engine can release
+        them: one gather per plane (kp, vp, ppos) over every layer, then
+        one d2h copy each into pinned memory, on the compute stream, so
+        the gather reads the pages before the release's scrub writes
+        them.  Returns the blob, or None when the host budget cannot hold
+        the pages or the ``swap_out`` fault fires (the engine then drops
+        the KV and resumes by recompute).  Shared prefix pages survive the
+        release through the cache's reference; the blob holds their
+        content too, so the restore is exact either way."""
+        if self.host is None:
+            return None
+        pids = list(self.pool.owned.get(slot, []))
+        k = len(pids)
+        if k == 0 or not self.host.can_hold(k):
+            return None
+        if self._finj is not None and self._finj.fires("swap_out"):
+            return None
+        idx = self._staging.upload(np.asarray(pids), self.device).long()
+        pin = self.device.type == "cuda"
+        data = {}
+        for name in ("kp", "vp", "ppos"):
+            dev = torch.stack([blk["kv"][name].index_select(0, idx)
+                               for blk in self.state["layers"]])
+            host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=pin)
+            data[name] = host.copy_(dev, non_blocking=pin)
+        self.host.note_out(k, k * self.page_nbytes())
+        return {"data": data, "n_pages": k, "n_tokens": self._len[slot]}
+
+    def swap_in(self, owner, blob, reserve_tokens: int) -> int:
+        """Re-admit a swapped request: a slot and a reservation for
+        ``reserve_tokens``, exactly the blob's page count allocated, and
+        the staged pages copied back (h2d) into them with ``index_copy_``
+        on the compute stream, before the row's next step.  Positions,
+        ordinals and ``ppos`` come back as they were, so the resumed
+        decode is the uninterrupted one."""
+        slot = self.allocate(owner, reserve_tokens)
+        k = blob["n_pages"]
+        self.ensure(slot, k * self.page_size)
+        pids = self.pool.owned[slot]
+        assert len(pids) == k, f"swap_in expected {k} pages, got {len(pids)}"
+        idx = self._staging.upload(np.asarray(pids), self.device).long()
+        pin = self.device.type == "cuda"
+        for name, host in blob["data"].items():
+            dev = host.to(self.device, non_blocking=pin)
+            for l, blk in enumerate(self.state["layers"]):
+                blk["kv"][name].index_copy_(0, idx, dev[l])
+        self.host.note_in(k, k * self.page_nbytes())
+        n_live = blob["n_tokens"]
+        self._len[slot] = n_live
+        pos = self.state["pos"].copy()
+        pos[slot] = n_live
+        self.state = dict(self.state, pos=pos)
+        return slot
+
+    def discard_blob(self, blob) -> None:
+        """Drop a blob without restoring it (cancelled while swapped, or a
+        failed h2d stage): its host budget returns, no bytes flow."""
+        if blob is None or self.host is None:
+            return
+        self.host.note_drop(blob["n_pages"])
+
+    def host_stats(self) -> Dict[str, int]:
+        host = self.host if self.host is not None else HostPagePool(0)
+        return host.stats()
+
+    # ------------------------------------------------------------------
     def truncate(self, slot: int, n_tokens: int) -> None:
         """Roll the slot back so exactly ``n_tokens`` positions are live
         (a rejected verify chunk): the pages past ``pages_for(n_tokens)``
-        go back to the pool, their table entries to -1 and their ``ppos``
-        to -1 (a reused page must not leak the rejected positions into
-        another row's mask), and the position and length mirror reset.
-        Entries of a kept page past ``n_tokens`` stay, hidden by kpos >
-        qpos until the real tokens overwrite them.  The slot's table is
-        then what non-speculative decode at that position holds."""
+        go back to the pool, their table entries to -1 and, when freed,
+        their ``ppos`` to -1 (a reused page must not leak the rejected
+        positions into another row's mask), and the position and length
+        mirror reset.  Entries of a kept page past ``n_tokens`` stay,
+        hidden by kpos > qpos until the real tokens overwrite them.  The
+        slot's table is then what non-speculative decode at that position
+        holds."""
         assert 0 <= n_tokens <= self._len[slot], \
             f"truncate({slot}, {n_tokens}) would extend, not roll back"
         freed = self.pool.trim(slot, n_tokens)
@@ -384,7 +620,7 @@ class PagedKVManager:
         self.state = dict(new_state, pages=self._pages_np)
 
     def _scrub(self, page_ids: List[int]) -> None:
-        """Reset ``ppos`` of released pages to -1 in every layer."""
+        """Reset ``ppos`` of freed pages to -1 in every layer."""
         if not page_ids:
             return
         idx = self._staging.upload(np.asarray(page_ids), self.device).long()
@@ -413,24 +649,38 @@ class PagedKVManager:
         """Flat projection of :meth:`metrics` (``kv_*`` keys)."""
         return {f"kv_{k}": v for k, v in self.metrics().items()}
 
-    def check_invariants(self) -> None:
-        """Step-boundary audit: the free heap and the owned pages
-        partition the pool; every slot's table row mirrors its owned list,
-        gapless, -1 past the end; no slot owns more than it reserved; the
-        free slots and the owner map partition the slots."""
+    def check_invariants(self, cache_pages=()) -> None:
+        """Step-boundary audit.  ``cache_pages``: every page the prefix
+        cache holds a reference on.  Exactly: the free heap and the
+        referenced pages partition the pool; every page's refcount equals
+        its holders (the slots owning it plus one per cache node); every
+        slot's table row mirrors its owned list, gapless, -1 past the end;
+        no slot owns more than it reserved, and reservations exist exactly
+        for the owning slots; the free slots and the owner map partition
+        the slots."""
         pool = self.pool
         free = sorted(pool._free)
-        owned = [pid for ids in pool.owned.values() for pid in ids]
         assert len(set(free)) == len(free), f"free heap duplicates: {free}"
-        assert len(set(owned)) == len(owned), "a page owned twice"
-        assert not set(free) & set(owned), "pages both free and owned"
-        assert set(free) | set(owned) == set(range(pool.n_pages)), \
-            "pages neither free nor owned"
+        live = set(pool.refs)
+        assert not set(free) & live, \
+            f"pages both free and referenced: {sorted(set(free) & live)}"
+        missing = set(range(pool.n_pages)) - set(free) - live
+        assert not missing, \
+            f"pages neither free nor referenced: {sorted(missing)}"
         assert set(pool.owned) == set(pool.reserved), \
             "reservation/ownership slot sets diverge"
+        holders: Dict[int, int] = {}
         for slot, ids in pool.owned.items():
             assert len(ids) <= pool.reserved[slot], \
                 f"slot {slot} owns {len(ids)} pages over its reservation"
+            for pid in ids:
+                holders[pid] = holders.get(pid, 0) + 1
+        for pid in cache_pages:
+            holders[int(pid)] = holders.get(int(pid), 0) + 1
+        assert holders == pool.refs, \
+            f"refcounts diverge from holder counts:\n" \
+            f"  holders: {dict(sorted(holders.items()))}\n" \
+            f"  refs   : {dict(sorted(pool.refs.items()))}"
         for s in range(self.n_slots):
             ids = pool.owned.get(s, []) if self._owner[s] is not None else []
             row = self._pages_np[s]

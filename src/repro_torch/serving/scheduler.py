@@ -33,6 +33,7 @@ from repro_torch.core.trace import stacked_routers
 _rid_counter = itertools.count()
 
 WAITING, RUNNING, FINISHED = "waiting", "running", "finished"
+PREEMPTED = "preempted"  # swapped out, or dropped for recompute, mid-decode
 
 # finish_reason -> terminal status.  Reasons not in the map are failures.
 TERMINAL_STATUS = {"length": "completed", "eos": "completed",
@@ -53,9 +54,18 @@ class GenRequest:
     state: str = WAITING
     slot: Optional[int] = None
     generated: List[int] = field(default_factory=list)
-    finish_reason: Optional[str] = None  # a TERMINAL_STATUS key
+    finish_reason: Optional[str] = None  # a TERMINAL_STATUS key, or "nan"
+    # a wall-clock budget in ms (from submit_ns, stamped by the engine)
+    # and/or an engine-step budget: whichever expires first ends it
+    deadline_ms: Optional[float] = None
+    deadline_steps: Optional[int] = None
+    submit_ns: Optional[int] = None
     # per-request sampling temperature (None = the engine sampler's)
     temperature: Optional[float] = None
+    # preemption rank, higher wins: victims go lowest priority first (the
+    # latest arrival breaks ties), and a waiting request preempts only
+    # strictly lower priorities
+    priority: int = 0
     # filled lazily by ExpertOverlapPolicy (per-layer predicted expert ids)
     _pred_experts: Optional[List[np.ndarray]] = None
 
@@ -158,6 +168,8 @@ class Scheduler:
         self.finished: List[GenRequest] = []
         self.joins = 0
         self.evictions = 0
+        self.preemptions = 0
+        self.resumes = 0
         self.queue_rejected = 0
 
     def submit(self, req: GenRequest) -> bool:
@@ -194,6 +206,12 @@ class Scheduler:
         self.joins += 1
         return req
 
+    def pop_next(self, usage: Optional[ExpertUsageTracker] = None
+                 ) -> GenRequest:
+        """Policy-selected waiting request, moved to running."""
+        idx, _ = self.peek_next(usage)
+        return self.pop_at(idx)
+
     def evict(self, req: GenRequest, reason: str) -> None:
         self.running.remove(req)
         req.finish(reason)
@@ -201,10 +219,33 @@ class Scheduler:
         self.evictions += 1
 
     def drop(self, req: GenRequest, reason: str) -> None:
-        """Terminal exit for a waiting request (cancellation)."""
-        self.waiting.remove(req)
+        """Terminal exit for a request NOT running (cancellation, a
+        deadline): a waiting one leaves the queue, a preempted one just
+        finishes (the engine owns its swap record).  Either way it lands
+        in ``finished``."""
+        if req.state == WAITING:
+            self.waiting.remove(req)
+        else:
+            assert req.state == PREEMPTED, \
+                f"drop() takes waiting/preempted requests, not {req.state}"
         req.finish(reason)
         self.finished.append(req)
+
+    def preempt(self, req: GenRequest) -> None:
+        """Take a running request off the batch mid-decode (its KV was
+        staged to host or dropped for recompute); it comes back through
+        :meth:`resume`."""
+        assert req.state == RUNNING
+        self.running.remove(req)
+        req.state = PREEMPTED
+        self.preemptions += 1
+
+    def resume(self, req: GenRequest) -> None:
+        assert req.state == PREEMPTED
+        assert len(self.running) < self.max_slots
+        req.state = RUNNING
+        self.running.append(req)
+        self.resumes += 1
 
     def metrics(self) -> dict:
         return {"joins": self.joins, "evictions": self.evictions,

@@ -33,6 +33,7 @@ from repro_torch.configs.base import OffloadSpec as PSpec
 from repro_torch.core import expert_pool as EP
 from repro_torch.core.offload_engine import OffloadEngine as PEngine
 from repro_torch.serving.engine import ContinuousEngine as PContinuous
+from repro_torch.serving.faults import FaultInjector
 from repro_torch.serving.scheduler import ExpertOverlapPolicy as POverlap
 
 LENS = (5, 9, 5, 9)
@@ -151,19 +152,32 @@ def test_overlap_policy_serves_like_reference(engines):
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(prefix_cache_pages=4), NotImplementedError),
-    (dict(preemption=True), NotImplementedError),
-    (dict(kv_host_pages=2), NotImplementedError),
+    # prefix caching, preemption and host swap are ported: the reference's
+    # gating refusals (a prefix cache on dense rings, preemption with
+    # drafts, host pages without preemption)
+    (dict(prefix_cache_pages=4, kv_page=None), ValueError),
+    (dict(preemption=True, num_draft_tokens=2), ValueError),
+    (dict(kv_host_pages=2), ValueError),
     # draft-and-verify is ported: k >= 1 without a draft model is refused
     (dict(num_draft_tokens=2), ValueError),
-    (dict(faults=object()), NotImplementedError),
+    # the fault plane is ported: an injector is accepted
+    (dict(faults="expert_fetch=0.5"), None),
     (dict(telemetry=object()), NotImplementedError)],
     ids=["prefix", "preemption", "host-swap", "drafts", "faults",
          "telemetry"])
 def test_out_of_scope_arguments_are_refused(engines, kw, exc):
     _, _, pcfg, peng = engines
+    kw = {"kv_page": 16, **kw}
+    if exc is None:
+        kw["faults"] = FaultInjector.parse(kw["faults"], seed=0)
+        eng = PContinuous(None, pcfg, offload=peng, **kw)
+        assert eng.faults is kw["faults"] and eng.kv._finj is kw["faults"]
+        assert eng._exec._finj is kw["faults"]
+        PContinuous(None, pcfg, offload=peng, kv_page=16)  # detaches it
+        assert eng._exec._finj is None
+        return
     with pytest.raises(exc):
-        PContinuous(None, pcfg, offload=peng, **{"kv_page": 16, **kw})
+        PContinuous(None, pcfg, offload=peng, **kw)
 
 
 def test_cancel_and_sampling_release_every_page(engines):

@@ -24,8 +24,10 @@ crossed over by ``repro_torch.bridge``.
 * ``KVSlotManager``: allocation order, ``remaining``, ``metrics()``,
   installed rows and ``check_invariants`` equal to the reference's.
 * The port's ``serve_bench`` at a cut size: its scenarios' asserts hold
-  and its rows carry the reference's keys; the unported scenarios raise
-  naming their ROADMAP item.
+  and its rows carry the reference's keys; the drives of the prefix-reuse,
+  overload and chaos scenarios on their own, tokens (and, under chaos,
+  statuses and fault counters) equal to the reference engine's on the
+  same inputs; the unported scenarios raise naming their ROADMAP item.
 * Fault F3: the rotary frequencies are made by kernels on the device,
   with no tensor copied from host data (such a copy synchronises the
   stream, twice per attention layer per step), and equal the
@@ -406,21 +408,143 @@ def test_serve_bench_scenarios_run(model, monkeypatch, tmp_path):
     monkeypatch.setattr(serve_bench, "get_config",
                         lambda name: pget(name).replace(n_layers=2))
     monkeypatch.setattr(serve_bench.common, "BENCH_OUT", tmp_path)
+    # the wall-clock floors are the card's (chip_smoke.py's [serve-bench]):
+    # here they are only seen to be applied, to this run's rows
+    floors = []
+    monkeypatch.setattr(serve_bench, "check_prefix_reuse",
+                        lambda row, smoke=False: floors.append(row))
+    monkeypatch.setattr(serve_bench, "check_chaos", floors.append)
     rows = serve_bench.run(quick=True, device="cpu")
+    assert floors == [rows[4], rows[6]]
     assert [r["scenario"] for r in rows] == [
         "continuous_vs_static", "chunked_prefill", "chunked_prefill_packed",
-        "paged_kv"]
+        "paged_kv", "prefix_reuse", "overload_preempt", "chaos_goodput"]
     assert all(r["device"] == "cpu" for r in rows)
     assert rows[2]["counters_identical"] and rows[3]["token_parity"]
     assert rows[3]["paged_peak_kv_positions"] < rows[3]["dense_peak_kv_positions"]
+    assert rows[4]["prefills_skipped"] == 2 and rows[4]["token_parity"]
+    assert rows[5]["preemptions"] > 0 and rows[5]["token_parity"]
+    assert rows[6]["failed"] == 1 and rows[6]["cancelled"] == 2
     assert (tmp_path / "serve_bench.json").exists()
+
+
+@pytest.mark.parametrize("check,row,ok", [
+    ("check_prefix_reuse", {"ttft_speedup": 2.0}, True),
+    ("check_prefix_reuse", {"ttft_speedup": 1.99}, False),
+    ("check_chaos", {"goodput_ratio": 0.7}, True),
+    ("check_chaos", {"goodput_ratio": 0.69}, False)])
+def test_serve_bench_floors(check, row, ok):
+    """The reference's floors: prefix-hit TTFT >= 2x (1.5x at the quick
+    size), chaos goodput >= 0.7x."""
+    fn = getattr(serve_bench, check)
+    if ok:
+        fn(row)
+    else:
+        with pytest.raises(AssertionError):
+            fn(row)
+    if check == "check_prefix_reuse":
+        serve_bench.check_prefix_reuse({"ttft_speedup": 1.5}, smoke=True)
+
+
+def _reference_serve(eng, prompts, news, priorities=None):
+    reqs = [eng.submit(p, m, priority=q) for p, m, q in
+            zip(prompts, news, priorities or [0] * len(prompts))]
+    eng.run(max_steps=10_000)
+    return [r.generated for r in reqs]
+
+
+def _drive_prefix_reuse(model, packed):
+    """The drive with and without the cache: equal tokens, each follow-up
+    request skipping its shared prefill, and the reference's engine giving
+    the same tokens."""
+    jcfg, pcfg, params, pp = model
+    prompts, page, sys_pages, max_new = serve_bench.prefix_reuse_workload(
+        pcfg, smoke=True)
+    kw = dict(page=page, sys_pages=sys_pages, max_new=max_new, device="cpu")
+    _, cold, _ = serve_bench.drive_prefix_reuse(pp, pcfg, prompts,
+                                                cache_pages=0, **kw)
+    ttft, hit, eng = serve_bench.drive_prefix_reuse(
+        pp, pcfg, prompts, cache_pages=sys_pages + 2, **kw)
+    assert hit == cold and len(ttft) == len(prompts)
+    assert eng._prefills_skipped == len(prompts) - 1
+    assert eng._prefix_hit_tokens == (len(prompts) - 1) * page * sys_pages
+    jce = JContinuous(params, jcfg, max_slots=1, eos_id=None, kv_page=page,
+                      slot_len=page * (sys_pages + 4), prefill_chunk=page,
+                      kv_pages_total=2 * sys_pages + 8,
+                      prefix_cache_pages=sys_pages + 2)
+    assert [_reference_serve(jce, [p], [max_new])[0] for p in prompts] == hit
+
+
+def _drive_overload(model, packed):
+    """Stalling, swapping and recomputing give the same tokens, the same
+    as the reference's stalling engine, with preemptions."""
+    jcfg, pcfg, params, pp = model
+    prompts, max_new, page, slots, pages = serve_bench.overload_workload(
+        pcfg, smoke=True)
+    news = [max_new] * len(prompts)
+    kw = dict(page=page, max_slots=slots, pages_total=pages,
+              slot_len=3 + max_new + page, device="cpu")
+    runs = {h: serve_bench.drive_overload(pp, pcfg, prompts, news,
+                                          host_pages=h, **kw)
+            for h in (None, 2 * pages, 0)}
+    assert runs[2 * pages][0] == runs[0][0] == runs[None][0]
+    assert runs[None][2].sched.preemptions == 0
+    swap, rec = runs[2 * pages][2], runs[0][2]
+    assert swap.sched.preemptions > 0 and swap._recomputes == 0
+    assert swap.kv.host_stats()["swap_in_bytes"] > 0
+    assert rec.sched.preemptions > 0 and rec._recomputes == rec.sched.resumes
+    jce = JContinuous(params, jcfg, max_slots=slots, eos_id=None,
+                      kv_page=page, kv_pages_total=pages,
+                      slot_len=3 + max_new + page)
+    assert _reference_serve(jce, prompts, news,
+                            [i % 2 for i in range(len(prompts))]) == \
+        runs[None][0]
+
+
+def _drive_chaos(model, packed):
+    """The chaos drive on the port's packed engine against the same
+    schedule and cancels on the reference's: equal tokens, statuses and
+    fault counters; the pool empty."""
+    jcfg, pcfg, _, _ = model
+    jeng, peng = packed
+    from repro.serving.faults import FaultInjector as JInjector
+    workload, stride = serve_bench.chaos_workload(pcfg, smoke=True)
+    _, eng, reqs = serve_bench.drive_chaos(pcfg, peng, workload, inject=True,
+                                           cancel_stride=stride)
+    jce = JContinuous(None, jcfg, max_slots=3, slot_len=64, eos_id=None,
+                      offload=jeng, kv_page=8, faults=JInjector.parse(
+                          serve_bench.CHAOS_SCHEDULE, seed=0))
+    jreqs = [jce.submit(p, m) for p, m in workload]
+    victims = [r for i, r in enumerate(jreqs) if i % stride == stride - 1]
+    while jce.sched.has_waiting or jce.sched.n_running or jce._swapped:
+        jce.step()
+        for r in list(victims):
+            if r.generated and r.state != "finished":
+                assert jce.cancel(r.rid)
+                victims.remove(r)
+    assert [(r.generated, r.status) for r in reqs] == \
+        [(r.generated, r.status) for r in jreqs]
+    ps, js = eng.stats(), jce.stats()
+    keys = sorted(k for k in js if k.startswith(("faults_", "offload_")))
+    assert {k: ps[k] for k in keys} == {k: js[k] for k in keys}
+    assert ps["faults_failed"] == 1 and ps["faults_cancelled"] == 2
+    assert ps["faults_fired_expert_fetch"] > 0
 
 
 @pytest.mark.parametrize("scenario,item", [
     ("run_telemetry_overhead", "item 7"), ("run_prefix_reuse", "item 5"),
     ("run_overload_preempt", "item 5"), ("run_chaos", "item 5"),
     ("run_zoo", "item 6")])
-def test_unported_scenarios_raise(scenario, item):
+def test_unported_scenarios_raise(scenario, item, model, packed):
+    """The two scenarios still to port raise naming their item; the
+    three of item 5 are ported: their drive functions run on the CPU with
+    the parities their ``run_*`` asserts (no wall-clock floor here)."""
+    drives = {"run_prefix_reuse": _drive_prefix_reuse,
+              "run_overload_preempt": _drive_overload,
+              "run_chaos": _drive_chaos}
+    if scenario in drives:
+        drives[scenario](model, packed)
+        return
     with pytest.raises(NotImplementedError, match=item):
         getattr(serve_bench, scenario)(None, None)
 
