@@ -57,8 +57,9 @@ last line):
    the card (``tiny-moe``, random weights): continuous against static,
    chunked-prefill latency on the plain and packed planes, dense slots
    against pages, prefix reuse (TTFT, the reference's 1.5x floor),
-   overload with preemption and chaos goodput (the 0.7x floor), each
-   scenario asserting its own parities; its rows printed.
+   overload with preemption, telemetry overhead (the 0.95x floor)
+   and chaos goodput (the 0.7x floor), each scenario asserting its own
+   parities; its rows printed.
 10. bf16 parity: ``tiny-moe`` at 4 heads over 2 KV heads (head_dim 64) in
     bf16, inside every tensor-core route's scope, packed ``pipelined``
     batch 1 and ``ContinuousEngine`` (4 requests through 2 slots, pages of
@@ -196,14 +197,40 @@ probability gap (routing, prediction) or its top-2 logit gap over the
 row's largest |logit| (token) below ``NEAR_TIE`` = 2^-6 in both runs; the
 decision is printed with its gap.
 
+19. ``[f4]`` (after ``[item5-parity]``): F4's minimal
+    case, chunked admission with preemption on an 11-page pool, on
+    ``tiny-moe`` at 2 layers in f32 on the plain and the packed plane,
+    card against CPU (tokens, emit steps, preemptions, every page back).
+    ``[telemetry]`` (after ``[serve]``): ``[serve]``'s requests through
+    the ported ``serve_bench.run_telemetry_overhead`` on the packed engine
+    (telemetry fully on against off, equal tokens, the 0.95 floor), host
+    syncs per decode step on and off (``torch.cuda.set_sync_debug_mode``),
+    a traced run held to ``[serve]``'s tokens with its step / exec /
+    roofline numbers, and ``[main]``'s ``OffloadEngine`` traced, held to
+    ``[main]``'s tokens; each metrics and trace file through
+    ``tools/check_metrics_schema.py`` in its own process.
+    ``[attention-bench]`` (after ``[paper]``): the ported
+    ``attention_bench`` (dense ring against ``ragged_mma`` as the live
+    context sweeps 1/8 to full; work-list lengths).  ``[cli]`` (last):
+    ``python -m repro_torch.launch.serve --config mixtral-offload
+    --offload --quantize --max-new 8`` at the published 32 layers (setup
+    s, decode tok/s, peak memory, the roofline), ``launch.train`` of
+    ``tiny-moe`` for 20 steps into a checkpoint that ``launch.serve``
+    serves continuously with the prefix cache, preemption, injected
+    fetch faults and the packed plane; each must exit 0 and its files
+    pass the schema tool.
+
 The line before the card's line is ``{"kernels": [...]}``; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -387,9 +414,11 @@ class _Decisions:
         if ex.packed:
             return
 
-        def sampled(state, tokens, *, collect_info, greedy, active=None):
+        def sampled(state, tokens, *, collect_info, greedy, active=None,
+                    obs=None):
             logits, state, _, infos = ex.decode(state, tokens, active=active,
-                                                collect_info=collect_info)
+                                                collect_info=collect_info,
+                                                obs=obs)
             last = logits[:, -1]
             nxt = torch.argmax(last, dim=-1).to(torch.int32) if greedy else last
             if greedy:
@@ -3360,6 +3389,235 @@ def phase_item5_parity(dev):
         fail("item5-parity: the fault schedules did not fire")
     return launches
 
+# ----------------------------------------------------------------------
+# telemetry, the launchers, the attention bench and F4 (item 7)
+SCHEMA_TOOL = Path(__file__).resolve().parent / "tools" / "check_metrics_schema.py"
+
+
+def _schema_check(label, metrics, trace):
+    """``tools/check_metrics_schema.py`` on a metrics and trace file, in
+    its own process (it reads the reference's schema); must exit 0."""
+    r = subprocess.run([sys.executable, str(SCHEMA_TOOL), str(metrics),
+                        "--trace", str(trace)], capture_output=True, text=True,
+                       timeout=120)
+    log(f"[{label}] schema tool: exit {r.returncode} "
+        f"{(r.stdout + r.stderr).strip()}")
+    if r.returncode != 0:
+        fail(f"{label}: {metrics} / {trace} fail the schema tool")
+
+
+def _roofline(snap):
+    return {k: snap["roofline"][k] for k in (
+        "hw", "windows", "measured_tok_s", "predicted_tok_s", "delta_ratio",
+        "measured_h2d_bytes_per_token", "naive_h2d_bytes_per_token",
+        "h2d_savings_ratio")}
+
+
+def phase_telemetry(dev, eng, cfg, serve_toks, prompt, main_toks):
+    """``[serve]``'s model and requests served with telemetry fully on
+    (timing, trace, roofline) and off: equal tokens (the ported
+    ``telemetry_overhead``: interleaved off and on steps, the ratio of
+    their summed step times held to the reference's 0.95; then a traced
+    run against ``[serve]``'s tokens),
+    host synchronisations per decode step equal on and off, the roofline,
+    the metrics and trace files through the schema tool.  Then ``[main]``'s
+    ``OffloadEngine`` traced: ``[main]``'s tokens, its files through the
+    tool.  Returns the launches of the traced runs."""
+    import torch
+    from repro_torch.benchmarks import serve_bench
+    from repro_torch.core.offload_engine import OffloadEngine
+    from repro_torch.kernels import ops
+    from repro_torch.obs import Telemetry
+    from repro_torch.serving.engine import ContinuousEngine
+    t_phase = time.perf_counter()
+    out_dir = Path(tempfile.mkdtemp())
+    rng = np.random.default_rng(0)
+    lens = rng.integers(24, 97, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
+    news = [SERVE_NEW] * SERVE_REQUESTS
+    row = serve_bench.run_telemetry_overhead(
+        None, cfg, smoke=True, max_slots=SERVE_SLOTS, offload=eng,
+        workload=list(zip(prompts, news)), kv_page=16)
+    log(f"[telemetry] overhead {json.dumps(row)}")
+    kw = dict(max_slots=SERVE_SLOTS, slot_len=256, kv_page=16)
+    syncs = {name: _decode_syncs(eng, cfg, prompts[:SERVE_SLOTS], dict(
+        kw, telemetry=Telemetry(timing=True, trace=True) if on else None))
+        for name, on in (("off", False), ("on", True))}
+    log(f"[telemetry] host syncs per decode step {json.dumps(syncs)}")
+    window = Telemetry().roofline_window
+    if abs(syncs["on"]["per_step"] - syncs["off"]["per_step"]) > 1 / window:
+        fail(f"telemetry changed the host syncs per decode step: {syncs}")
+    torch.cuda.synchronize(dev)
+    ops.reset_launches()
+    tel = Telemetry(timing=True, trace=True)
+    ce = ContinuousEngine(None, cfg, offload=eng, eos_id=None, telemetry=tel,
+                          **kw)
+    reqs = [ce.submit(p, m) for p, m in zip(prompts, news)]
+    ce.run(max_steps=1000)
+    launches = ops.launches()
+    if [r.generated for r in reqs] != serve_toks:
+        fail("[telemetry] the traced run's tokens differ from [serve]'s")
+    snap = ce.metrics()
+    log(f"[telemetry] serving: step {json.dumps(snap['step'])}; exec "
+        f"{json.dumps(snap['exec'])}; roofline {json.dumps(_roofline(snap))}; "
+        f"{len(tel.tracer.events)} trace events")
+    m, t = out_dir / "serve_metrics.json", out_dir / "serve_trace.json"
+    tel.write_metrics(m, {"engine": "continuous", "arch": cfg.name,
+                          "kv_layout": "paged", "offloaded": True,
+                          "timing": True, "plane": ce._exec.plane,
+                          "roofline": True, "faults": True})
+    tel.write_trace(t)
+    _schema_check("telemetry", m, t)
+    # the batch-1 engine: [main]'s store and weights, traced
+    tel = Telemetry(timing=True, trace=True)
+    off = OffloadEngine(eng.params, cfg, eng.spec, quantized=True,
+                        store=eng.store, device=dev, telemetry=tel)
+    off.generate(prompt[:, :8], 3)  # warm-up
+    ops.reset_launches()
+    toks, _ = off.generate(prompt, NEW_TOKENS)
+    _add(launches, ops.launches())
+    if not (toks == main_toks).all():
+        fail("[telemetry] the traced OffloadEngine's tokens differ from [main]'s")
+    snap = off.metrics()
+    traced_tok_s = (NEW_TOKENS - 1) / off.last_timing["decode_s"]
+    log(f"[telemetry] offload engine: decode {traced_tok_s:.2f} tok/s traced; "
+        f"exec {json.dumps(snap['exec'])}; request "
+        f"{json.dumps(snap['request'])}; roofline "
+        f"{json.dumps(_roofline(snap))}")
+    m, t = out_dir / "offload_metrics.json", out_dir / "offload_trace.json"
+    tel.write_metrics(m, {"engine": "offload", "arch": cfg.name,
+                          "offloaded": True, "timing": True,
+                          "plane": off._exec.plane, "roofline": True})
+    tel.write_trace(t)
+    _schema_check("telemetry", m, t)
+    del off
+    shutil.rmtree(out_dir)
+    log(f"[telemetry] launches {launches}; {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _module(label, args, timeout):
+    """``python -m`` of a port entry point from the checkout's root, in
+    its own process; must exit 0.  Returns its standard output."""
+    root = Path(__file__).resolve().parent
+    env = dict(__import__("os").environ, PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m"] + args, cwd=root, env=env,
+                       capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    lines = "\n".join(ln for ln in r.stdout.strip().splitlines()
+                      if not ln.startswith(("[step ", "step ")))
+    log(f"[cli] python -m {' '.join(args)}: exit {r.returncode} in {wall:.1f} s\n"
+        f"{lines}")
+    if r.returncode != 0:
+        log(r.stderr[-4000:])
+        fail(f"[cli] python -m {args[0]} exited {r.returncode}")
+    return r.stdout
+
+
+def phase_cli(dev):
+    """The port's launchers as a user runs them, each in its own process:
+    ``launch.serve`` on ``mixtral-offload`` at its published 32 layers
+    (``--offload --quantize``, 8 new tokens per prompt, metrics and
+    trace), then ``launch.train`` of ``tiny-moe`` for 20 steps into a
+    checkpoint that ``launch.serve`` serves continuously on pages with the
+    prefix cache, preemption, injected expert-fetch faults and the packed
+    plane.  Every run exits 0 and its files pass the schema tool."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = Path(tempfile.mkdtemp())
+    m, t = out_dir / "offload_metrics.json", out_dir / "offload_trace.json"
+    out = _module("cli", ["repro_torch.launch.serve", "--config",
+                          "mixtral-offload", "--offload", "--quantize",
+                          "--max-new", "8", "--metrics-json", str(m),
+                          "--trace", str(t)], timeout=600)
+    if "published width" not in out or len(re.findall(r"^gen: ", out, re.M)) != 2:
+        fail("[cli] the 32-layer offload run did not serve its two prompts "
+             "at the published width")
+    _schema_check("cli", m, t)
+    ck = out_dir / "tiny_moe.npz"
+    _module("cli", ["repro_torch.launch.train", "--arch", "tiny-moe",
+                    "--steps", "20", "--checkpoint", str(ck)], timeout=300)
+    m, t = out_dir / "serve_metrics.json", out_dir / "serve_trace.json"
+    out = _module("cli", ["repro_torch.launch.serve", "--config", "tiny-moe",
+                          "--checkpoint", str(ck), "--continuous", "--kv-page",
+                          "16", "--prefix-cache", "8", "--preemption", "on",
+                          "--inject-faults", "expert_fetch=0.05", "--offload",
+                          "--quantize", "--metrics-json", str(m), "--trace",
+                          str(t)], timeout=300)
+    if "[continuous] 12 requests" not in out:
+        fail("[cli] the continuous run did not finish its 12 requests")
+    _schema_check("cli", m, t)
+    shutil.rmtree(out_dir)
+
+
+def phase_attention_bench(dev):
+    """The ported ``attention_bench`` at its full size on the card: the
+    dense ring against ``ops.ragged_attention`` (``ragged_mma``, bf16) as
+    the live context sweeps 1/8 to full, each ragged result held to its
+    plain version; the work-list lengths.  Returns the ragged launches of
+    its timed runs."""
+    from repro_torch.benchmarks import attention_bench
+    t0 = time.perf_counter()
+    before = _routes()
+    rows = attention_bench.run(device=dev)
+    routes = _routes_since(before)
+    for r in rows:
+        log(f"[attention-bench] {json.dumps(r)}")
+    n = sum(r.get("ragged_launches", 0) for r in rows)
+    if n < 1 or routes["ragged_warp"]:
+        fail(f"[attention-bench] the ragged kernel did not run on mma: {routes}")
+    log(f"[attention-bench] {n} ragged launches (routes {routes}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"ragged_attention": n}
+
+
+def phase_f4(dev):
+    """F4's minimal case (ROADMAP §3) on the card: ``tiny-moe`` at 2
+    layers in f32 (the FMA routes), two prompts of 19 and 21 tokens, pages
+    of 4 in an 11-page pool, chunks of 4, preemption, on the plain plane
+    and over the packed pool; the reference raises here.  Tokens, emit
+    steps and the preemption counters equal to the CPU's, every page back
+    in the pool.  Returns the card's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.offload_engine import OffloadEngine, quantize_for_offload
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    cfg = get_config("tiny-moe").replace(n_layers=2)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32) for n in (19, 21)]
+    params = T.init_model(cfg, seed=0, device="cpu")
+    exec_params, _, store = quantize_for_offload(params, cfg, cfg.offload,
+                                                 pack_experts=True, device="cpu")
+    kw = dict(max_slots=2, slot_len=48, kv_page=4, kv_pages_total=11,
+              preemption=True, prefill_chunk=4, check_invariants=True)
+    runs, launches = {}, {}
+    for where in ("cpu", dev):
+        ops.reset_launches()
+        off = OffloadEngine(_to(exec_params, where), cfg, cfg.offload,
+                            quantized=True, device=where,
+                            store=store if where == "cpu" else _cpu_store_to(store, where))
+        for plane in ("plain", "packed"):
+            ce, toks, steps, _ = _serve(
+                off if plane == "packed" else None, cfg, prompts, [8, 8],
+                params=_to(params, where), device=where, **kw)
+            if ce.kv.pool.n_free != ce.kv.pool.n_pages:
+                fail(f"[f4] {plane} on {where}: pages leaked")
+            s = ce.stats()
+            runs[str(where), plane] = (toks, steps, s["kv_host_preemptions"],
+                                       s["kv_host_recomputes"])
+        if where != "cpu":
+            launches = ops.launches()
+    for plane in ("plain", "packed"):
+        card, cpu = runs[str(dev), plane], runs["cpu", plane]
+        log(f"[f4] {plane}: card {card} cpu {cpu}")
+        if card != cpu or card[2] < 1:
+            fail(f"[f4] {plane}: the card differs from the CPU or nothing was preempted")
+    log(f"[f4] card launches {launches}")
+    return launches
+
 
 # ----------------------------------------------------------------------
 def main():
@@ -3377,6 +3635,7 @@ def main():
     phase_bf16_parity(dev)
     phase_spec_parity(dev)
     item5 = phase_item5_parity(dev)
+    _add(item5, phase_f4(dev))
     phase_train(dev)
     launches, batches, eng, cfg, prompt, main_run, main_report = phase_main(dev)
     # the host-bound decode runs come before any profiler window
@@ -3396,6 +3655,7 @@ def main():
     kern["dequant_matmul_batched"] = batched
     del tiers, flush
     serve_launches, serve_slots, serve_toks = phase_serving(dev, eng, cfg)
+    item7 = phase_telemetry(dev, eng, cfg, serve_toks, prompt, main_run[0])
     _add(spec_launches, phase_spec_serve(dev, eng, cfg, serve_toks))
     # prefix cache, host swap with preemption, the fault plane
     _add(item5, phase_prefix(dev, eng, cfg))
@@ -3407,13 +3667,18 @@ def main():
     paper = phase_paper(dev, eng, cfg, main_report, planes, decode_split, kern)
     for name, n in paper.items():
         launches[name] += n
+    _add(item7, phase_attention_bench(dev))
+    del eng
+    phase_cli(dev)
     for name in ("ragged_attention", "flash_attention", "dequant_matmul_slots",
                  "dequant_matmul_batched"):
         launches[name] += serve_extra.get(name, 0)
     for name in launches:  # the draft-and-verify paths ([spec], [spec-serve])
         launches[name] += spec_launches.get(name, 0)
-    for name in launches:  # [item5-parity], [prefix], [preempt], [chaos]
+    for name in launches:  # [item5-parity], [f4], [prefix], [preempt], [chaos]
         launches[name] += item5.get(name, 0)
+    for name in launches:  # [telemetry], [attention-bench]
+        launches[name] += item7.get(name, 0)
     csrc = "src/repro_torch/kernels/csrc/"
     src = {"dequant_matmul_batched": csrc + "dequant_grouped.cu",
            "dequant_matmul_slots": csrc + "dequant_gemv.cu",

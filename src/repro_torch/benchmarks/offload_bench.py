@@ -26,12 +26,20 @@ its.  Rows ``spec_baseline``, ``speculative`` and ``spec_summary``; the
 measured ratio of decode rates is printed beside the device's name and
 held to no bar.
 
+The router top-k ablation (the serving CLI's ``--top-k-override``):
+the pipelined plane with every token routed to one expert instead of the
+arch's top-k, its h2d bytes per token beside the pipelined row's (row
+``top_k_override``).  The reference asserts that k = 1 moves fewer
+bytes; the port records the ratio instead, for it depends on the
+weights: the speculative staging of ``num_speculative`` predicted
+experts per layer does not shrink with k, and on the port's random
+seed-0 ``tiny-moe`` it outweighs the halved demand loads (k = 1 moves
+more bytes), while on the reference's seed-0 weights it does not; on the
+same weights both packages give the same counters.
+
 Results go to ``experiments/torch/bench/offload_bench.json``.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.offload_bench [--smoke] [--trained] [--speculative]
-
-The reference's router top-k ablation is not ported: it belongs with the
-serving CLI's ``--top-k-override`` (ROADMAP queue 1, item 7).
 """
 from __future__ import annotations
 
@@ -135,9 +143,37 @@ def run(smoke=False, trained=False, max_new=None, seed=0, device=None,
     if speculative:
         results += _speculative(params, cfg, spec, prompt, oracle, max_new,
                                 dev)
+    results.append(_top_k_override(params, cfg, spec, prompt, max_new, dev,
+                                   pipe))
 
     common.emit(results, "offload_bench")
     return results
+
+
+def _top_k_override(params, cfg, spec, prompt, max_new, dev, pipe):
+    """The reference's router top-k ablation: routing every token to one
+    expert shrinks the per-token routed working set (module docstring:
+    the bytes it saves are recorded, not asserted)."""
+    from repro_torch.launch.serve import resolve_top_k
+    assert cfg.moe.top_k > 1, "top-k ablation needs a multi-expert router"
+    eng = OffloadEngine(params, resolve_top_k(cfg, 1), spec, quantized=True,
+                        device=dev)
+    out, stats = eng.generate(prompt, max_new)
+    bpt = stats.bytes_h2d / max(1, stats.n_tokens)
+    base = pipe["bytes_per_token"]
+    print(f"[offload_bench] top_k_override: k=1 h2d {bpt / 1e3:.1f}KB/token "
+          f"vs k={cfg.moe.top_k} {base / 1e3:.1f}KB/token "
+          f"({base / max(1e-9, bpt):.2f}x less traffic)")
+    return {"name": "offload_bench", "variant": "top_k_override",
+            "device": str(dev), "top_k": 1, "arch_top_k": cfg.moe.top_k,
+            "max_new": max_new, "bytes_per_token": round(bpt, 1),
+            "baseline_bytes_per_token": base,
+            "h2d_savings_ratio": round(base / max(1e-9, bpt), 3),
+            "hit_ratio": round(stats.hit_ratio, 4),
+            "counters": {"hits": stats.hits, "spec_hits": stats.spec_hits,
+                         "demand_loads": stats.demand_loads,
+                         "spec_loads": stats.spec_loads},
+            "tokens": out[0].tolist()}
 
 
 def _speculative(params, cfg, spec, prompt, oracle, max_new, dev, k=4):

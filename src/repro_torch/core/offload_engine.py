@@ -33,8 +33,15 @@ Greedy generation may run as draft-and-verify (``draft=``,
 ``num_draft_tokens=``, ``core/draft``): per round the draft proposes up
 to k tokens and the target verifies them in one C = k + 1 chunk, on the
 packed planes and in accounting mode; the tokens are those of greedy
-decode.  Telemetry is not ported yet (ROADMAP queue 1 item 7); the
-speculation totals are :attr:`OffloadEngine.spec_metrics`.
+decode; the speculation totals are :attr:`OffloadEngine.spec_metrics`.
+
+``telemetry=`` (``obs.Telemetry``) feeds the telemetry plane: the
+``offload`` namespace (cumulative over generations) and ``jit`` always;
+with timing, each generation is one request (``request``), the decode
+steps' dispatch phases (``exec``) and one roofline window closed from the
+counters the generation already has (``roofline``); ``spec`` once
+draft-and-verify ran.  A traced generation also writes one ``step`` span
+per decode step.  :meth:`OffloadEngine.metrics` is the snapshot.
 """
 from __future__ import annotations
 
@@ -51,7 +58,7 @@ from repro_torch.core import cost_model, expert_pool as EP, speculative
 from repro_torch.core.draft import verify_round
 from repro_torch.core.lru_cache import PyLRU
 from repro_torch.core.trace import moe_positions, stacked_routers
-from repro_torch.obs import SpecMetrics
+from repro_torch.obs import SpecMetrics, Telemetry, jit_cache_metrics
 from repro_torch.quant import hqq
 from repro_torch.runtime.executor import Executor
 from repro_torch.serving.sampler import SamplerConfig, sample
@@ -158,7 +165,7 @@ _SHARED = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_in",
 
 
 def quantize_for_offload(params, cfg: ModelConfig, spec: OffloadSpec, *,
-                         pack_experts: bool = False, device=None):
+                         pack_experts: bool = False, device=None, store=None):
     """Mixed quantization (paper §3.3): experts at ``spec.expert_bits``,
     attention and dense-MLP weights at ``spec.attn_bits``; embeddings,
     routers and norms untouched.  Runs on the device the weights are on.
@@ -177,11 +184,14 @@ def quantize_for_offload(params, cfg: ModelConfig, spec: OffloadSpec, *,
     (``expert_pool.build_store``, the same quantization) and
     ``exec_params`` holds none.  ``size_report`` has the reference's keys
     and byte counts: ``experts``, ``attn``, ``fp16`` (2 bytes per
-    element of every leaf left as it is) and ``total``."""
+    element of every leaf left as it is) and ``total``.  ``store``: the
+    packed store already built from ``params``' experts, which may then
+    be missing (:func:`init_packed_model`)."""
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
     sizes = {"experts": 0, "attn": 0, "fp16": 0}
-    store = EP.build_store(params, cfg, spec, dev) if pack_experts else None
+    if pack_experts and store is None:
+        store = EP.build_store(params, cfg, spec, dev)
 
     def keep(leaf):
         sizes["fp16"] += leaf.numel() * 2
@@ -238,6 +248,37 @@ def quantize_for_offload(params, cfg: ModelConfig, spec: OffloadSpec, *,
     return exec_params, sizes
 
 
+def init_packed_model(cfg: ModelConfig, spec: OffloadSpec, *, seed: int = 0,
+                      device=None):
+    """``quantize_for_offload(init_model(cfg, seed=seed), cfg, spec,
+    pack_experts=True)`` (the same weights: one generator stream) without
+    ever holding more than one layer's dense experts: each MoE layer's
+    experts go into the packed store as soon as they are drawn.  What lets
+    a model whose dense experts exceed the device's memory be made on it
+    (32 ``mixtral-offload`` layers: 90 GB of bf16 experts).  Returns
+    ``(exec_params, size_report, store)``."""
+    from repro_torch.models import transformer as T
+    dev = resolve_device(device)
+    index = {l: i for i, l in enumerate(EP.moe_layers(cfg))}
+    store = None
+
+    def pack(l, blk):
+        nonlocal store
+        if l not in index:
+            return blk
+        moe = dict(blk["moe"])
+        qts = EP.quantize_experts(moe.pop("experts"), spec.expert_bits)
+        if store is None:
+            store = EP.new_store(EP.RecordLayout.of(qts, 1), len(index),
+                                 cfg.moe.num_experts, dev)
+        EP.write_layer(store, index[l], qts)
+        return dict(blk, moe=moe)
+
+    params = T.init_model(cfg, seed=seed, device=dev, on_block=pack)
+    return quantize_for_offload(params, cfg, spec, pack_experts=True,
+                                device=dev, store=store)
+
+
 def dense_from_store(params, cfg: ModelConfig, store: EP.Tier, device=None):
     """``params`` (a packed model's ``exec_params``) with every MoE layer's
     experts dequantized from the packed store into dense (E, K, N) stacks
@@ -280,14 +321,16 @@ class OffloadEngine:
     store (``quantize_for_offload(..., pack_experts=True)``).
     ``fused``/``pipelined``/``vectorized`` select the packed plane
     (:func:`PackedDecoder`).  ``draft``/``num_draft_tokens`` are the
-    defaults of :meth:`generate`'s draft-and-verify decoding."""
+    defaults of :meth:`generate`'s draft-and-verify decoding.
+    ``telemetry``: an ``obs.Telemetry`` (module docstring); default
+    ``Telemetry.off()``."""
 
     def __init__(self, params, cfg: ModelConfig,
                  spec: Optional[OffloadSpec] = None, quantized: bool = False,
                  *, packed: Optional[bool] = None, store=None, device=None,
                  fused: bool = True, pipelined: bool = True,
                  vectorized: bool = True, draft=None,
-                 num_draft_tokens: int = 0):
+                 num_draft_tokens: int = 0, telemetry=None):
         assert cfg.moe is not None, "offloading targets MoE architectures"
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -329,8 +372,75 @@ class OffloadEngine:
         self.last_timing: dict = {}
         self.draft = draft
         self.num_draft_tokens = int(num_draft_tokens or 0)
-        # speculation totals, cumulative over generate() calls
-        self.spec_metrics = SpecMetrics()
+        # the telemetry plane: cumulative counters feed the offload
+        # collector; each generation closes one roofline window from the
+        # counters it already has (no extra read)
+        self.obs = telemetry if telemetry is not None else Telemetry.off()
+        self._cum = OffloadStats(expert_bytes=self.expert_bytes)
+        self.obs.registry.register_collector("offload", self._offload_metrics)
+        self.obs.registry.register_collector("jit", jit_cache_metrics)
+        self._gen_count = 0
+        self._spec_metrics: Optional[SpecMetrics] = None
+        if self.draft is not None and self.num_draft_tokens >= 1:
+            self._spec_metrics = SpecMetrics(self.obs.registry)
+        self._phases = self.obs.exec_observer(self._exec.plane)
+        if self.obs.timing:
+            self.obs.declare_request_schema()
+            self.obs.attach_roofline(
+                cfg, expert_bits=self.spec.expert_bits if quantized else 16,
+                attn_bits=self.spec.attn_bits if quantized else 16,
+                expert_bytes=self.expert_bytes)
+
+    @property
+    def spec_metrics(self) -> SpecMetrics:
+        """Speculation totals, cumulative over generate() calls; the
+        ``spec`` namespace is declared at first use."""
+        if self._spec_metrics is None:
+            self._spec_metrics = SpecMetrics(self.obs.registry)
+        return self._spec_metrics
+
+    def _offload_metrics(self) -> dict:
+        """``offload`` namespace: cumulative over generations (the same
+        numbers every returned :class:`OffloadStats` carries)."""
+        c = self._cum
+        return {"hits": c.hits, "spec_hits": c.spec_hits,
+                "demand_loads": c.demand_loads, "spec_loads": c.spec_loads,
+                "bytes_h2d": c.bytes_h2d,
+                "bytes_per_token": c.bytes_h2d / max(1, c.n_tokens)}
+
+    def metrics(self) -> dict:
+        """The namespaced telemetry snapshot (``obs.schema``)."""
+        return self.obs.snapshot()
+
+    def _begin_request(self, S: int):
+        """One generation as one request of the telemetry plane, up to its
+        prefill's start; returns (rid, trace clock at the start)."""
+        obs = self.obs
+        rid = self._gen_count
+        self._gen_count += 1
+        obs.req_submitted(rid, rid)
+        obs.req_admitted(rid, 0)
+        return rid, (obs.clock_ns() if obs.tracer is not None else 0)
+
+    def _record_generate(self, rid: int, stats: "OffloadStats", S: int,
+                         n_out: int) -> None:
+        """Fold one generation's counters into the telemetry plane: the
+        cumulative ``offload`` counters, one roofline window over its
+        decode time, the request's end."""
+        c = self._cum
+        c.n_tokens += stats.n_tokens
+        c.hits += stats.hits
+        c.spec_hits += stats.spec_hits
+        c.demand_loads += stats.demand_loads
+        c.spec_loads += stats.spec_loads
+        decode_s = self.last_timing["decode_s"]
+        if self.obs.roofline is not None and decode_s > 0:
+            self.obs.roofline.add_window(
+                stats.n_tokens, decode_s, demand_loads=stats.demand_loads,
+                spec_loads=stats.spec_loads, hits=stats.hits,
+                spec_hits=stats.spec_hits,
+                context_len=S + stats.n_tokens / 2.0)
+        self.obs.req_finished(rid, n_out, "length")
 
     # ------------------------------------------------------------------
     def generate(self, prompt, max_new_tokens: int, greedy: bool = True,
@@ -378,26 +488,33 @@ class OffloadEngine:
             PyLRU(self.spec.cache_size, self.spec.num_speculative)
             for _ in range(self.n_moe_layers)]
         prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int32)
-        max_len = int(prompt.shape[1]) + max_new_tokens
+        S = int(prompt.shape[1])
+        max_len = S + max_new_tokens
+        obs = self.obs
+        rid, t_pre = self._begin_request(S)
         self._sync()
         t0 = time.perf_counter()
         pre_logits, state = dec.prefill(prompt, max_len, chunk=prefill_chunk)
+        obs.req_chunk(rid, 0, S, t_pre)
         tok = self._next_token(rng, pre_logits, sampler)
         out = [int(tok[0, 0])]
+        obs.req_decode_start(rid)
         t1 = time.perf_counter()
         if on_step is not None:
             on_step(pre_logits[:, -1], None)
-        for _ in range(max_new_tokens - 1):
+        for i in range(max_new_tokens - 1):
+            t_step = obs.clock_ns() if obs.tracer is not None else 0
             if self.packed:
-                logits, state, pstate, route_ids = dec.decode(state, tok,
-                                                              pstate)
+                logits, state, pstate, route_ids = dec.decode(
+                    state, tok, pstate, obs=self._phases)
                 self.usage.update(route_ids)
             else:
-                logits, state, _, infos = dec.decode(state, tok,
-                                                     collect_info=True)
+                logits, state, _, infos = dec.decode(
+                    state, tok, collect_info=True, obs=self._phases)
                 route_ids = self._account(infos, caches)
             tok = self._next_token(rng, logits, sampler)
             out.append(int(tok[0, 0]))
+            obs.trace_step(i, t_step)
             if on_step is not None:
                 on_step(logits[:, -1], route_ids)
         self._sync()
@@ -406,6 +523,7 @@ class OffloadEngine:
                              expert_bytes=self.expert_bytes)
         self.last_timing = {"prefill_s": t1 - t0, "decode_s": t2 - t1,
                             "decode_steps": max_new_tokens - 1}
+        self._record_generate(rid, stats, S, len(out))
         return np.asarray(out)[None], stats
 
     def _generate_speculative(self, prompt, max_new_tokens: int, draft,
@@ -439,11 +557,15 @@ class OffloadEngine:
             for _ in range(self.n_moe_layers)]
         spec_m = self.spec_metrics
         max_len = S + max_new_tokens
+        obs = self.obs
+        rid, t_pre = self._begin_request(S)
         self._sync()
         t0 = time.perf_counter()
         pre_logits, state = dec.prefill(torch.as_tensor(prompt), max_len,
                                         chunk=prefill_chunk)
+        obs.req_chunk(rid, 0, S, t_pre)
         out = [int(torch.argmax(pre_logits[0, -1]))]
+        obs.req_decode_start(rid)
         t1 = time.perf_counter()
         # the draft's ring gets k positions of headroom: after a rejection
         # it has fed itself up to k - 1 tokens past the stream
@@ -454,21 +576,25 @@ class OffloadEngine:
         def verify(chunk):
             nonlocal state, pstate
             if self.packed:
-                logits, state, pstate, route_ids = dec.decode(state, chunk,
-                                                              pstate)
+                logits, state, pstate, route_ids = dec.decode(
+                    state, chunk, pstate, obs=self._phases)
                 self.usage.update(route_ids)
             else:
-                logits, state, _, infos = dec.decode(state, chunk,
-                                                     collect_info=True)
+                logits, state, _, infos = dec.decode(
+                    state, chunk, collect_info=True, obs=self._phases)
                 self._account(infos, caches)
             # the round's one blocking read: the chunk's argmax rows
             return torch.argmax(logits[0], dim=-1).cpu().numpy()
 
+        steps = 0
         while len(out) < max_new_tokens:
+            t_step = obs.clock_ns() if obs.tracer is not None else 0
             k_eff = min(k, max_new_tokens - len(out) - 1)
             if k_eff < 1:  # the last token: a plain C = 1 step
                 out.append(int(verify(np.asarray([[out[-1]]], np.int32))[0]))
                 n_tokens += 1
+                obs.trace_step(steps, t_step)
+                steps += 1
                 continue
             canon = prompt_list + out
             d = draft.propose(canon[draft.consumed:], k_eff)
@@ -481,6 +607,8 @@ class OffloadEngine:
             state = dict(state, pos=S + len(out) - 1)
             draft.accept(a)
             spec_m.round(k_eff, a)
+            obs.trace_step(steps, t_step)
+            steps += 1
         self._sync()
         t2 = time.perf_counter()
         stats = OffloadStats(n_tokens, *self._counts(pstate, caches),
@@ -488,6 +616,7 @@ class OffloadEngine:
         spec_m.add_bytes(stats.bytes_h2d)
         self.last_timing = {"prefill_s": t1 - t0, "decode_s": t2 - t1,
                             "decode_steps": n_tokens, "rounds": rounds}
+        self._record_generate(rid, stats, S, len(out))
         return np.asarray(out)[None], stats
 
     def throughput_estimate(self, stats: OffloadStats, hw_name: str) -> float:

@@ -5,7 +5,8 @@ with a plain C interface in ``kernels/build/`` (listed in ``.gitignore``);
 the library's name carries a hash of its source, so an edited source is
 rebuilt and a stale build is never loaded.  :func:`compile_all` starts
 one ``nvcc`` per source, all at once.  Nothing here runs when the module
-is imported.
+is imported.  :func:`cache_stats` counts the compiles and the loads
+served from the cache (the telemetry's ``jit`` namespace).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ SOURCES = ("dequant_matmul", "dequant_gemv", "dequant_grouped", "flash_attention
            "ragged_attention", "ragged_mma")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_STATS = {"builds": 0, "hits": 0}  # nvcc runs, load() calls served from _LIBS
 
 
 def nvcc_path() -> str:
@@ -69,6 +71,7 @@ def _finish(name: str, started) -> str:
                            f"(exit {proc.returncode}):\n{report}")
     os.replace(tmp, _lib_path(name))
     (BUILD / f"{name}.ptxas.txt").write_text(report)
+    _STATS["builds"] += 1
     return report
 
 
@@ -96,7 +99,17 @@ def compile_all(names=SOURCES) -> Dict[str, str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    if name not in _LIBS:
+    if name in _LIBS:
+        _STATS["hits"] += 1
+    else:
         compile_source(name)
         _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
     return _LIBS[name]
+
+
+def cache_stats() -> Dict[str, int]:
+    """``builds``: the ``nvcc`` compiles this process ran; ``hits``: the
+    :func:`load` calls served from the loaded libraries; ``entries``: the
+    libraries loaded."""
+    return {"builds": _STATS["builds"], "hits": _STATS["hits"],
+            "entries": len(_LIBS)}

@@ -348,7 +348,7 @@ def moe_apply_packed(p, cfg, x2d, store: EP.Tier, pstate: EP.PoolState,
                      n_spec: int = 0, active: Optional[np.ndarray] = None,
                      rows_dev: Optional[torch.Tensor] = None,
                      fused: bool = True, vectorized: bool = True,
-                     overlap: bool = True):
+                     overlap: bool = True, mark=None):
     """Offloaded-decode MoE of MoE layer ``l`` over T token rows.
 
     Routes, and (a single row with ``n_spec > 0`` and ``routers``)
@@ -366,7 +366,9 @@ def moe_apply_packed(p, cfg, x2d, store: EP.Tier, pstate: EP.PoolState,
     ``active`` (T,) bool marks the rows whose output is used (the busy
     slots of a continuous batch); the others bypass the pool and get a
     zero output: no copy, no kernel row.  ``rows_dev`` is the device copy
-    of their indices when the caller has uploaded it already.  Returns
+    of their indices when the caller has uploaded it already.  ``mark``,
+    the telemetry's phase observer, times the overlapped staging apart:
+    ``mark("moe")`` before it is issued, ``mark("stage")`` after.  Returns
     ``(y2d, route_info, pstate)``; ``route_info["ids"]`` is the host copy
     of every row's routed ids.
     """
@@ -385,7 +387,11 @@ def moe_apply_packed(p, cfg, x2d, store: EP.Tier, pstate: EP.PoolState,
     stage = lambda: EP.stage(store, pstate, tgt, host[T * K:],
                              vectorized=vectorized, overlap=overlap)
     if speculate and overlap:
+        if mark is not None:
+            mark("moe")
         stage()
+        if mark is not None:
+            mark("stage")
     mats = EP.served(pstate, l, vectorized)
     kw = dict(fused=fused, vectorized=vectorized)
     if active is None or active.all():

@@ -59,9 +59,13 @@ def _init_block(gen, cfg: ModelConfig, kind: str):
             ffn: M.init_moe(gen, cfg) if ffn == "moe" else L.init_mlp(gen, cfg)}
 
 
-def init_model(cfg: ModelConfig, *, seed: int = 0, device=None) -> Dict[str, Any]:
+def init_model(cfg: ModelConfig, *, seed: int = 0, device=None,
+               on_block=None) -> Dict[str, Any]:
     """Random weights from a seeded ``torch.Generator`` on ``device`` (the
-    card unless ``device="cpu"``)."""
+    card unless ``device="cpu"``).  ``on_block(l, block)``, when given,
+    sees each layer's block as soon as it is drawn and returns what to
+    keep of it (``offload_engine.init_packed_model`` packs the experts
+    away one layer at a time)."""
     check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(dev)
@@ -70,7 +74,10 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None) -> Dict[str, Any
     if not cfg.tie_embeddings:
         params["lm_head"] = L.init_lm_head(gen, cfg)
     params["final_norm"] = L.init_norm(cfg, dev)
-    params["layers"] = [_init_block(gen, cfg, kind) for kind in cfg.layer_kinds()]
+    params["layers"] = []
+    for l, kind in enumerate(cfg.layer_kinds()):
+        blk = _init_block(gen, cfg, kind)
+        params["layers"].append(blk if on_block is None else on_block(l, blk))
     return params
 
 
@@ -389,7 +396,7 @@ def decode_block_packed_moe(p, cfg: ModelConfig, x_t, h2, store, pstate,
                             l_moe: int, routers=None, *, lookahead: int = 1,
                             n_spec: int = 0, active=None, rows_dev=None,
                             fused: bool = True, vectorized: bool = True,
-                            overlap: bool = True):
+                            overlap: bool = True, mark=None):
     """MoE half of a packed block's decode step over B rows of C tokens
     (C = 1 in decode, k + 1 in a verify chunk): route + acquire (+ the
     lookahead layer's staging) + packed compute + residual, over the
@@ -397,14 +404,15 @@ def decode_block_packed_moe(p, cfg: ModelConfig, x_t, h2, store, pstate,
     j``, the reference's route-id order).  ``active`` (B,) is per row and
     is repeated over each row's tokens; ``rows_dev`` already lists token
     rows.  ``fused``/``vectorized``/``overlap`` select the plane
-    (``moe.moe_apply_packed``).  Returns (x_t, pstate, info)."""
+    (``moe.moe_apply_packed``, which also takes ``mark``).  Returns (x_t,
+    pstate, info)."""
     B, S, D = h2.shape
     h2d = h2.reshape(B * S, D)
     act_tok = None if active is None else np.repeat(np.asarray(active, bool), S)
     y2d, route, pstate = M.moe_apply_packed(
         p["moe"], cfg, h2d, store, pstate, l_moe, routers,
         lookahead=lookahead, n_spec=n_spec, active=act_tok, rows_dev=rows_dev,
-        fused=fused, vectorized=vectorized, overlap=overlap)
+        fused=fused, vectorized=vectorized, overlap=overlap, mark=mark)
     return (x_t + y2d.reshape(B, S, D), pstate,
             {"route": route, "hidden_pre_moe": h2d})
 

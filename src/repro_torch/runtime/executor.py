@@ -185,7 +185,7 @@ class Executor:
 
     # ------------------------------------------------------------------
     def decode(self, state, tokens, pstate=None, active=None, *,
-               collect_info: bool = False):
+               collect_info: bool = False, obs=None):
         """One decode step of B rows: tokens (B, C) ints on the device or
         on the host (a numpy array, uploaded with the step's positions).
 
@@ -205,18 +205,36 @@ class Executor:
         and ``pstate`` are updated in place.  Returns ``(logits (B, C,
         V), state, pstate, route_ids)``, ``route_ids`` one (B * C, K) host
         array per MoE layer, token-major (row b's tokens at ``b * C +
-        j``)."""
+        j``).
+
+        ``obs`` is the calling engine's dispatch-phase observer, or None:
+        an object with ``begin()`` / ``mark(phase)`` whose phases are this
+        plane's ``obs.schema.EXEC_KEYS_BY_PLANE`` entry (``obs.ExecPhases``).
+        ``plain`` marks ``dispatch``; ``packed_vectorized`` ``embed``,
+        ``block`` per layer and ``head``; ``packed_pipelined`` ``embed``,
+        ``mixer``, ``moe`` (the routing read, the acquire and the expert
+        compute), ``stage`` (issuing the lookahead copies) and ``head``.
+        Host clock only: a mark after a launch times the launch."""
+        if obs is not None:
+            obs.begin()
         step, tokens = self._prepare(state, tokens, active)
         if not self.packed:
             out = T.decode_step(self.params, self.cfg, state, tokens,
                                 collect_info=collect_info, active=active,
                                 step=step)
+            if obs is not None:
+                obs.mark("dispatch")
             return out[0], out[1], None, (out[2] if collect_info else None)
         B, C = tokens.shape
         cfg, spec = self.cfg, self.spec
         rows_dev = step.rows if step is not None else None
         n_spec = spec.num_speculative if B * C == 1 else 0
+        mixer, moe = ("mixer", "moe") if self.pipelined else ("block", "block")
+        # the pipelined plane's staging is issued inside the MoE half
+        stage_mark = obs.mark if obs is not None and self.pipelined else None
         x = T.embed_tokens(self.params, cfg, tokens)
+        if obs is not None:
+            obs.mark("embed")
         pos = state["pos"]
         route_ids = []
         for l, kind in enumerate(self.kinds):
@@ -225,22 +243,29 @@ class Executor:
             x, st_l, h2 = T.decode_block_packed_mixer(p, cfg, kind, x, st_l,
                                                       pos, step=step)
             state["layers"][l] = st_l
+            if obs is not None:
+                obs.mark(mixer)
             if self._fetch_faulted():
                 x, ids = self._degraded_moe(p, x, h2, l)
-                route_ids.append(ids)
-                continue
-            x, pstate, info = T.decode_block_packed_moe(
-                p, cfg, x, h2, self.store, pstate, self.moe_ordinal[l],
-                self.routers, lookahead=spec.lookahead, n_spec=n_spec,
-                active=active, rows_dev=rows_dev, fused=self.fused,
-                vectorized=self.vectorized, overlap=self.pipelined)
-            route_ids.append(info["route"]["ids"])
+            else:
+                x, pstate, info = T.decode_block_packed_moe(
+                    p, cfg, x, h2, self.store, pstate, self.moe_ordinal[l],
+                    self.routers, lookahead=spec.lookahead, n_spec=n_spec,
+                    active=active, rows_dev=rows_dev, fused=self.fused,
+                    vectorized=self.vectorized, overlap=self.pipelined,
+                    mark=stage_mark)
+                ids = info["route"]["ids"]
+            if obs is not None:
+                obs.mark(moe)
+            route_ids.append(ids)
         logits = T.apply_head(self.params, cfg, x)
+        if obs is not None:
+            obs.mark("head")
         return (logits, dict(state, pos=T.advance(state, C, active=active)),
                 pstate, route_ids)
 
     def decode_sampled(self, state, tokens, *, collect_info: bool,
-                       greedy: bool, active=None):
+                       greedy: bool, active=None, obs=None):
         """Plain-plane decode with the sampling input prepared on the
         device: the greedy argmax (B,) int32, or the last-position logits
         (B, V).  Returns ``(next, state)``, and the per-layer infos with
@@ -249,7 +274,8 @@ class Executor:
             raise ValueError("packed decode returns logits; sample on the "
                              "host side")
         logits, state, _, infos = self.decode(state, tokens, active=active,
-                                              collect_info=collect_info)
+                                              collect_info=collect_info,
+                                              obs=obs)
         nxt = (torch.argmax(logits[:, -1], dim=-1).to(torch.int32) if greedy
                else logits[:, -1])
         return (nxt, state, infos) if collect_info else (nxt, state)

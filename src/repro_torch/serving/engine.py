@@ -33,7 +33,8 @@
   plane (``serving/faults``) exercises the failure paths: a failed
   expert fetch is retried, then served store-direct; a NaN row is
   quarantined; a request can be cancelled, or run out its deadline,
-  wherever it is.
+  wherever it is.  An ``obs.Telemetry`` (``telemetry=``) adds the
+  reference's telemetry plane: step phases, request spans, the roofline.
 
 Each step's positions, row indices, page table and ragged work list are
 built on the host from the managers' tables and uploaded with the step's
@@ -57,7 +58,7 @@ from repro_torch.configs.base import ModelConfig, parse_block
 from repro_torch.core.draft import verify_round
 from repro_torch.core.offload_engine import (ExpertUsageTracker,
                                              routing_from_info)
-from repro_torch.obs import SpecMetrics
+from repro_torch.obs import SpecMetrics, Telemetry, jit_cache_metrics
 from repro_torch.runtime.executor import Executor
 from repro_torch.runtime.plan import (Admission, ChunkTask, StepPlan,
                                       TokenBudgetPolicy)
@@ -69,12 +70,6 @@ from repro_torch.serving.scheduler import (RUNNING, GenRequest, Scheduler,
                                            admission_cost)
 
 EOS = 258  # the reference's byte tokenizer: PAD, BOS, EOS = 256, 257, 258
-
-
-def _not_ported(what: str, item: int):
-    return NotImplementedError(
-        f"ContinuousEngine: {what} is not ported yet (ROADMAP queue 1, "
-        f"item {item})")
 
 
 @dataclass
@@ -91,7 +86,8 @@ class _Swapped:
 
     req: GenRequest
     blob: Optional[dict]
-    next_tok: int         # the pending (already emitted) token to feed
+    next_tok: Optional[int]  # the pending (emitted) token to feed; None:
+                             # an admission dropped before its first token
     n_tokens: int         # live KV positions at the preemption
     seq: int              # FIFO order within a priority
 
@@ -196,7 +192,15 @@ class ContinuousEngine:
     a full queue ends ``rejected``).  ``deadline_ms`` is the default
     wall-clock budget of a request; ``submit``'s ``deadline_ms`` /
     ``deadline_steps`` override it.  ``device``: the plain plane's device
-    (the card unless ``"cpu"``)."""
+    (the card unless ``"cpu"``).
+
+    ``telemetry``: an ``obs.Telemetry``; with timing, per-step phases
+    (``step``: plan, chunk, dispatch, sync = the step's token read,
+    sample, host), the executor's dispatch phases (``exec``), request
+    lifecycles (``request``, and spans with ``trace``) and the roofline.
+    Default ``Telemetry.off()``: only the pull-time collectors behind
+    :meth:`metrics` / :meth:`stats`; the tokens are the same either
+    way."""
 
     def __init__(self, params, cfg: ModelConfig, *, max_slots: int = 4,
                  slot_len: int = 256, sampler: Optional[SamplerConfig] = None,
@@ -220,8 +224,6 @@ class ContinuousEngine:
                  fetch_retries: int = 2,
                  fetch_backoff_ms: float = 0.0,
                  device=None):
-        if telemetry is not None:
-            raise _not_ported("telemetry", 7)
         self.offload = offload
         self._pstate = None
         if offload is not None:
@@ -324,10 +326,46 @@ class ContinuousEngine:
         self.step_count = 0
         self._gen = torch.Generator(self.device)
         self._gen.manual_seed(seed)
+        self._init_telemetry(telemetry)
         self.spec_k = int(num_draft_tokens or 0)
         self.spec_metrics: Optional[SpecMetrics] = None
         if self.spec_k > 0:
             self._init_draft(draft_params, draft_cfg)
+
+    def _init_telemetry(self, telemetry) -> None:
+        """The telemetry plane: the collectors always (they run only at
+        snapshot time and back :meth:`stats`); timing, the executor's
+        observer and the roofline only with an enabled ``Telemetry``."""
+        self.obs = telemetry if telemetry is not None else Telemetry.off()
+        reg = self.obs.registry
+        reg.register_collector("engine", self._engine_metrics)
+        reg.register_collector("kv", self.kv.metrics)
+        reg.register_collector("jit", jit_cache_metrics)
+        reg.register_collector("faults", self._faults_metrics)
+        if self.offload is not None:
+            reg.register_collector("offload", self._offload_metrics)
+        if self._prefix is not None:
+            reg.register_collector("prefix", self._prefix_metrics)
+        if self._preempt:
+            reg.register_collector("kv_host", self._kv_host_metrics)
+        # the dispatch phases of this engine's decode steps (None without
+        # timing); passed per call, as executors are shared
+        self._phases = self.obs.exec_observer(self._exec.plane)
+        if not self.obs.timing:
+            return
+        self.obs.declare_step_schema()
+        self.obs.declare_request_schema()
+        off = self.offload
+        if off is None:
+            self.obs.attach_roofline(self.cfg)
+            return
+        q = off.quantized
+        self.obs.attach_roofline(
+            self.cfg, expert_bits=off.spec.expert_bits if q else 16,
+            attn_bits=off.spec.attn_bits if q else 16,
+            expert_bytes=off.expert_bytes,
+            # the pool's counters live on the host: no device read
+            h2d_counts_fn=lambda: tuple(int(c) for c in self._pstate.counts))
 
     def _init_draft(self, draft_params, draft_cfg) -> None:
         """Check and set up draft-and-verify decoding (the reference's
@@ -370,7 +408,7 @@ class ContinuousEngine:
         # the request whose draft state each slot row holds (-1: none);
         # a row is bound lazily, at its first speculative step
         self._draft_rid = np.full(self.max_slots, -1, np.int64)
-        self.spec_metrics = SpecMetrics()
+        self.spec_metrics = SpecMetrics(self.obs.registry)
         self._spec_last_h2d = 0.0
 
     # ------------------------------------------------------------------
@@ -411,8 +449,10 @@ class ContinuousEngine:
                                       else self._deadline_ms),
                          deadline_steps=deadline_steps,
                          submit_ns=time.perf_counter_ns())
+        self.obs.req_submitted(req.rid, self.step_count)
         if not self.sched.submit(req):
             req.finish("rejected")  # bounded queue full: backpressure
+            self.obs.req_finished(req.rid, 0, "rejected")
         return req
 
     # ------------------------------------------------------------------
@@ -441,6 +481,7 @@ class ContinuousEngine:
         while self.kv.n_free and (self.sched.has_waiting or self._swapped):
             if not self.paged:
                 req = self.sched.pop_next(self.usage)
+                self.obs.req_admitted(req.rid, self.step_count - req.arrival)
                 req.slot = self.kv.allocate(req.rid)
                 self._admissions.append(Admission(
                     rid=req.rid, slot=req.slot, total=len(req.prompt),
@@ -466,6 +507,7 @@ class ContinuousEngine:
                     continue  # look up again: eviction may drop its pages
                 break
             req = self.sched.pop_at(idx)
+            self.obs.req_admitted(req.rid, self.step_count - req.arrival)
             req.slot = self.kv.allocate(req.rid, reserve,
                                         shared_pages=shared, base=base)
             self._note_prefix_hit(base)
@@ -484,6 +526,14 @@ class ContinuousEngine:
         if base:
             self._prefills_skipped += 1
             self._prefix_hit_tokens += base
+            if self.obs.roofline is not None:
+                self.obs.roofline.add_prefix_hit(base)
+
+    def _note_swap(self, blob: dict) -> None:
+        """One swap's bytes (either way) into the roofline's tally."""
+        if self.obs.roofline is not None:
+            self.obs.roofline.add_swap_bytes(
+                blob["n_pages"] * self.kv.page_nbytes())
 
     def _prefix_insert(self, tokens, slot: int) -> None:
         """Index the slot's full prompt pages once its prefill finished
@@ -538,6 +588,8 @@ class ContinuousEngine:
         slot = req.slot
         n_live = self.kv.length(slot)
         blob = self.kv.swap_out(slot)  # None: drop and recompute
+        if blob is not None:
+            self._note_swap(blob)
         self.kv.release(slot)
         self.sched.preempt(req)
         self._swap_seq += 1
@@ -580,6 +632,7 @@ class ContinuousEngine:
                 if not self._make_room(req):
                     return False
             req.slot = self.kv.swap_in(req.rid, sw.blob, sw.n_tokens + 1)
+            self._note_swap(sw.blob)
             self.sched.resume(req)
             self.tokens[req.slot, 0] = sw.next_tok
             self._swapped.remove(sw)
@@ -620,12 +673,42 @@ class ContinuousEngine:
                 if self._evict_prefix_pages():
                     continue
                 victim = self._pick_victim(exclude_slot=req.slot)
-                if victim is None:
+                if victim is not None:
+                    self._preempt_req(victim)
+                    continue
+                adm = self._pick_admission_victim()
+                if adm is None:
                     raise RuntimeError(
                         "page pool exhausted with nothing left to preempt "
                         "(submit() checks that a lone request fits)")
-                self._preempt_req(victim)
+                self._preempt_admission(adm)
             self.kv.grow(req.slot, n)
+
+    def _pick_admission_victim(self) -> Optional[Admission]:
+        """The lowest-priority, latest-arrival row still admitting: the
+        victim of decode growth when no decoding row is left (F4 of the
+        ROADMAP: its reservation holds the free pages, and the reference
+        raises here)."""
+        if not self._admissions:
+            return None
+        return min(self._admissions, key=lambda a: (
+            a.req.priority, -a.req.arrival, -a.req.rid))
+
+    def _preempt_admission(self, adm: Admission) -> None:
+        """Drop a half-prefilled admission: its partial KV and its
+        reservation are released, and it waits among the swapped requests
+        (ahead of new arrivals of its priority) for a recompute from its
+        prompt, or from prompt + generated[:-1] when it was itself a
+        recompute resume; its pending token, if any, is fed again."""
+        req = adm.req
+        self._admissions.remove(adm)
+        self.kv.release(adm.slot)
+        self.sched.preempt(req)
+        self._swap_seq += 1
+        self._swapped.append(_Swapped(
+            req=req, blob=None, next_tok=adm.resume_tok, n_tokens=0,
+            seq=self._swap_seq))
+        req.slot = None
 
     # ------------------------------------------------------------------
     def _run_chunks(self, chunks: List[ChunkTask]) -> List[GenRequest]:
@@ -643,6 +726,7 @@ class ContinuousEngine:
         for task in chunks:
             adm = by_rid[task.rid]
             req: GenRequest = adm.req
+            t0 = self.obs.clock_ns() if self.obs.tracer is not None else 0
             src = adm.tokens if adm.tokens is not None else req.prompt
             tokens = torch.as_tensor(src[None, task.lo: task.hi],
                                      device=self.device)
@@ -655,6 +739,7 @@ class ContinuousEngine:
             else:
                 logits, adm.state = self._exec.prefill_chunk(adm.state,
                                                              tokens)
+            self.obs.req_chunk(req.rid, task.lo, task.hi, t0)
             adm.next_lo = task.hi
             if not task.last:
                 continue
@@ -680,6 +765,7 @@ class ContinuousEngine:
                 self._finish(req, self._reason(first))
                 finished.append(req)
                 continue
+            self.obs.req_decode_start(req.rid)
             self.tokens[adm.slot, 0] = first
             if self.paged:
                 self._admissions.remove(adm)
@@ -738,6 +824,7 @@ class ContinuousEngine:
         if self.spec_k > 0:
             self._draft_rid[req.slot] = -1
         self.sched.evict(req, reason)
+        self.obs.req_finished(req.rid, len(req.generated), reason)
 
     # ------------------------------------------------------------------
     # the request lifecycle
@@ -749,6 +836,7 @@ class ContinuousEngine:
         for req in self.sched.waiting:
             if req.rid == rid:
                 self.sched.drop(req, reason)
+                self.obs.req_finished(rid, len(req.generated), reason)
                 return True
         for adm in self._admissions:
             if adm.rid == rid:
@@ -764,6 +852,7 @@ class ContinuousEngine:
                 self._swapped.remove(sw)
                 self.kv.discard_blob(sw.blob)
                 self.sched.drop(sw.req, reason)
+                self.obs.req_finished(rid, len(sw.req.generated), reason)
                 return True
         return False
 
@@ -840,8 +929,13 @@ class ContinuousEngine:
         if self.faults is not None and self.faults.fires("slow_step"):
             time.sleep(self.faults.stall_ms() / 1e3)
         self._expire_deadlines()
+        st = self.obs.step_begin(self.step_count)
         plan = self._plan()
+        if st is not None:
+            st.mark("plan")
         finished = self._run_chunks(plan.chunks)
+        if st is not None:
+            st.mark("chunk")
         # unchunked admission: a request admitted this step decodes this
         # step; budgeted steps decode exactly the planned rows
         rows = (self._decode_rows() if self.budget is None
@@ -850,6 +944,7 @@ class ContinuousEngine:
             if plan.chunks:
                 self.step_count += 1
                 self._audit_step()
+            self.obs.step_end(st, n_chunks=len(plan.chunks))
             return finished
         reqs = sorted((r for r in self.sched.running if r.slot in set(rows)),
                       key=lambda r: r.slot)
@@ -861,7 +956,8 @@ class ContinuousEngine:
                           + [r.max_new_tokens - len(r.generated) - 1
                              for r in reqs])
             if k_round >= 1:
-                return self._step_speculative(finished, rows, reqs, k_round)
+                return self._step_speculative(st, plan, finished, rows, reqs,
+                                              k_round)
         active = np.zeros((self.max_slots,), bool)
         active[rows] = True
         if self.paged:
@@ -877,23 +973,26 @@ class ContinuousEngine:
             # free slots bypass the expert pool: their dummy tokens never
             # touch the cache or the counters
             logits, state, self._pstate, route_ids = self._exec.decode(
-                step_state, self.tokens, self._pstate, active)
+                step_state, self.tokens, self._pstate, active,
+                obs=self._phases)
             self.usage.update(route_ids, rows=rows)
             nxt_dev = logits[:, -1]
         elif quar:
             logits, state, _, infos = self._exec.decode(
                 step_state, self.tokens, active=active,
-                collect_info=self._collect)
+                collect_info=self._collect, obs=self._phases)
             nxt_dev = logits[:, -1]
         else:
             out = self._exec.decode_sampled(
                 step_state, self.tokens, collect_info=self._collect,
-                greedy=self._greedy, active=active)
+                greedy=self._greedy, active=active, obs=self._phases)
             nxt_dev, state = out[0], out[1]
             infos = out[2] if self._collect else None
         if self._collect and self.offload is None:
             ids, _ = routing_from_info(self.cfg, infos, want_hiddens=False)
             self.usage.update(ids, rows=rows)
+        if st is not None:
+            st.mark("dispatch")
         if self.paged:
             self.kv.adopt(state)
             for r in rows:
@@ -904,6 +1003,8 @@ class ContinuousEngine:
             # (max_slots, V) to the host every step: the price of
             # inspecting the logits before sampling
             last = nxt_dev.float().cpu().numpy()
+            if st is not None:
+                st.mark("sync")
             reqs = self._quarantine(last, reqs, finished)
             nxt = np.zeros((self.max_slots,), np.int32)
             if reqs:
@@ -914,13 +1015,19 @@ class ContinuousEngine:
                     nxt[srows] = self._sample_rows(
                         torch.as_tensor(last[srows], device=self.device),
                         reqs)
-        elif self._greedy and self.offload is None:
-            nxt = nxt_dev.cpu().numpy()  # the step's one device read
+                    if st is not None:
+                        st.mark("sample")
         elif self._greedy:
-            nxt = self._sample_rows(nxt_dev, reqs)  # every slot's row
+            # the step's one blocking read: the device's work lands here
+            nxt = (nxt_dev.cpu().numpy() if self.offload is None
+                   else self._sample_rows(nxt_dev, reqs))  # every slot's row
+            if st is not None:
+                st.mark("sync")
         else:
             nxt = np.zeros((self.max_slots,), np.int32)
             nxt[rows] = self._sample_rows(nxt_dev[rows], reqs)
+            if st is not None:
+                st.mark("sample")
         for req in reqs:
             t = int(nxt[req.slot])
             req.emit(t)
@@ -931,7 +1038,20 @@ class ContinuousEngine:
                 self.tokens[req.slot, 0] = t
         self.step_count += 1
         self._audit_step()
+        self._end_step(st, plan, reqs)
         return finished
+
+    def _end_step(self, st, plan: StepPlan, reqs: List[GenRequest]) -> None:
+        """Close a timed step: its ``host`` phase, and the live context of
+        its decode rows from the host's request records (no device read)
+        for the roofline."""
+        if st is None:
+            return
+        st.mark("host")
+        ctx = (sum(len(r.prompt) + len(r.generated) for r in reqs)
+               / max(1, len(reqs)))
+        self.obs.step_end(st, n_decode=len(reqs), n_chunks=len(plan.chunks),
+                          context_len=ctx)
 
     # ------------------------------------------------------------------
     # draft-and-verify decoding
@@ -997,7 +1117,8 @@ class ContinuousEngine:
             self._draft_consumed[req.slot] += len(queues[req.slot])
         return props
 
-    def _step_speculative(self, finished: List[GenRequest], rows: List[int],
+    def _step_speculative(self, st, plan: StepPlan,
+                          finished: List[GenRequest], rows: List[int],
                           reqs: List[GenRequest], k_round: int
                           ) -> List[GenRequest]:
         """One draft-and-verify round over the running rows: the draft
@@ -1031,15 +1152,18 @@ class ContinuousEngine:
         tok_rows = [r * C + j for r in rows for j in range(C)]
         if self.offload is not None:
             logits, state, self._pstate, route_ids = self._exec.decode(
-                step_state, chunk, self._pstate, active)
+                step_state, chunk, self._pstate, active, obs=self._phases)
             self.usage.update(route_ids, rows=tok_rows)
         else:
             logits, state, _, infos = self._exec.decode(
-                step_state, chunk, active=active, collect_info=self._collect)
+                step_state, chunk, active=active, collect_info=self._collect,
+                obs=self._phases)
             if self._collect:
                 ids, _ = routing_from_info(self.cfg, infos,
                                            want_hiddens=False)
                 self.usage.update(ids, rows=tok_rows)
+        if st is not None:
+            st.mark("dispatch")
         if self.paged:
             self.kv.adopt(state)
             for r in rows:
@@ -1048,6 +1172,8 @@ class ContinuousEngine:
             self.kv.state = state
         # the round's one blocking read: every row's target argmax
         tgt = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        if st is not None:
+            st.mark("sync")
         for req in reqs:
             r = req.slot
             emitted, a = verify_round(props[r], tgt[r])
@@ -1074,6 +1200,7 @@ class ContinuousEngine:
             self._spec_last_h2d = total
         self.step_count += 1
         self._audit_step()
+        self._end_step(st, plan, reqs)
         return finished
 
     def run(self, max_steps: Optional[int] = None) -> List[GenRequest]:
@@ -1141,19 +1268,14 @@ class ContinuousEngine:
         out.update(counts)
         return out
 
+    def metrics(self) -> Dict[str, Dict[str, object]]:
+        """The namespaced telemetry snapshot ``{namespace: {key: value}}``
+        (``obs.schema``): the collectors read fresh state now; the timing
+        and roofline namespaces appear when enabled."""
+        return self.obs.snapshot()
+
     def stats(self) -> Dict[str, float]:
-        """The reference's flat ``stats()`` keys: engine counters bare,
-        ``kv_*``, ``faults_*`` and, where they apply, ``offload_*``,
-        ``prefix_*`` and ``kv_host_*``."""
-        out = dict(self._engine_metrics())
-        out.update(self.kv.stats())
-        spaces = {"faults": self._faults_metrics}
-        if self.offload is not None:
-            spaces["offload"] = self._offload_metrics
-        if self._prefix is not None:
-            spaces["prefix"] = self._prefix_metrics
-        if self._preempt:
-            spaces["kv_host"] = self._kv_host_metrics
-        for ns, fn in spaces.items():
-            out.update({f"{ns}_{k}": v for k, v in fn().items()})
-        return out
+        """The reference's flat view, a projection of :meth:`metrics`
+        (``obs.flatten_legacy``: engine counters bare, ``kv_*``,
+        ``offload_*``, every other namespace ``<ns>_<key>``)."""
+        return self.obs.legacy_flat()

@@ -115,6 +115,8 @@ class TrainerConfig:
     eval_every: int = 100
     checkpoint_path: Optional[str] = None
     checkpoint_every: int = 0
+    microbatches: int = 1   # make_train_step's gradient accumulation
+    remat: bool = False     # and recomputation of the blocks in backward
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -135,7 +137,8 @@ def train(params, cfg: ModelConfig, opt_cfg: O.OptimizerConfig,
     and appended to the history with the step and the wall time since
     the start.  Returns ``(params, opt_state, history)``."""
     dev = _device(params)
-    step_fn = make_train_step(cfg, opt_cfg)
+    step_fn = make_train_step(cfg, opt_cfg, microbatches=tcfg.microbatches,
+                              remat=tcfg.remat)
     opt_state = O.init_opt_state(params)
     history = []
     t0 = time.perf_counter()

@@ -32,6 +32,7 @@ from repro_torch.configs import get_config as pget
 from repro_torch.configs.base import OffloadSpec as PSpec
 from repro_torch.core import expert_pool as EP
 from repro_torch.core.offload_engine import OffloadEngine as PEngine
+from repro_torch.obs import Telemetry
 from repro_torch.serving.engine import ContinuousEngine as PContinuous
 from repro_torch.serving.faults import FaultInjector
 from repro_torch.serving.scheduler import ExpertOverlapPolicy as POverlap
@@ -162,12 +163,23 @@ def test_overlap_policy_serves_like_reference(engines):
     (dict(num_draft_tokens=2), ValueError),
     # the fault plane is ported: an injector is accepted
     (dict(faults="expert_fetch=0.5"), None),
-    (dict(telemetry=object()), NotImplementedError)],
+    # telemetry is ported: a Telemetry is accepted
+    (dict(telemetry="timing"), None)],
     ids=["prefix", "preemption", "host-swap", "drafts", "faults",
          "telemetry"])
 def test_out_of_scope_arguments_are_refused(engines, kw, exc):
     _, _, pcfg, peng = engines
     kw = {"kv_page": 16, **kw}
+    if exc is None and "telemetry" in kw:
+        kw["telemetry"] = Telemetry(timing=True)
+        eng = PContinuous(None, pcfg, offload=peng, **kw)
+        phases = eng._phases
+        assert eng.obs is kw["telemetry"] and phases is not None
+        # the observer is the engine's own: another engine on the shared
+        # executor neither takes nor removes it
+        other = PContinuous(None, pcfg, offload=peng, kv_page=16)
+        assert other._phases is None and eng._phases is phases
+        return
     if exc is None:
         kw["faults"] = FaultInjector.parse(kw["faults"], seed=0)
         eng = PContinuous(None, pcfg, offload=peng, **kw)

@@ -403,8 +403,8 @@ def test_degraded_decode_matches_pool_path(model):
                           faults=injector(PF, spec), check_invariants=True)
         steps, dec = [], eng._exec.decode
 
-        def decode(state, tokens, pstate, active):
-            out = dec(state, tokens, pstate, active)
+        def decode(state, tokens, pstate, active, **kw):
+            out = dec(state, tokens, pstate, active, **kw)
             steps.append(out[0][torch.as_tensor(active)].clone())  # rows in use
             return out
         eng._exec.decode = decode

@@ -409,22 +409,27 @@ def test_serve_bench_scenarios_run(model, monkeypatch, tmp_path):
                         lambda name: pget(name).replace(n_layers=2))
     monkeypatch.setattr(serve_bench.common, "BENCH_OUT", tmp_path)
     # the wall-clock floors are the card's (chip_smoke.py's [serve-bench]):
-    # here they are only seen to be applied, to this run's rows
+    # here they are only seen to be applied, to this run's rows; the
+    # telemetry overhead floor is applied on the card only
     floors = []
     monkeypatch.setattr(serve_bench, "check_prefix_reuse",
                         lambda row, smoke=False: floors.append(row))
+    monkeypatch.setattr(serve_bench, "check_telemetry_overhead",
+                        floors.append)
     monkeypatch.setattr(serve_bench, "check_chaos", floors.append)
     rows = serve_bench.run(quick=True, device="cpu")
-    assert floors == [rows[4], rows[6]]
+    assert floors == [rows[4], rows[7]]
     assert [r["scenario"] for r in rows] == [
         "continuous_vs_static", "chunked_prefill", "chunked_prefill_packed",
-        "paged_kv", "prefix_reuse", "overload_preempt", "chaos_goodput"]
+        "paged_kv", "prefix_reuse", "overload_preempt", "telemetry_overhead",
+        "chaos_goodput"]
     assert all(r["device"] == "cpu" for r in rows)
     assert rows[2]["counters_identical"] and rows[3]["token_parity"]
     assert rows[3]["paged_peak_kv_positions"] < rows[3]["dense_peak_kv_positions"]
     assert rows[4]["prefills_skipped"] == 2 and rows[4]["token_parity"]
     assert rows[5]["preemptions"] > 0 and rows[5]["token_parity"]
-    assert rows[6]["failed"] == 1 and rows[6]["cancelled"] == 2
+    assert rows[6]["token_parity"] and rows[6]["overhead_ratio"] > 0
+    assert rows[7]["failed"] == 1 and rows[7]["cancelled"] == 2
     assert (tmp_path / "serve_bench.json").exists()
 
 
@@ -432,10 +437,12 @@ def test_serve_bench_scenarios_run(model, monkeypatch, tmp_path):
     ("check_prefix_reuse", {"ttft_speedup": 2.0}, True),
     ("check_prefix_reuse", {"ttft_speedup": 1.99}, False),
     ("check_chaos", {"goodput_ratio": 0.7}, True),
-    ("check_chaos", {"goodput_ratio": 0.69}, False)])
+    ("check_chaos", {"goodput_ratio": 0.69}, False),
+    ("check_telemetry_overhead", {"overhead_ratio": 0.95}, True),
+    ("check_telemetry_overhead", {"overhead_ratio": 0.949}, False)])
 def test_serve_bench_floors(check, row, ok):
     """The reference's floors: prefix-hit TTFT >= 2x (1.5x at the quick
-    size), chaos goodput >= 0.7x."""
+    size), chaos goodput >= 0.7x, telemetry on >= 0.95x off."""
     fn = getattr(serve_bench, check)
     if ok:
         fn(row)
@@ -501,6 +508,29 @@ def _drive_overload(model, packed):
         runs[None][0]
 
 
+def _drive_telemetry(model, packed):
+    """Telemetry off against on, on the packed plane over pages (the
+    plain plane's run is ``run()``'s): equal tokens, the same as the
+    reference's engine without telemetry, and the instrumented run's
+    roofline read."""
+    jcfg, pcfg, _, _ = model
+    jeng, peng = packed
+    row = serve_bench.run_telemetry_overhead(None, pcfg, smoke=True,
+                                             max_slots=2, offload=peng,
+                                             kv_page=8)
+    assert row["plane"] == "packed" and row["trace_events"] > 0
+    assert row["roofline"]["h2d_savings_ratio"] > 1.0
+    workload = serve_bench.make_latency_workload(pcfg, 2, smoke=True)
+    jce = JContinuous(None, jcfg, max_slots=2, slot_len=row["slot_len"],
+                      eos_id=None, offload=jeng, kv_page=8)
+    port = serve_bench._drive_latency(
+        serve_bench.ContinuousEngine(None, pcfg, max_slots=2,
+                                     slot_len=row["slot_len"], eos_id=None,
+                                     offload=peng, kv_page=8), workload)[1]
+    assert _reference_serve(jce, [p for p, _ in workload],
+                            [m for _, m in workload]) == port
+
+
 def _drive_chaos(model, packed):
     """The chaos drive on the port's packed engine against the same
     schedule and cancels on the reference's: equal tokens, statuses and
@@ -536,12 +566,13 @@ def _drive_chaos(model, packed):
     ("run_overload_preempt", "item 5"), ("run_chaos", "item 5"),
     ("run_zoo", "item 6")])
 def test_unported_scenarios_raise(scenario, item, model, packed):
-    """The two scenarios still to port raise naming their item; the
-    three of item 5 are ported: their drive functions run on the CPU with
-    the parities their ``run_*`` asserts (no wall-clock floor here)."""
+    """The scenario still to port (``zoo``) raises naming its item; those
+    of items 5 and 7 are ported: they run on the CPU with the parities
+    their ``run_*`` asserts (no wall-clock floor here)."""
     drives = {"run_prefix_reuse": _drive_prefix_reuse,
               "run_overload_preempt": _drive_overload,
-              "run_chaos": _drive_chaos}
+              "run_chaos": _drive_chaos,
+              "run_telemetry_overhead": _drive_telemetry}
     if scenario in drives:
         drives[scenario](model, packed)
         return

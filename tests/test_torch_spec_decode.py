@@ -468,8 +468,8 @@ def test_offload_spec_totals_match_reference(offload_runs, plane):
     assert p.rounds == j["rounds"] == j["proposed"]["count"]
     assert p.proposed_total == j["proposed"]["sum"]
     assert p.accepted_total == j["accepted"]["sum"]
-    assert min(p.proposed) == j["proposed"]["min"]
-    assert max(p.accepted) == j["accepted"]["max"]
+    assert p.proposed.min == j["proposed"]["min"]
+    assert p.accepted.max == j["accepted"]["max"]
     assert p.acceptance_rate == pytest.approx(j["acceptance_rate"], rel=1e-12)
     assert p.bytes_h2d_per_accepted == pytest.approx(
         j["bytes_h2d_per_accepted"], rel=1e-12)
