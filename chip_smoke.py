@@ -194,8 +194,9 @@ decision of both runs they compare (router
 top-k, lookahead prediction, sampled token) and hold them to one rule:
 equal, or the first decision that differs is a near-tie, its top-k
 probability gap (routing, prediction) or its top-2 logit gap over the
-row's largest |logit| (token) below ``NEAR_TIE`` = 2^-6 in both runs; the
-decision is printed with its gap.
+row's largest |logit| over the real vocabulary, pad ids left out (token)
+below ``NEAR_TIE`` = 2^-6 in both runs; the decision is printed with its
+gap.
 
 19. ``[f4]`` (after ``[item5-parity]``): F4's minimal
     case, chunked admission with preemption on an 11-page pool, on
@@ -220,11 +221,39 @@ decision is printed with its gap.
     fetch faults and the packed plane; each must exit 0 and its files
     pass the schema tool.
 
+20. The attention-only config zoo (ROADMAP item 6, sub-items 1-2).
+    ``[ragged-hd96]`` and ``[flash-hd96]`` (after ``[flash]``): the two
+    attention kernels at phi-3-vision's shapes (H 32, Hkv 32, head_dim
+    96, bf16): a 4-row decode step over pages of 16 and the 64-token
+    prefill chunk, with route, time, plain time and bound, as above.
+    ``[zoo-parity]`` (after ``[f4]``): the six zoo configs reduced, in
+    f32, card against CPU, exactly equal: ``generate_plain`` tokens, the
+    plain plane's ``ContinuousEngine`` on pages and on dense slots with
+    chunks of 4 (4 requests through 2 slots: tokens and emit steps);
+    granite kept at 32 experts / top-8 / cache 8 (widths cut by hand)
+    and a tail-layer config through ``OffloadEngine`` on
+    ``packed_pipelined`` (tokens and every counter); a softcap config;
+    phi-3 at head_dim 96 and the GQA ratios 3 and 12 on pages and dense
+    slots.
+    ``[zoo]`` (after ``[attention-bench]``): published widths in bf16,
+    seed 0: granite at 24 layers batch 1 on ``packed_pipelined`` (64-token
+    prompt, 32 new tokens: prefill s, decode tok/s, hit ratio, h2d bytes
+    per token, peak memory, launches on the GEMV and the grouped kernel)
+    and served on its pool; smollm, stablelm, qwen, phi-3 at full depth
+    and command-r-plus at 8 of 64 layers served on the plain plane, each
+    ``[serve]``'s 8 requests through 4 slots on pages of 16 (tokens/s,
+    peak memory, routes); each held, over its first 12-16 tokens, to the
+    same run with the plain versions on the card by the near-tie rule.  ``[cli]`` also
+    serves ``--arch granite-moe-1b-a400m --offload --quantize`` and
+    ``--arch smollm-360m --continuous``, and checks that
+    ``--arch command-r-plus-104b`` is refused with the bytes it needs.
+
 The line before the card's line is ``{"kernels": [...]}``; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import shutil
@@ -328,6 +357,18 @@ def _routes_since(before):
     return {k: v - before[k] for k, v in _routes().items()}
 
 
+def _token_gap(logits):
+    """Each row's top two logits' gap over its largest |logit|, over the
+    real vocabulary only: ``unembed`` gives a padded id ``NEG_INF``, which
+    would make every row's denominator 1e30."""
+    from repro_torch.models.layers import NEG_INF
+    x = logits.float()
+    pad = x <= NEG_INF / 2
+    top = x.masked_fill(pad, float("-inf")).sort(-1, descending=True).values
+    scale = x.abs().masked_fill(pad, 0.0).amax(-1).clamp_min(1e-30)
+    return (top[:, 0] - top[:, 1]) / scale
+
+
 class _Decisions:
     """Every decision of one run, copied to the host with the gap a
     perturbation must cross to flip it: each router top-k
@@ -363,9 +404,7 @@ class _Decisions:
         self.index[kind] += 1
 
     def _token(self, logits, picked):
-        import torch
-        top = torch.sort(logits.float(), -1, descending=True).values
-        rel = (top[:, 0] - top[:, 1]) / logits.float().abs().amax(-1)
+        rel = _token_gap(logits)
         self.events["token"].append(((self.step, 1 << 30, 2),
                                      np.asarray(picked).reshape(-1, 1),
                                      rel.cpu().numpy()))
@@ -566,9 +605,11 @@ class _PosTrace:
         if not sel:
             return
         idx = torch.as_tensor(sel, device=chosen.device)
-        top = torch.sort(top[idx].float(), -1, descending=True).values
-        gap = ((top[:, k - 1] - top[:, k]) if k else
-               (top[:, 0] - top[:, 1]) / top.abs().amax(-1).clamp_min(1e-30))
+        if k:
+            top = torch.sort(top[idx].float(), -1, descending=True).values
+            gap = top[:, k - 1] - top[:, k]
+        else:
+            gap = _token_gap(top[idx])
         ch = chosen[idx]
         ch = (torch.sort(ch, -1).values if k else ch).cpu().numpy()
         for i, (c, g) in enumerate(zip(ch, gap.cpu().numpy())):
@@ -1294,7 +1335,8 @@ def _profile_prefill(eng, prompt, dev):
 
 
 # ----------------------------------------------------------------------
-def _paged_case(dev, lens, C, gen, n_heads=32, n_kv=8, hd=128, ps=16):
+def _paged_case(dev, lens, C, gen, n_heads=32, n_kv=8, hd=128, ps=16,
+                window=4096):
     """Mixtral-shaped paged KV (bf16) for rows of live lengths ``lens``,
     their pages scattered over the pool, queries at the last C positions;
     with the work list and the bytes a kernel must move (each visited
@@ -1317,7 +1359,6 @@ def _paged_case(dev, lens, C, gen, n_heads=32, n_kv=8, hd=128, ps=16):
     kp = torch.randn((P, ps, n_kv, hd), generator=gen, device=dev).to(torch.bfloat16)
     vp = torch.randn((P, ps, n_kv, hd), generator=gen, device=dev).to(torch.bfloat16)
     q = torch.randn((B, C, n_heads, hd), generator=gen, device=dev).to(torch.bfloat16)
-    window = 4096
     wl = RA.build_page_worklist(pages, lens, qpos[:, 0], qpos[:, -1], ps,
                                 window=window)
     packed, n_seg = RA.pack_worklist(*wl, B)
@@ -1325,7 +1366,8 @@ def _paged_case(dev, lens, C, gen, n_heads=32, n_kv=8, hd=128, ps=16):
     visited = int(wl[2][:, 2].sum())
     page_bytes = 2 * ps * n_kv * hd * 2 + ps * 4
     nbytes = visited * page_bytes + 2 * q.numel() * 2
-    keys = sum(int(((0 <= kv) & (kv <= qp) & (qp - kv < window)).sum())
+    keys = sum(int(((0 <= kv) & (kv <= qp)
+                    & (qp - kv < (window or np.inf))).sum())
                for b in range(B) for qp in qpos[b]
                for kv in [ppos[pages[b][pages[b] >= 0]].ravel()])
     flops = 4 * n_heads * hd * keys
@@ -1336,14 +1378,23 @@ def _paged_case(dev, lens, C, gen, n_heads=32, n_kv=8, hd=128, ps=16):
                 listed=T * B, segments=n_seg)
 
 
-def phase_ragged_kernel(dev, flush):
+RAGGED_CASES = (("decode", [37, 300, 1500, 4200], 1),
+                ("admission", [200], 128),
+                # four serving rows' verify chunks (k = 4)
+                ("verify", [69, 133, 1500, 4200], 5))
+
+
+def phase_ragged_kernel(dev, flush, *, heads=(32, 8, 128), cases=RAGGED_CASES,
+                        window=4096, label="ragged"):
     """The ragged paged-attention kernel against its plain version at
     Mixtral's attention shapes, called through the binding the model
     path calls (``ops.ragged_attention``, which counts the launch): a
     decode step of 4 rows whose live lengths straddle the 4096 window
     (its pages wholly outside the window are skipped, the rest masked
     per key), a 128-token admission chunk and four rows' C = 5 verify
-    chunks (draft-and-verify serving at k = 4).  Each row is held against
+    chunks (draft-and-verify serving at k = 4); ``heads`` (H, Hkv, hd),
+    ``cases`` and ``window`` give another model's shapes (phi-3's, under
+    ``label``).  Each row is held against
     the plain version run in f32 on the same (upcast) inputs, within
     ``RAGGED_BF16_RTOL`` of that row's own largest value.  Each launch
     timed alone after an L2 flush; the bound is the
@@ -1356,11 +1407,9 @@ def phase_ragged_kernel(dev, flush):
     gen = torch.Generator(dev)
     gen.manual_seed(3)
     out = {}
-    for case, lens, C in (("decode", [37, 300, 1500, 4200], 1),
-                          ("admission", [200], 128),
-                          # four serving rows' verify chunks (k = 4)
-                          ("verify", [69, 133, 1500, 4200], 5)):
-        c = _paged_case(dev, lens, C, gen)
+    n_heads, n_kv, hd = heads
+    for case, lens, C in cases:
+        c = _paged_case(dev, lens, C, gen, n_heads, n_kv, hd, window=window)
         args = (c["q"], c["kp"], c["vp"], c["ppos"])
         run = lambda: ops.ragged_attention(*args, c["pages"], c["qpos"],
                                            window=c["window"],
@@ -1397,7 +1446,8 @@ def phase_ragged_kernel(dev, flush):
         if not torch.isfinite(y).all():
             fail(f"ragged_attention {case}: non-finite output")
         bound_ms, bound_by = _bound(c["nbytes"], c["flops"])
-        r = dict(ms=_event_ms(run, 20, flush), plain_ms=_event_ms(plain, 3, flush),
+        r = dict(H=n_heads, Hkv=n_kv, hd=hd, route=route,
+                 ms=_event_ms(run, 20, flush), plain_ms=_event_ms(plain, 3, flush),
                  previous_ms=_event_ms(previous, 20, flush),
                  bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
                  previous_max_abs_err=prev_err,
@@ -1408,7 +1458,7 @@ def phase_ragged_kernel(dev, flush):
         H, G = c["q"].shape[2], c["q"].shape[2] // k.shape[2]
         qp = c["qpos"][:, None, :, None]
         mask = ((kpos[:, None, None, :] >= 0) & (kpos[:, None, None, :] <= qp)
-                & (qp - kpos[:, None, None, :] < c["window"]))
+                & (qp - kpos[:, None, None, :] < (c["window"] or np.inf)))
         qs = c["q"].transpose(1, 2)
         ks = k.repeat_interleave(G, 2).transpose(1, 2)
         vs = v.repeat_interleave(G, 2).transpose(1, 2)
@@ -1418,7 +1468,7 @@ def phase_ragged_kernel(dev, flush):
         r["kernel_over_sdpa"] = r["ms"] / r["sdpa_dense_ms"]
         r["previous_over_sdpa"] = r["previous_ms"] / r["sdpa_dense_ms"]
         r["bound_share"] = bound_ms / r["ms"]
-        log(f"[ragged] {case} B={len(lens)} C={C} lens={lens}: {json.dumps(r)}")
+        log(f"[{label}] {case} B={len(lens)} C={C} lens={lens}: {json.dumps(r)}")
         log(f"[yardstick] scaled_dot_product_attention on the gathered dense "
             f"view ({case}, {ks.shape[2]} keys per row, not paged, not used "
             f"by the port): {r['sdpa_dense_ms']:.4f} ms")
@@ -2008,7 +2058,8 @@ def _flash_work(Sq, Skv, q_offset, window, H, Hkv, hd):
     return nbytes, 4 * hd * H * pairs
 
 
-def phase_flash(dev, flush):
+def phase_flash(dev, flush, *, heads=(32, 8, 128), cases=FLASH_CASES,
+                label="flash"):
     """The flash-attention kernel against its plain version at Mixtral's
     attention shapes (H 32, Hkv 8, hd 128, bf16), called through the
     binding the model path calls (``ops.flash_attention``) on (B, H, S,
@@ -2020,23 +2071,25 @@ def phase_flash(dev, flush):
     (``is_causal``, no window) is timed as a yardstick on the cases a
     window does not cut; the port never calls it.  On the main path's
     chunk, ``attention_core`` (what the chunk ran before it took the
-    kernel) is timed too.  Returns the figures of the main path's prefill
-    chunk (the kernels line's entry)."""
+    kernel) is timed too.  ``heads`` (H, Hkv, hd) and ``cases`` give
+    another model's shapes (phi-3's, under ``label``).  Returns the figures
+    of the main path's prefill chunk (the kernels line's entry)."""
     import torch
     from repro_torch.kernels import flash_attention as FA, ops
     gen = torch.Generator(dev)
     gen.manual_seed(4)
-    H, Hkv, hd = 32, 8, 128
+    H, Hkv, hd = heads
     out = {}
-    for name, Sq, Skv, q_offset, window in FLASH_CASES:
+    for name, Sq, Skv, q_offset, window in cases:
         rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
         q, k, v = (t.transpose(1, 2) for t in (rnd(1, Sq, H, hd), rnd(1, Skv, Hkv, hd),
                                                rnd(1, Skv, Hkv, hd)))
         kw = dict(causal=True, window=window, q_offset=q_offset)
         run = lambda: ops.flash_attention(q, k, v, **kw)
         plain = lambda: FA.flash_attention_reference(q, k, v, **kw)
-        before = ops.flash_attention.launches
+        before, wg = ops.flash_attention.launches, FA.launch.routes["wgmma"]
         y = run()
+        route = "wgmma" if FA.launch.routes["wgmma"] == wg + 1 else "fma"
         y32 = FA.flash_attention_reference(q.float(), k.float(), v.float(), **kw)
         torch.cuda.synchronize()
         if ops.flash_attention.launches != before + 1:
@@ -2052,8 +2105,8 @@ def phase_flash(dev, flush):
                  f"{tol.flatten()[worst]:.3g}")
         nbytes, flops = _flash_work(Sq, Skv, q_offset, window, H, Hkv, hd)
         bound_ms, bound_by = _bound(nbytes, flops)
-        r = dict(Sq=Sq, Skv=Skv, q_offset=q_offset, window=window,
-                 ms=_event_ms(run, 10, flush), plain_ms=_event_ms(plain, 3, flush),
+        r = dict(H=H, Hkv=Hkv, hd=hd, route=route, Sq=Sq, Skv=Skv,
+                 q_offset=q_offset, window=window, ms=_event_ms(run, 10, flush), plain_ms=_event_ms(plain, 3, flush),
                  bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
                  max_abs_err=float(err.max()),
                  max_err_over_tolerance=float((err / tol).max()))
@@ -2077,7 +2130,7 @@ def phase_flash(dev, flush):
         r["tflop_s"] = flops / (r["ms"] * 1e-3) / 1e12
         r["kernel_over_library"] = (None if r["library_ms"] is None
                                     else r["ms"] / r["library_ms"])
-        log(f"[flash] {name}: {json.dumps(r)}")
+        log(f"[{label}] {name}: {json.dumps(r)}")
         out[name] = r
     main = dict(out["prefill_chunk"])
     main["max_abs_err"] = max(o["max_abs_err"] for o in out.values())
@@ -3496,9 +3549,11 @@ def phase_telemetry(dev, eng, cfg, serve_toks, prompt, main_toks):
     return launches
 
 
-def _module(label, args, timeout):
+def _module(label, args, timeout, refused=None):
     """``python -m`` of a port entry point from the checkout's root, in
-    its own process; must exit 0.  Returns its standard output."""
+    its own process; must exit 0, or with ``refused`` (a regular
+    expression) exit non-zero with a message that matches it.  Returns
+    its standard output."""
     root = Path(__file__).resolve().parent
     env = dict(__import__("os").environ, PYTHONPATH=str(root / "src"))
     t0 = time.perf_counter()
@@ -3509,6 +3564,12 @@ def _module(label, args, timeout):
                       if not ln.startswith(("[step ", "step ")))
     log(f"[cli] python -m {' '.join(args)}: exit {r.returncode} in {wall:.1f} s\n"
         f"{lines}")
+    if refused is not None:
+        said = (r.stdout + r.stderr).strip().splitlines()[-1:]
+        log(f"[cli] refusal: {said}")
+        if r.returncode == 0 or not re.search(refused, r.stdout + r.stderr):
+            fail(f"[cli] python -m {args[0]} was not refused as {refused!r}")
+        return r.stdout
     if r.returncode != 0:
         log(r.stderr[-4000:])
         fail(f"[cli] python -m {args[0]} exited {r.returncode}")
@@ -3537,6 +3598,20 @@ def phase_cli(dev):
         fail("[cli] the 32-layer offload run did not serve its two prompts "
              "at the published width")
     _schema_check("cli", m, t)
+    # the config zoo by --arch, as published: granite on the packed plane,
+    # smollm served continuously, command-r-plus refused for its size
+    out = _module("cli", ["repro_torch.launch.serve", "--arch",
+                          "granite-moe-1b-a400m", "--offload", "--quantize",
+                          "--max-new", "8"], timeout=300)
+    if len(re.findall(r"^gen: ", out, re.M)) != 2:
+        fail("[cli] granite did not serve its two prompts")
+    out = _module("cli", ["repro_torch.launch.serve", "--arch", "smollm-360m",
+                          "--continuous", "--max-new", "8"], timeout=300)
+    if "[continuous] 12 requests" not in out:
+        fail("[cli] smollm's continuous run did not finish its 12 requests")
+    _module("cli", ["repro_torch.launch.serve", "--arch", "command-r-plus-104b",
+                    "--continuous"], timeout=120,
+            refused=r"needs [0-9.]+ GB of device memory .* GB free")
     ck = out_dir / "tiny_moe.npz"
     _module("cli", ["repro_torch.launch.train", "--arch", "tiny-moe",
                     "--steps", "20", "--checkpoint", str(ck)], timeout=300)
@@ -3620,6 +3695,319 @@ def phase_f4(dev):
 
 
 # ----------------------------------------------------------------------
+# the attention-only config zoo
+ZOO_ARCHS = ("granite-moe-1b-a400m", "smollm-360m", "stablelm-1.6b",
+             "qwen1.5-4b", "command-r-plus-104b", "phi-3-vision-4.2b")
+ZOO_LAYERS = {"command-r-plus-104b": 8}  # of 64: ~31 GB of bf16 weights
+# granite at its published expert count, top-k and offload spec, widths cut
+# by hand (reduced() would give 4 experts and top-2, below its cache of 8)
+GRANITE_NARROW = dict(n_layers=2, d_model=128, n_heads=2, n_kv_heads=1,
+                      head_dim=64, d_ff=64, vocab_size=512, dtype="float32")
+# tail layers (3 of a 2-layer pattern, a dense geglu tail after an MoE
+# period) on tiny-moe; a logit softcap with a padded vocabulary on smollm
+ZOO_TAIL = dict(n_layers=3, block_pattern=("attn+mlp", "swa+moe"),
+                mlp_act="geglu", d_model=128, d_ff=128)
+ZOO_SOFTCAP = dict(logit_softcap=5.0, vocab_size=500)
+# phi-3 at its head_dim 96 (2 heads x 96), and the published GQA ratios 3
+# (smollm) and 12 (command-r-plus), which reduced() makes 64 and 4
+ZOO_NARROW = {
+    "phi3-hd96": ("phi-3-vision-4.2b", False,
+                  dict(n_layers=2, d_model=192, n_heads=2, n_kv_heads=2,
+                       head_dim=96, d_ff=256, vocab_size=512,
+                       num_image_tokens=4, dtype="float32")),
+    "gqa3": ("smollm-360m", True, dict(n_heads=6, n_kv_heads=2, head_dim=32)),
+    "gqa12": ("command-r-plus-104b", True,
+              dict(n_heads=12, n_kv_heads=1, head_dim=32)),
+}
+PHI3_HEADS = (32, 32, 96)  # phi-3-vision: H, Hkv, head_dim
+PHI3_FLASH = (("prefill_chunk", PROMPT_LEN, PROMPT_LEN, 0, None),)
+PHI3_RAGGED = (("decode", [64, 300, 1500, 4000], 1),)
+
+
+class _PlainKernels:
+    """Within it every kernel binding of ``kernels.ops`` runs its plain
+    PyTorch version whatever the device: the same model on the card with
+    no kernel, to hold a kernel run to."""
+
+    NAMES = ("dequant_matmul", "dequant_matmul_batched", "dequant_matmul_slots",
+             "flash_attention", "ragged_attention")
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as FA, ops, ref
+        from repro_torch.kernels import ragged_attention as RA
+        self.ops, self.saved = ops, {n: getattr(ops, n) for n in self.NAMES}
+        ops.dequant_matmul = ref.dequant_matmul
+        ops.dequant_matmul_batched = lambda x, qt, offsets=None: (
+            ref.dequant_matmul_batched(x, qt) if offsets is None
+            else ref.dequant_matmul_grouped(x, qt, offsets))
+        ops.dequant_matmul_slots = ref.dequant_matmul_slots
+        ops.flash_attention = FA.flash_attention_reference
+        ops.ragged_attention = lambda q, kp, vp, ppos, pages, qpos, *, window=None, \
+            worklist=None: RA.ragged_attention_reference(q, kp, vp, ppos, pages, qpos,
+                                                         window=window)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.ops, n, fn)
+
+
+def _zoo_config(name):
+    """A ``[zoo-parity]`` config: a zoo name reduced, or ``granite-32x8``,
+    ``tail``, ``softcap``."""
+    from repro_torch.configs import get_config
+    if name == "granite-32x8":
+        return get_config("granite-moe-1b-a400m").replace(**GRANITE_NARROW)
+    if name == "tail":
+        return get_config("tiny-moe").replace(**ZOO_TAIL)
+    if name == "softcap":
+        return get_config("smollm-360m").reduced().replace(**ZOO_SOFTCAP)
+    if name in ZOO_NARROW:
+        base, reduce, kw = ZOO_NARROW[name]
+        cfg = get_config(base)
+        return (cfg.reduced() if reduce else cfg).replace(**kw)
+    return get_config(name).reduced()
+
+
+def _random_norms(params, seed):
+    """Random norm scales and biases and attention biases (the init makes
+    them 1 and 0, which would hide a missing term)."""
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+
+    def walk(t, key=None):
+        if isinstance(t, dict):
+            return {k: walk(v, k) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v) for v in t]
+        z = torch.randn(t.shape, generator=gen).to(t.dtype)
+        if key == "scale":
+            return 1 + 0.2 * z
+        if key in ("bias", "bq", "bk", "bv", "bo"):
+            return 0.2 * z
+        return t
+    return walk(params)
+
+
+def phase_zoo_parity(dev):
+    """The six attention-only zoo configs at ``reduced()`` size in f32,
+    card (kernels) against CPU (plain versions), weights from seed 0 with
+    random norm scales and biases: ``generate_plain``, ``ContinuousEngine``
+    on the plain plane on ``paged`` and ``dense_chunked`` (4 requests
+    through 2 slots); granite kept at 32 experts / top-8 / cache 8 through
+    ``OffloadEngine`` on ``packed_pipelined``; a tail-layer config (also
+    packed), a softcap config, and phi-3 at head_dim 96 and the GQA
+    ratios 3 and 12 (reduced() makes them 64 and 4).  Tokens, emit steps
+    and counters exactly equal.  Returns the card's launches."""
+    from repro_torch.core.offload_engine import (OffloadEngine, generate_plain,
+                                                 quantize_for_offload)
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    t0 = time.perf_counter()
+    total = {}
+    for name in ZOO_ARCHS + ("granite-32x8", "tail", "softcap") + tuple(ZOO_NARROW):
+        cfg = _zoo_config(name)
+        params = _random_norms(T.init_model(cfg, seed=0, device="cpu"), 1)
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(1, cfg.vocab_size, n) for n in (6, 11, 8, 14)]
+        news = (8, 5, 7, 4)
+        runs = {}
+        for where in ("cpu", dev):
+            ops.reset_launches()
+            p = _to(params, where)
+            r = {}
+            if name != "granite-32x8":
+                r["generate_plain"] = generate_plain(
+                    p, cfg, prompts[1][None], 8, device=where).tolist()
+            if name not in ("granite-32x8", "tail"):
+                for variant, kw in (("paged", {}),
+                                    ("dense_chunked", dict(kv_page=None,
+                                                           prefill_chunk=4))):
+                    _, toks, steps, _ = _serve(None, cfg, prompts, news,
+                                               max_slots=2, slot_len=64,
+                                               params=p, device=where, **kw)
+                    r[variant] = (toks, steps)
+            if name in ("granite-32x8", "tail"):
+                exec_params, _, store = quantize_for_offload(
+                    params, cfg, cfg.offload, pack_experts=True, device="cpu")
+                eng = OffloadEngine(_to(exec_params, where), cfg, cfg.offload,
+                                    quantized=True, device=where,
+                                    store=store if where == "cpu"
+                                    else _cpu_store_to(store, where))
+                toks, stats = eng.generate(prompts[1][None], 12)
+                r["packed_pipelined"] = (toks.tolist(), dataclasses.asdict(stats))
+            runs[str(where)] = r
+            if where != "cpu":
+                _add(total, ops.launches())
+        card, cpu = runs[str(dev)], runs["cpu"]
+        log(f"[zoo-parity] {name} ({cfg.n_layers} layers, d {cfg.d_model}, "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} x {cfg.head_dim}): card == cpu "
+            f"{card == cpu} on {sorted(card)}")
+        if card != cpu:
+            fail(f"[zoo-parity] {name}: the card differs from the CPU: "
+                 f"{card} vs {cpu}")
+    log(f"[zoo-parity] card launches {total}; {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+def _zoo_requests(cfg):
+    """``[serve]``'s 8 requests (prompts of 24-96 tokens, seed 0) at
+    ``cfg``'s vocabulary."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(24, 97, SERVE_REQUESTS)
+    return [rng.integers(0, cfg.vocab_size, n) for n in lens], \
+        [SERVE_NEW] * SERVE_REQUESTS
+
+
+def _zoo_serve(label, eng, cfg, params, dev):
+    """``[serve]``'s 8 requests through 4 slots on pages of 16, on the
+    packed engine ``eng`` or the plain plane over ``params``: a warm-up,
+    the timed run (launches, routes, peak memory), then a kernel run and
+    a plain-version run of the first 4 requests traced and held to the
+    near-tie rule.  Returns (report, launches)."""
+    import torch
+    from repro_torch.kernels import ops
+    prompts, news = _zoo_requests(cfg)
+    kw = dict(max_slots=SERVE_SLOTS, slot_len=256, params=params, device=dev)
+    _serve(eng, cfg, prompts[:2], [3, 3], **kw)  # warm-up
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    before = _routes()
+    t = time.perf_counter()
+    ce, toks, steps, calls = _serve(eng, cfg, prompts, news, **kw)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t
+    launches, routes = ops.launches(), _routes_since(before)
+    n_tok = sum(len(x) for x in toks)
+    report = {"tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+              "steps": ce.step_count, "decode_steps": calls["decode"],
+              "admission_chunks": calls["chunks"],
+              "admission_s": calls["chunk_s"], "decode_s": calls["decode_s"],
+              "launches": launches, "routes": {k: v for k, v in routes.items() if v},
+              "peak_device_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    expect = cfg.n_layers * (calls["decode"] + calls["chunks"])
+    if eng is not None:
+        st = ce._pstate
+        report.update(hits=int(st.counts[0]), demand_loads=int(st.counts[2]),
+                      bytes_h2d_issued=st.h2d_bytes,
+                      bytes_h2d_counters=(int(st.counts[2]) + int(st.counts[3]))
+                      * eng.expert_bytes)
+        if st.h2d_bytes != report["bytes_h2d_counters"]:
+            fail(f"[zoo] {label}: h2d bytes issued != counters: {report}")
+    log(f"[zoo] {label} serving {SERVE_REQUESTS} requests / {SERVE_SLOTS} slots: "
+        f"{json.dumps(report)}")
+    if (launches["ragged_attention"] != expect or routes["ragged_mma"] != expect
+            or any(len(x) != SERVE_NEW or not all(0 <= y < cfg.vocab_size for y in x)
+                   for x in toks)):
+        fail(f"[zoo] {label}: {expect} ragged launches on mma expected, or "
+             f"malformed tokens: {report}")
+    # the near-tie hold on the first 4 requests, 12 new tokens each
+    held = (prompts[:SERVE_SLOTS], [12] * SERVE_SLOTS)
+    kern = _trace(lambda d: _serve(eng, cfg, *held, on_engine=d.watch, **kw))
+    with _PlainKernels():
+        plain = _trace(lambda d: _serve(eng, cfg, *held, on_engine=d.watch, **kw))
+    diff = _hold_to_near_tie(f"zoo] [{label} kernels vs plain", kern[0], plain[0],
+                             ("kernels", "plain"))
+    if diff is None and kern[1][1] != plain[1][1]:
+        fail(f"[zoo] {label}: every decision equal but the tokens differ")
+    return report, launches
+
+
+def phase_zoo(dev):
+    """The six attention-only zoo configs at their published widths in
+    bf16, random weights from seed 0: granite (24 layers) batch 1 through
+    ``OffloadEngine`` on ``packed_pipelined`` (64-token prompt, 32 new
+    tokens) and served on its packed pool; smollm, stablelm, qwen and
+    phi-3 at full depth and command-r-plus at 8 of 64 layers served on
+    the plain plane; ``[serve]``'s 8 requests through 4 slots on pages of
+    16.  Each run held to the plain versions on the card by the near-tie
+    rule (over the first 16 tokens at batch 1, the first 4 requests' 12
+    tokens served).  Returns the launches."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import expert_pool as EP
+    from repro_torch.core.offload_engine import OffloadEngine, init_packed_model
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    total = {}
+    cfg = get_config("granite-moe-1b-a400m")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params, size, store = init_packed_model(cfg, cfg.offload, seed=0, device=dev)
+    eng = OffloadEngine(params, cfg, cfg.offload, quantized=True, store=store,
+                        device=dev)
+    torch.cuda.synchronize(dev)
+    setup = time.perf_counter() - t0
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, (1, PROMPT_LEN))
+    eng.generate(prompt[:, :8], 3)  # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launches()
+    before = _routes()
+    toks, stats = eng.generate(prompt, NEW_TOKENS)
+    launches, routes = ops.launches(), _routes_since(before)
+    _add(total, launches)
+    timing, ps = eng.last_timing, eng._last_pool_state
+    steps = timing["decode_steps"]
+    L = eng.n_moe_layers
+    expect = {"dequant_matmul": 0, "dequant_matmul_batched": 3 * L,
+              "dequant_matmul_slots": 3 * L * steps,
+              "flash_attention": cfg.n_layers, "ragged_attention": 0}
+    accesses = stats.hits + stats.spec_hits + stats.demand_loads
+    report = {"layers": cfg.n_layers, "setup_s": setup,
+              "store_gib": store.nbytes() / 2**30, "size_report": size,
+              "prefill_s": timing["prefill_s"],
+              "decode_tok_s": steps / timing["decode_s"],
+              "hit_ratio": (stats.hits + stats.spec_hits) / max(1, accesses),
+              "stats": {k: getattr(stats, k) for k in
+                        ("n_tokens", "hits", "spec_hits", "demand_loads",
+                         "spec_loads")},
+              "h2d_bytes_per_token": stats.bytes_h2d / max(1, steps),
+              "bytes_h2d_issued": ps.h2d_bytes, "bytes_h2d_counters": stats.bytes_h2d,
+              "launches": launches, "launches_expected": expect,
+              "routes": {k: v for k, v in routes.items() if v},
+              "peak_device_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+              "tokens": toks[0].tolist()}
+    log(f"[zoo] granite-moe-1b-a400m batch 1, packed_pipelined: {json.dumps(report)}")
+    if (launches != expect or routes["dequant_gemv"] != expect["dequant_matmul_slots"]
+            or routes["grouped_grouped"] != expect["dequant_matmul_batched"]
+            or ps.h2d_bytes != stats.bytes_h2d or not EP.pool_coherent(store, ps)):
+        fail(f"[zoo] granite batch 1: launches / routes / h2d / pool: {report}")
+    held = NEW_TOKENS // 2  # the near-tie hold's length
+    kern = _trace(lambda d: d.watch(eng).generate(prompt, held))
+    with _PlainKernels():
+        plain = _trace(lambda d: d.watch(eng).generate(prompt, held))
+    diff = _hold_to_near_tie("zoo] [granite batch 1 kernels vs plain", kern[0],
+                             plain[0], ("kernels", "plain"))
+    if diff is None and not (kern[1][0] == plain[1][0]).all():
+        fail("[zoo] granite batch 1: every decision equal but the tokens differ")
+    _, launches = _zoo_serve("granite-moe-1b-a400m packed", eng, cfg, None, dev)
+    _add(total, launches)
+    del eng, params, store
+    for arch in ZOO_ARCHS[1:]:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_config(arch)
+        if arch in ZOO_LAYERS:
+            cfg = cfg.replace(n_layers=ZOO_LAYERS[arch])
+        t0 = time.perf_counter()
+        params = T.init_model(cfg, seed=0, device=dev)
+        torch.cuda.synchronize(dev)
+        n = T.count_params_analytic(cfg)
+        log(f"[zoo] {arch}: {cfg.n_layers} layers, d {cfg.d_model}, "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim}, {n / 1e9:.2f}B "
+            f"parameters ({n * 2 / 2**30:.1f} GiB bf16) drawn in "
+            f"{time.perf_counter() - t0:.1f} s")
+        _, launches = _zoo_serve(f"{arch} plain", None, cfg, params, dev)
+        _add(total, launches)
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+# ----------------------------------------------------------------------
 def main():
     card = phase_device()
     import torch
@@ -3627,6 +4015,13 @@ def main():
     kern, tiers, flush = phase_kernels(dev)
     kern["ragged_attention"] = phase_ragged_kernel(dev, flush)
     kern["flash_attention"], _ = phase_flash(dev, flush)
+    # phi-3-vision's attention (head_dim 96, MHA): the instances added for it
+    phi3_ragged = phase_ragged_kernel(dev, flush, heads=PHI3_HEADS, cases=PHI3_RAGGED,
+                                      window=None, label="ragged-hd96")
+    phi3_flash, _ = phase_flash(dev, flush, heads=PHI3_HEADS, cases=PHI3_FLASH,
+                                label="flash-hd96")
+    for name, r in (("ragged_attention", phi3_ragged), ("flash_attention", phi3_flash)):
+        kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"], r["max_abs_err"])
     phase_parity(dev)
     phase_continuous_parity(dev)
     phase_plain_parity(dev)
@@ -3636,6 +4031,7 @@ def main():
     phase_spec_parity(dev)
     item5 = phase_item5_parity(dev)
     _add(item5, phase_f4(dev))
+    _add(item5, phase_zoo_parity(dev))
     phase_train(dev)
     launches, batches, eng, cfg, prompt, main_run, main_report = phase_main(dev)
     # the host-bound decode runs come before any profiler window
@@ -3669,7 +4065,10 @@ def main():
         launches[name] += n
     _add(item7, phase_attention_bench(dev))
     del eng
+    zoo = phase_zoo(dev)
     phase_cli(dev)
+    for name in launches:  # [zoo-parity], [zoo]
+        launches[name] += zoo.get(name, 0)
     for name in ("ragged_attention", "flash_attention", "dequant_matmul_slots",
                  "dequant_matmul_batched"):
         launches[name] += serve_extra.get(name, 0)

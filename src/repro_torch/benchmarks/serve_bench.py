@@ -58,7 +58,8 @@ card's smoke script and the CPU tests call) beside the ``run_*`` that
 times it; 5, 7 and 8 apply the reference's wall-clock floor in a
 ``check_*`` function.
 
-The reference's ``zoo`` scenario is not ported (ROADMAP queue 1 item 6):
+The reference's ``zoo`` scenario is not ported (ROADMAP queue 1 item 6,
+sub-item 5: its workload is ``xlstm-1.3b``, whose mixers are sub-item 3):
 it raises.
 """
 from __future__ import annotations

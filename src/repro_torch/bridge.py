@@ -3,7 +3,8 @@ the reference's layout, both ways.
 
 The reference keeps each block-pattern position's parameters stacked over
 periods (``params["stack"][pos]``, leading axis = period, for
-``lax.scan``); the port keeps one dict per layer.  The packed expert store
+``lax.scan``) and the layers past the last whole period unstacked in
+``params["tail"]``; the port keeps one dict per layer.  The packed expert store
 arrives as the reference's per-matrix leaves, ``(L_moe, E, ...)``, and is
 rebuilt into the port's one-record-per-(layer, expert) store, bit for bit.
 The caller converts its arrays to numpy; nothing here imports the
@@ -36,26 +37,28 @@ def _to_torch(tree, device):
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device=None):
     """The reference's parameter tree (numpy leaves) -> the port's layout:
     ``stack[l % period]`` sliced at period ``l // period`` becomes
-    ``layers[l]``.  Every other leaf carries across as it is: attention,
-    the dense ``mlp`` of ``attn+mlp``/``swa+mlp`` blocks, and the dense
-    expert stacks of a non-packed tree (what the plain plane and
-    accounting mode compute with).  Zero-size leaves (the reference's
+    ``layers[l]`` for the layers of whole periods, and ``tail[i]`` (an
+    unstacked block) becomes ``layers[n_periods * period + i]``.  Every
+    other leaf carries across as it is: attention and its biases, norms,
+    the dense ``mlp`` of ``attn+mlp``/``swa+mlp`` blocks, ``img_proj``,
+    and the dense expert stacks of a non-packed tree (what the plain plane
+    and accounting mode compute with).  Zero-size leaves (the reference's
     placeholders for packed experts) are dropped."""
     dev = resolve_device(device)
-    if cfg.n_tail_layers:
-        raise NotImplementedError("tail layers are not ported")
     period = cfg.pattern_period
 
-    def take(t, per):
+    def take(t, per=None):
         if isinstance(t, dict):
             out = {k: take(v, per) for k, v in t.items()}
             return {k: v for k, v in out.items() if v is not None and
                     not (isinstance(v, dict) and not v)}
-        a = np.asarray(t)[per]
+        a = np.asarray(t) if per is None else np.asarray(t)[per]
         return None if a.size == 0 else a
 
     layers = [take(tree["stack"][l % period], l // period)
-              for l in range(cfg.n_layers)]
+              for l in range(cfg.n_periods * period)]
+    layers += [take(blk) for blk in tree["tail"]]
+    assert len(layers) == cfg.n_layers, (len(layers), cfg.n_layers)
     out = {k: v for k, v in tree.items() if k not in ("stack", "tail")}
     out["layers"] = layers
     return _to_torch(out, dev)
@@ -63,13 +66,13 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device=None):
 
 def params_to_numpy(params, cfg: ModelConfig) -> Dict[str, Any]:
     """The inverse of :func:`params_from_numpy`: the port's ``layers[l]``
-    re-stacked into the reference's ``stack[l % period]`` with a leading
-    period axis (``tail`` empty), every leaf a numpy array on the host.
-    bfloat16 leaves come out as float32 (numpy has no bfloat16; the
-    widening is exact and a reader casts back to its own dtype)."""
-    if cfg.n_tail_layers:
-        raise NotImplementedError("tail layers are not ported")
+    of whole periods re-stacked into the reference's ``stack[l % period]``
+    with a leading period axis, the tail layers as the unstacked blocks of
+    ``tail``, every leaf a numpy array on the host.  bfloat16 leaves come
+    out as float32 (numpy has no bfloat16; the widening is exact and a
+    reader casts back to its own dtype)."""
     period = cfg.pattern_period
+    n_body = cfg.n_periods * period
 
     def host(t):
         t = t.detach().cpu()
@@ -82,8 +85,10 @@ def params_to_numpy(params, cfg: ModelConfig) -> Dict[str, Any]:
 
     out = {k: hqq.tree_map(host, v) for k, v in params.items()
            if k != "layers"}
-    out["stack"] = [stack(params["layers"][i::period]) for i in range(period)]
-    out["tail"] = []
+    out["stack"] = [stack(params["layers"][i:n_body:period])
+                    for i in range(period)]
+    out["tail"] = [hqq.tree_map(host, blk)
+                   for blk in params["layers"][n_body:]]
     return out
 
 

@@ -66,10 +66,12 @@ def restore(path: str, cfg: ModelConfig, device=None) -> Dict[str, Any]:
     with np.load(path, allow_pickle=False) as z:
         flat = {k: z[k] for k in z.files if k != "__meta__"}
     period = cfg.pattern_period
+    n_body = cfg.n_periods * period
     specs = T.param_specs(cfg)
     want = {k: v for k, v in specs.items() if k != "layers"}
-    want["stack"] = [_stack_specs(specs["layers"][i::period])
+    want["stack"] = [_stack_specs(specs["layers"][i:n_body:period])
                      for i in range(period)]
+    want["tail"] = specs["layers"][n_body:]
 
     def rebuild(tmpl, prefix=""):
         if isinstance(tmpl, dict):

@@ -1,7 +1,10 @@
-"""Config registry of the port: ``get_config(name)``, ``list_archs()``."""
+"""Config registry of the port: ``get_config(name)``, ``list_archs()``,
+and the reference's ``ASSIGNED_ARCHS``, ``SWA_FOR_LONG`` and
+``config_for_shape``."""
 from __future__ import annotations
 
 import importlib
+from typing import List
 
 from repro_torch.configs.base import (  # noqa: F401  (re-exports)
     ModelConfig,
@@ -11,33 +14,70 @@ from repro_torch.configs.base import (  # noqa: F401  (re-exports)
 )
 
 _MODULES = {
+    "smollm-360m": "repro_torch.configs.smollm_360m",
+    "command-r-plus-104b": "repro_torch.configs.command_r_plus_104b",
+    "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b_a400m",
+    "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
+    "phi-3-vision-4.2b": "repro_torch.configs.phi_3_vision_4_2b",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
+    "qwen1.5-4b": "repro_torch.configs.qwen1_5_4b",
+    "mixtral-offload": "repro_torch.configs.mixtral_offload",
     "tiny-moe": "repro_torch.configs.tiny_moe",
     "tiny-draft": "repro_torch.configs.tiny_draft",
-    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
-    "mixtral-offload": "repro_torch.configs.mixtral_offload",
+}
+
+# the reference's zoo names whose mixers the port lacks, with the ROADMAP
+# queue 1 sub-item of item 6 that ports them
+UNPORTED = {
+    "recurrentgemma-9b": "item 6, sub-item 3 (RG-LRU, models/recurrent.py)",
+    "xlstm-1.3b": "item 6, sub-item 3 (mLSTM and sLSTM, models/recurrent.py)",
+    "whisper-medium": "item 6, sub-item 4 (the encoder-decoder)",
+}
+
+ASSIGNED_ARCHS: List[str] = [
+    "smollm-360m",
+    "recurrentgemma-9b",
+    "command-r-plus-104b",
+    "granite-moe-1b-a400m",
+    "stablelm-1.6b",
+    "whisper-medium",
+    "phi-3-vision-4.2b",
+    "mixtral-8x7b",
+    "xlstm-1.3b",
+    "qwen1.5-4b",
+]
+
+# Dense full-attention archs run long_500k via their sliding-window variant
+SWA_FOR_LONG = {
+    "smollm-360m",
+    "command-r-plus-104b",
+    "stablelm-1.6b",
+    "qwen1.5-4b",
+    "phi-3-vision-4.2b",
 }
 
 
-# the rest of the reference's registry: its config zoo, which the port
-# does not run yet (ROADMAP queue 1, item 6)
-ZOO = ("command-r-plus-104b", "granite-moe-1b-a400m", "phi-3-vision-4.2b",
-       "qwen1.5-4b", "recurrentgemma-9b", "smollm-360m", "stablelm-1.6b",
-       "whisper-medium", "xlstm-1.3b")
-
-
-def list_archs():
+def list_archs() -> List[str]:
     """Every name of the reference's registry, sorted (what the launchers
-    accept); :func:`get_config` serves the port's own and refuses the
-    zoo's."""
-    return sorted(set(_MODULES) | set(ZOO))
+    accept); :func:`get_config` serves the port's own and refuses
+    :data:`UNPORTED`."""
+    return sorted(set(_MODULES) | set(UNPORTED))
 
 
 def get_config(name: str) -> ModelConfig:
-    if name in ZOO:
+    if name in UNPORTED:
         raise NotImplementedError(
-            f"{name} is in the reference's config zoo, which the port does "
-            f"not run yet (ROADMAP queue 1, item 6); the port runs "
-            f"{sorted(_MODULES)}")
+            f"{name} needs a mixer the port does not run yet (ROADMAP queue "
+            f"1, {UNPORTED[name]}); the port runs {sorted(_MODULES)}")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(_MODULES)}")
     return importlib.import_module(_MODULES[name]).CONFIG
+
+
+def config_for_shape(arch: str, shape_name: str) -> ModelConfig:
+    """Config actually used for a given input shape (applies the SWA
+    variant for ``long_500k``)."""
+    cfg = get_config(arch)
+    if shape_name == "long_500k" and arch in SWA_FOR_LONG:
+        cfg = cfg.with_sliding_window(4096)
+    return cfg

@@ -136,6 +136,13 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    def with_sliding_window(self, window: int = 4096) -> "ModelConfig":
+        """SWA variant used for long_500k on otherwise-full-attention archs."""
+        pattern = tuple(k.replace("attn+", "swa+") if k.startswith("attn+")
+                        else k for k in self.block_pattern)
+        return self.replace(block_pattern=pattern, sliding_window=window,
+                            name=self.name + "-swa")
+
     def reduced(self) -> "ModelConfig":
         """CPU-smoke variant: same family, tiny dims (the reference's
         ``ModelConfig.reduced``)."""

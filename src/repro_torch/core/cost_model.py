@@ -23,9 +23,11 @@ from dataclasses import dataclass
 from typing import Dict
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ModelConfig, parse_block
 from repro_torch.core.lru_cache import PyLRU
+from repro_torch.models.transformer import count_params_analytic
 
 # bits/param including group scale/zero + meta-quant overhead (what
 # quant/hqq.bits_per_param gives on the paper's group-size schemes)
@@ -96,11 +98,39 @@ def active_param_bytes(cfg: ModelConfig, expert_bits: int,
             + dense * EFFECTIVE_BITS[attn_bits] / 8.0)
 
 
+def resident_bytes(cfg: ModelConfig, *, packed: bool = False,
+                   training: bool = False) -> int:
+    """Device bytes a run keeps for its parameters: every leaf of
+    ``init_model`` in the model dtype, less the experts when they live
+    packed in the host store (``packed``); with ``training`` also the
+    gradients in the model dtype and AdamW's two float32 moments."""
+    n = count_params_analytic(cfg)
+    if packed and cfg.moe is not None:
+        n -= cfg.moe_layer_count * cfg.moe.num_experts * expert_param_count(cfg)
+    item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    return n * (2 * item + 8 if training else item)
+
+
+def check_fits(need: int, what: str, dev) -> None:
+    """Refuse (SystemExit) a run whose ``need`` bytes exceed the card's
+    free memory, instead of running out of it part way; the CPU is not
+    checked."""
+    if dev.type != "cuda":
+        return
+    free = torch.cuda.mem_get_info(dev)[0]
+    if need > free:
+        raise SystemExit(
+            f"{what} needs {need / 1e9:.1f} GB of device memory and "
+            f"{torch.cuda.get_device_name(dev)} has {free / 1e9:.1f} GB "
+            f"free: it does not fit on one card")
+
+
 def recurrent_state_bytes(cfg: ModelConfig) -> int:
     """Recurrent decode state of one sequence.  The port runs attention
-    blocks only (``transformer.BLOCK_KINDS``), which keep no recurrent
-    state, so this is 0; the reference's RG-LRU/mLSTM/sLSTM terms come
-    with those mixers (ROADMAP queue 1, item 6)."""
+    blocks only (``transformer.BLOCK_KINDS``: the config zoo's attention
+    half too), which keep no recurrent state, so this is 0; the
+    reference's RG-LRU/mLSTM/sLSTM terms come with those mixers (ROADMAP
+    queue 1, item 6, sub-item 3)."""
     return 0
 
 

@@ -215,6 +215,9 @@ def moe_layers(cfg: ModelConfig) -> List[int]:
     """Absolute indices of the MoE layers, in execution order."""
     if cfg.moe is None:
         raise ValueError("packed store targets MoE architectures")
+    if any(parse_block(k)[1] == "moe" for k in cfg.tail_kinds()):
+        raise ValueError("packed offloading supports fully-scanned MoE "
+                         "stacks (no MoE tail layers)")
     return [l for l, k in enumerate(cfg.layer_kinds())
             if parse_block(k)[1] == "moe"]
 

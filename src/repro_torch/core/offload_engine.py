@@ -175,7 +175,9 @@ def quantize_for_offload(params, cfg: ModelConfig, spec: OffloadSpec, *,
     (periods, D * H * hd) matrices (so they stay 16-bit unless the period
     count is a multiple of the group size), ``wo`` as one (periods * H *
     hd, D) matrix, dense-MLP weights and experts matrix by matrix; a
-    matrix whose K the group size does not divide stays as it is.
+    matrix whose K the group size does not divide stays as it is.  A tail
+    layer's leaves are quantized one by one in their own shape (``wq`` as
+    (D, H * hd)), as the reference's unstacked ``tail`` blocks are.
 
     Returns ``(exec_params, size_report)`` with every quantized weight
     dequantized back to dense in the model dtype (the parity oracle of
@@ -213,11 +215,13 @@ def quantize_for_offload(params, cfg: ModelConfig, spec: OffloadSpec, *,
             mat = stacked
         return quant(stacked, mat, spec.attn_bits, "attn")
 
-    def walk(blocks, path=()):
+    def walk(blocks, path=(), stacked=True):
         """The leaves at ``path`` of every block of one pattern position
-        (one per period) -> their quantized counterparts."""
+        (one per period, quantized as one stacked leaf), or of one tail
+        block (``stacked=False``: a leaf in its own shape, as the
+        reference keeps its tail) -> their quantized counterparts."""
         if isinstance(blocks[0], dict):
-            out = {k: walk([b[k] for b in blocks], path + (k,))
+            out = {k: walk([b[k] for b in blocks], path + (k,), stacked)
                    for k in blocks[0]}
             out = {k: v for k, v in out.items() if v is not None}
             return [{k: v[i] for k, v in out.items()}
@@ -228,15 +232,20 @@ def quantize_for_offload(params, cfg: ModelConfig, spec: OffloadSpec, *,
             return [quant(w, w.reshape(-1, *w.shape[-2:]), spec.expert_bits,
                           "experts") for w in blocks]
         if path[-1] in _SHARED:
+            if not stacked:
+                return [shared(path[-1], blocks[0])]
             return list(shared(path[-1], torch.stack(blocks)).unbind(0))
         return [keep(w) for w in blocks]
 
     period = cfg.pattern_period
+    n_body = cfg.n_periods * period
     layers = [None] * cfg.n_layers
     for i in range(period):
-        idx = list(range(i, cfg.n_layers, period))
+        idx = list(range(i, n_body, period))
         for l, lp in zip(idx, walk([params["layers"][l] for l in idx])):
             layers[l] = lp
+    for l in range(n_body, cfg.n_layers):
+        layers[l] = walk([params["layers"][l]], stacked=False)[0]
     exec_params = {k: hqq.tree_map(keep, v) for k, v in params.items()
                    if k != "layers"}
     exec_params["layers"] = layers

@@ -32,7 +32,7 @@
 // tiles are issued longest-first, so the causal grid's long rows start early.
 //
 // Two instances of that design:
-//  * bfloat16, head_dim 64 or 128, 16-byte aligned rows (the model's case),
+//  * bfloat16, head_dim 64, 96 or 128, 16-byte aligned rows (the model's case),
 //    namespace tc, on the tensor cores through warpgroup wgmma.  A block owns
 //    (query tile, KV head, batch) and stacks the G query heads of its KV head
 //    as its rows (4 heads x 32 positions = 128 rows for Mixtral), so each
@@ -50,6 +50,9 @@
 //    128-row blocks would not fill the card, runs 64-row blocks.  Still
 //    simple: no ping-pong schedule between the warpgroups, no overlap of a
 //    tile's softmax with its own products.
+//    head_dim 96 runs the 128 instance: the tensor maps zero-fill columns
+//    96 .. 127, which add exact zeros to Q K^T and give zero output columns
+//    that are not stored (a third more work than a 96-wide instance).
 //  * float32, unaligned bfloat16 or head_dim 32: float32 FMAs outside the tensor cores,
 //    the first version.  Tiles of Q (pre-scaled by log2(e) / sqrt(D)), K and
 //    V are staged in shared memory as float32; each of the 16 x 16 threads
@@ -284,6 +287,7 @@ int launch_d(const void* q, const void* k, const void* v, void* out, Strides qs,
   switch (D) {
     case 32: return launch<T, 32>(q, k, v, out, qs, ks, vs, os, B, H, G, Sq, Skv, causal, window, q_offset, stream);
     case 64: return launch<T, 64>(q, k, v, out, qs, ks, vs, os, B, H, G, Sq, Skv, causal, window, q_offset, stream);
+    case 96: return launch<T, 96>(q, k, v, out, qs, ks, vs, os, B, H, G, Sq, Skv, causal, window, q_offset, stream);
     case 128: return launch<T, 128>(q, k, v, out, qs, ks, vs, os, B, H, G, Sq, Skv, causal, window, q_offset, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -452,7 +456,7 @@ __global__ void __launch_bounds__(Cfg<D, NWG>::THREADS, 1)
 flash_wg_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
                 Strides os, int G, int Sq, int Skv, int causal, int window, int q_offset,
-                float smul) {
+                float smul, int dh) {
   using C = Cfg<D, NWG>;
   constexpr int ROWS = C::ROWS;
   extern __shared__ unsigned char smem_raw[];
@@ -619,8 +623,9 @@ flash_wg_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       __nv_bfloat16* ob = out + b * os.b + (hkv * G + hl) * os.h + static_cast<long long>(pos) * os.s;
 #pragma unroll
       for (int dn = 0; dn < D / 8; ++dn)
-        *reinterpret_cast<__nv_bfloat162*>(ob + dn * 8 + 2 * t) =
-            __floats2bfloat162_rn(o[4 * dn + 2 * r] * inv, o[4 * dn + 2 * r + 1] * inv);
+        if (dn * 8 < dh)  // the columns of the true head_dim (96 runs the 128 instance)
+          *reinterpret_cast<__nv_bfloat162*>(ob + dn * 8 + 2 * t) =
+              __floats2bfloat162_rn(o[4 * dn + 2 * r] * inv, o[4 * dn + 2 * r + 1] * inv);
     }
   }
 }
@@ -665,16 +670,18 @@ bool make_map(CUtensorMap* map, const void* ptr, int rank, const long long* dims
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// dh: the true head_dim (<= D); the tensor maps zero-fill columns dh .. D - 1,
+// which add exact zeros to Q.K^T and give zero output columns, not stored
 template <int D, int NWG>
 int launch(const void* q, const void* k, const void* v, void* out, Strides qs, Strides ks,
            Strides vs, Strides os, int B, int Hkv, int G, int Sq, int Skv, int causal, int window,
-           int q_offset, cudaStream_t stream) {
+           int q_offset, int dh, cudaStream_t stream) {
   using C = Cfg<D, NWG>;
   const int P = C::ROWS / G;
-  // q as (D, Sq, G, Hkv, B): a box is the P positions x G heads of a block
-  const long long qd[5] = {D, Sq, G, Hkv, B}, qst[4] = {qs.s, qs.h, qs.h * G, qs.b};
+  // q as (dh, Sq, G, Hkv, B): a box is the P positions x G heads of a block
+  const long long qd[5] = {dh, Sq, G, Hkv, B}, qst[4] = {qs.s, qs.h, qs.h * G, qs.b};
   const int qb[5] = {64, P, G, 1, 1};
-  const long long kd[4] = {D, Skv, Hkv, B}, kst[3] = {ks.s, ks.h, ks.b}, vst[3] = {vs.s, vs.h, vs.b};
+  const long long kd[4] = {dh, Skv, Hkv, B}, kst[3] = {ks.s, ks.h, ks.b}, vst[3] = {vs.s, vs.h, vs.b};
   const int kb[4] = {64, BK, 1, 1};
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, 5, qd, qst, qb) || !make_map(&tk, k, 4, kd, kst, kb) ||
@@ -687,7 +694,7 @@ int launch(const void* q, const void* k, const void* v, void* out, Strides qs, S
   const dim3 grid((Sq + P - 1) / P, Hkv, B);
   flash_wg_kernel<D, NWG><<<grid, C::THREADS, C::BYTES, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), os, G, Sq, Skv, causal, window, q_offset,
-      LOG2E / sqrtf(static_cast<float>(D)));
+      LOG2E / sqrtf(static_cast<float>(dh)), dh);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -696,14 +703,14 @@ int launch(const void* q, const void* k, const void* v, void* out, Strides qs, S
 template <int D>
 int launch_nwg(const void* q, const void* k, const void* v, void* out, Strides qs, Strides ks,
                Strides vs, Strides os, int B, int Hkv, int G, int Sq, int Skv, int causal,
-               int window, int q_offset, cudaStream_t stream) {
+               int window, int q_offset, int dh, cudaStream_t stream) {
   const long long blocks2 = static_cast<long long>((Sq + 128 / G - 1) / (128 / G)) * Hkv * B;
   if (blocks2 < 132)
-    return launch<D, 1>(q, k, v, out, qs, ks, vs, os, B, Hkv, G, Sq, Skv, causal, window, q_offset, stream);
-  return launch<D, 2>(q, k, v, out, qs, ks, vs, os, B, Hkv, G, Sq, Skv, causal, window, q_offset, stream);
+    return launch<D, 1>(q, k, v, out, qs, ks, vs, os, B, Hkv, G, Sq, Skv, causal, window, q_offset, dh, stream);
+  return launch<D, 2>(q, k, v, out, qs, ks, vs, os, B, Hkv, G, Sq, Skv, causal, window, q_offset, dh, stream);
 }
 
-// the wgmma instance: bfloat16 rows of 64 or 128, at most 64 query heads per
+// the wgmma instance: bfloat16 rows of 64, 96 or 128, at most 64 query heads per
 // KV head, and 16-byte rows (every base and every batch / head / row stride
 // a multiple of 8 bf16, as TMA and the paired output stores need)
 bool takes(int D, int G, const void* q, const void* k, const void* v, const void* out,
@@ -712,15 +719,16 @@ bool takes(int D, int G, const void* q, const void* k, const void* v, const void
                       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
   long long m = 0;
   for (const Strides& s : st) m |= s.b | s.h | s.s;
-  return (D == 64 || D == 128) && G <= 64 && p % 16 == 0 && m % 8 == 0;
+  return (D == 64 || D == 96 || D == 128) && G <= 64 && p % 16 == 0 && m % 8 == 0;
 }
 
 int launch_d(const void* q, const void* k, const void* v, void* out, Strides qs, Strides ks,
              Strides vs, Strides os, int B, int Hkv, int G, int Sq, int Skv, int D, int causal,
              int window, int q_offset, cudaStream_t stream) {
   if (D == 64)
-    return launch_nwg<64>(q, k, v, out, qs, ks, vs, os, B, Hkv, G, Sq, Skv, causal, window, q_offset, stream);
-  return launch_nwg<128>(q, k, v, out, qs, ks, vs, os, B, Hkv, G, Sq, Skv, causal, window, q_offset, stream);
+    return launch_nwg<64>(q, k, v, out, qs, ks, vs, os, B, Hkv, G, Sq, Skv, causal, window, q_offset, D, stream);
+  // 96 runs the 128 instance over zero-filled columns 96 .. 127
+  return launch_nwg<128>(q, k, v, out, qs, ks, vs, os, B, Hkv, G, Sq, Skv, causal, window, q_offset, D, stream);
 }
 
 }  // namespace tc

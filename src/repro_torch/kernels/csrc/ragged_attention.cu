@@ -41,9 +41,9 @@
 // before one online-softmax update per chunk.  Masking is per key, so pages
 // the window skip keeps are still masked inside.
 //
-// The binding's bfloat16 route (head_dim 64/128, pages of a multiple of 16
-// positions) runs csrc/ragged_mma.cu on the tensor cores; this kernel
-// serves float32, head_dim 32 and other page sizes.  Launches on the
+// The binding's bfloat16 route (head_dim 64/96/128, pages of a multiple of
+// 16 positions) runs csrc/ragged_mma.cu on the tensor cores; this kernel
+// serves float32, head_dim 32 and other page sizes (head_dim 32, 64, 96, 128).  Launches on the
 // caller's stream, allocates nothing (the caller passes the scratch), and
 // returns cudaGetLastError().
 #include <cuda_bf16.h>
@@ -323,6 +323,8 @@ int launch_typed(const void* q, const void* kp, const void* vp, const int* ppos,
     case 32: return launch_dpl<1, T>(qt, kt, vt, ppos, qpos, work, n_seg, part_acc, part_ml,
                                      ot, B, C, H, Hkv, ps, window, stream);
     case 64: return launch_dpl<2, T>(qt, kt, vt, ppos, qpos, work, n_seg, part_acc, part_ml,
+                                     ot, B, C, H, Hkv, ps, window, stream);
+    case 96: return launch_dpl<3, T>(qt, kt, vt, ppos, qpos, work, n_seg, part_acc, part_ml,
                                      ot, B, C, H, Hkv, ps, window, stream);
     case 128: return launch_dpl<4, T>(qt, kt, vt, ppos, qpos, work, n_seg, part_acc, part_ml,
                                       ot, B, C, H, Hkv, ps, window, stream);

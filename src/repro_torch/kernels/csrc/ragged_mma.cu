@@ -42,7 +42,9 @@
 //    segments' loads in flight; rows without work are zeroed by B extra
 //    blocks.  No combine pass.
 //
-// Scope: bfloat16, head_dim 64 or 128, page size a multiple of 16, G <= 64.
+// Scope: bfloat16, head_dim 64, 96 or 128, page size a multiple of 16, G <= 64
+// (at 96 a key row is 208 bytes: 13 16-byte units, odd, so ldmatrix stays
+// conflict-free; 6 k16 chunks of q.k, 12 n8 tiles of the output).
 // float32, head_dim 32 and other page sizes run csrc/ragged_attention.cu.
 // Launches on the caller's stream, allocates nothing (the caller passes
 // the scratch and the zeroed counters), and returns cudaGetLastError().
@@ -446,6 +448,8 @@ extern "C" int ragged_mma(const void* q, const void* kp, const void* vp, const i
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 64: return launch<64>(q, kp, vp, ppos, qpos, work, n_seg, part_acc, part_ml, counters,
+                               out, B, C, H, Hkv, ps, ct, ksplit, window, s);
+    case 96: return launch<96>(q, kp, vp, ppos, qpos, work, n_seg, part_acc, part_ml, counters,
                                out, B, C, H, Hkv, ps, ct, ksplit, window, s);
     case 128: return launch<128>(q, kp, vp, ppos, qpos, work, n_seg, part_acc, part_ml, counters,
                                  out, B, C, H, Hkv, ps, ct, ksplit, window, s);

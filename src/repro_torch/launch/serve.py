@@ -35,11 +35,15 @@ Width: on the CPU a config with ``d_model > 1024`` or a vocabulary over
 does on its host; on the card it is served as published, and the
 launcher says so.  A packed offload run without a checkpoint draws its
 weights one layer at a time (``offload_engine.init_packed_model``), so
-a model whose dense experts exceed the card's memory still starts.  The
-reference's config zoo is refused (ROADMAP queue 1, item 6).  Random
-weights come from ``--seed`` through the port's own generator, so the
-tokens equal the reference's only on shared weights: ``--checkpoint``
-reads the reference's checkpoint files.
+a model whose dense experts exceed the card's memory still starts.  A
+model whose resident weights exceed the card's free memory (a 64-layer
+``command-r-plus-104b``: ~208 GB in bf16) is refused with the bytes it
+needs and the bytes free (``cost_model.check_fits``); there is no
+layer-cut flag.  The zoo's recurrent and encoder-decoder configs are
+refused (ROADMAP queue 1, item 6, sub-items 3-4).  Random weights come
+from ``--seed`` through the port's own generator, so the tokens equal
+the reference's only on shared weights: ``--checkpoint`` reads the
+reference's checkpoint files.
 """
 from __future__ import annotations
 
@@ -53,6 +57,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, list_archs
 from repro_torch.configs.base import OffloadSpec
+from repro_torch.core import cost_model as CM
 from repro_torch.data.pipeline import decode_bytes, encode_text
 from repro_torch.models import transformer as T
 from repro_torch.obs import Telemetry
@@ -307,9 +312,10 @@ def _check_flags(args):
 
 
 def _config(args, dev):
-    """The served config: the zoo refused; on the CPU a Mixtral-class
-    width reduced as the reference's launcher does; the router top-k
-    override applied."""
+    """The served config: the recurrent and encoder-decoder zoo refused;
+    on the CPU a config wider than d_model 1024 or a vocabulary of 100k
+    reduced as the reference's launcher does; the router top-k override
+    applied."""
     try:
         cfg = get_config(args.arch)
         if args.draft_config is not None:
@@ -347,6 +353,9 @@ def main(argv=None):
                          "technique needs routed experts)")
     spec = resolve_offload_spec(cfg.offload or OffloadSpec(),
                                 args.cache_size, args.num_speculative)
+    CM.check_fits(CM.resident_bytes(cfg, packed=args.offload and args.quantize),
+                  f"{cfg.name} ({cfg.n_layers} layers, {cfg.dtype} weights)",
+                  dev)
     packed = None  # (size report, store) of a packed model drawn here
     if args.checkpoint:
         from repro_torch.checkpoint.checkpointer import restore

@@ -6,10 +6,12 @@ the card unless ``--device cpu``::
 The same flags as the reference's, plus ``--device``.  On the CPU a
 config with ``d_model > 1024`` or a vocabulary over 100k trains as its
 ``reduced()`` variant, as the reference's launcher does on its host; on
-the card only ``--reduced`` reduces.  ``--microbatches`` and ``--remat``
-reach the train step (``trainer.TrainerConfig``).  ``--checkpoint``
-writes the reference's checkpoint format, which ``launch.serve
---checkpoint`` (of either package) reads.
+the card only ``--reduced`` reduces, and a model whose weights,
+gradients and AdamW moments exceed the card's free memory is refused
+with the bytes it needs (``cost_model.check_fits``).  ``--microbatches``
+and ``--remat`` reach the train step (``trainer.TrainerConfig``).
+``--checkpoint`` writes the reference's checkpoint format, which
+``launch.serve --checkpoint`` (of either package) reads.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import argparse
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, list_archs
 from repro_torch.data.pipeline import DataConfig, PackedDataset
+from repro_torch.core import cost_model as CM
 from repro_torch.models import transformer as T
 from repro_torch.training import optimizer as O
 from repro_torch.training import trainer
@@ -53,12 +56,14 @@ def main(argv=None):
                                                or cfg.d_model > 1024)):
         cfg = cfg.reduced()
         print(f"[train] using reduced variant: {cfg.name}")
+    n = T.count_params_analytic(cfg)
+    CM.check_fits(CM.resident_bytes(cfg, training=True),
+                  f"training {cfg.name} ({n / 1e9:.2f}B parameters)", dev)
     ds = PackedDataset(DataConfig(seq_len=args.seq_len,
                                   batch_size=args.batch_size,
                                   max_bytes=args.corpus_bytes,
                                   seed=args.seed))
     params = T.init_model(cfg, seed=args.seed, device=dev)
-    n = T.count_params_analytic(cfg)
     print(f"[train] {cfg.name}: {n/1e6:.1f}M params, {args.steps} steps x "
           f"{args.batch_size}x{args.seq_len} tokens on {dev}")
     opt = O.OptimizerConfig(lr=args.lr,

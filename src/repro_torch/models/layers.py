@@ -1,6 +1,7 @@
-"""Transformer layers of the ported slices: RMS norm, interleaved-pair
-RoPE, GQA attention over a dense KV ring or block-paged KV, dense MLPs,
-embeddings.
+"""Transformer layers of the ported slices: RMS norm and layernorm,
+interleaved-pair (partial) RoPE, GQA attention (optional qkv and output
+biases) over a dense KV ring or block-paged KV, dense MLPs, embeddings and
+the (optionally soft-capped) unembedding.
 
 The port of the reference's ``models/layers.py``.  Parameters are plain
 dicts of tensors with the reference's layouts (``wq: (D, H, hd)``,
@@ -44,14 +45,24 @@ def _randn(gen, shape, scale, dtype):
 # ----------------------------------------------------------------------
 # Norms
 def init_norm(cfg, device):
-    return {"scale": torch.ones((cfg.d_model,), dtype=_dt(cfg), device=device)}
+    p = {"scale": torch.ones((cfg.d_model,), dtype=_dt(cfg), device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros((cfg.d_model,), dtype=_dt(cfg), device=device)
+    return p
 
 
 def apply_norm(p, cfg, x):
-    """RMS norm in float32 (the slice's configs are all ``rmsnorm``)."""
+    """RMS norm, or layernorm (a ``bias`` leaf and ``cfg.norm ==
+    "layernorm"``), in float32."""
     xf = x.to(torch.float32)
-    ms = (xf * xf).mean(-1, keepdim=True)
-    y = xf * torch.rsqrt(ms + cfg.norm_eps) * p["scale"].to(torch.float32)
+    if cfg.norm == "layernorm" and "bias" in p:
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+        y = y * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)
+    else:
+        ms = (xf * xf).mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + cfg.norm_eps) * p["scale"].to(torch.float32)
     return y.to(x.dtype)
 
 
@@ -94,12 +105,20 @@ def init_attention(gen, cfg):
     D, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     sc = 1.0 / math.sqrt(D)
     dt = _dt(cfg)
-    return {
+    p = {
         "wq": _randn(gen, (D, H, hd), sc, dt),
         "wk": _randn(gen, (D, Hkv, hd), sc, dt),
         "wv": _randn(gen, (D, Hkv, hd), sc, dt),
         "wo": _randn(gen, (H, hd, D), sc / math.sqrt(2 * cfg.n_layers), dt),
     }
+    dev = gen.device
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((H, hd), dtype=dt, device=dev)
+        p["bk"] = torch.zeros((Hkv, hd), dtype=dt, device=dev)
+        p["bv"] = torch.zeros((Hkv, hd), dtype=dt, device=dev)
+    if cfg.attn_out_bias:
+        p["bo"] = torch.zeros((D,), dtype=dt, device=dev)
+    return p
 
 
 def _project(x, w):
@@ -108,16 +127,21 @@ def _project(x, w):
 
 
 def _project_q(p, cfg, x):
-    return _project(x, p["wq"])
+    q = _project(x, p["wq"])
+    return q + p["bq"] if "bq" in p else q
 
 
 def _project_kv(p, cfg, x):
-    return _project(x, p["wk"]), _project(x, p["wv"])
+    k, v = _project(x, p["wk"]), _project(x, p["wv"])
+    if "bk" in p:
+        k, v = k + p["bk"], v + p["bv"]
+    return k, v
 
 
 def _out_proj(p, cfg, o):
     w = p["wo"]  # (H, hd, D)
-    return o.reshape(o.shape[:-2] + (-1,)) @ w.reshape(-1, w.shape[-1])
+    y = o.reshape(o.shape[:-2] + (-1,)) @ w.reshape(-1, w.shape[-1])
+    return y + p["bo"] if "bo" in p else y
 
 
 def attention_core(q, k, v, qpos, kpos, *, causal, window,
@@ -533,4 +557,9 @@ def unembed(params, cfg, x):
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
         logits = torch.where(pad, torch.full_like(logits, NEG_INF), logits)
+    if cfg.logit_softcap:
+        # after the pad mask, as in the reference: a pad id's logit ends at
+        # -softcap, not -inf (ROADMAP section 3)
+        c = cfg.logit_softcap
+        logits = c * torch.tanh(logits / c)
     return logits

@@ -228,19 +228,20 @@ def moe_apply_gather(p, cfg, x2d):
     T, K = ids.shape
     per_row = K * sum(a[0].numel() * a.element_size() for a in ex.values())
     step = max(1, GATHER_BYTES // per_row)
-    y = torch.cat([_gather_ffn(x2d[a: a + step], ex["w_gate"][idx[a: a + step]],
+    y = torch.cat([_gather_ffn(cfg, x2d[a: a + step],
+                               ex["w_gate"][idx[a: a + step]],
                                ex["w_up"][idx[a: a + step]],
                                ex["w_down"][idx[a: a + step]], w[a: a + step])
                    for a in range(0, T, step)])
     return y, {"ids": ids, "weights": w, "probs": probs}
 
 
-def _gather_ffn(x2d, wg, wu, wd, w):
+def _gather_ffn(cfg, x2d, wg, wu, wd, w):
     """The gather einsums over per-(token, k) dense weights wg/wu (T, K,
     D, F) and wd (T, K, F, D) in the model dtype."""
     g = torch.einsum("td,tkdf->tkf", x2d, wg)
     u = torch.einsum("td,tkdf->tkf", x2d, wu)
-    h = torch.nn.functional.silu(g.to(torch.float32)).to(x2d.dtype) * u
+    h = _act(cfg)(g.to(torch.float32)).to(x2d.dtype) * u
     yk = torch.einsum("tkf,tkfd->tkd", h, wd)
     y = torch.einsum("tkd,tk->td", yk.to(torch.float32), w)
     return y.to(x2d.dtype)
@@ -259,7 +260,7 @@ def _expert_ffn(cfg, xk, mats: EP.PackedExperts, slots=None, offsets=None):
     dt = xk.dtype
     g = mm(xk, mats.w_gate).to(dt)
     u = mm(xk, mats.w_up).to(dt)
-    h = torch.nn.functional.silu(g.to(torch.float32)).to(dt) * u
+    h = _act(cfg)(g.to(torch.float32)).to(dt) * u
     return mm(h, mats.w_down)
 
 
@@ -277,7 +278,7 @@ def _packed_compute(cfg, x2d, mats: EP.PackedExperts, slots, w, *,
     if not fused:
         deq = lambda qt: hqq.dequantize(ref.gather_slots(qt, slots), dt
                                         ).reshape((T, K) + tuple(qt.shape[1:]))
-        return _gather_ffn(x2d, deq(mats.w_gate), deq(mats.w_up),
+        return _gather_ffn(cfg, x2d, deq(mats.w_gate), deq(mats.w_up),
                            deq(mats.w_down), w)
     if vectorized:
         xk = x2d.repeat_interleave(K, dim=0)[:, None, :]  # (T*K, 1, D)
@@ -291,7 +292,7 @@ def _packed_compute(cfg, x2d, mats: EP.PackedExperts, slots, w, *,
                 sl = mats.slice(t * K + k)
                 g = ops.dequant_matmul(xt, sl.w_gate).to(dt)
                 u = ops.dequant_matmul(xt, sl.w_up).to(dt)
-                h = torch.nn.functional.silu(g.to(torch.float32)).to(dt) * u
+                h = _act(cfg)(g.to(torch.float32)).to(dt) * u
                 rows.append(ops.dequant_matmul(h, sl.w_down))
         yk = torch.stack(rows).reshape(T, K, -1)          # (T, K, D) f32
     y = torch.einsum("tkd,tk->td", yk, w)
@@ -334,8 +335,7 @@ def moe_apply_packed_stream(p, cfg, x2d, store: EP.Tier, l: int,
         spans = list(zip(offsets[:-1], offsets[1:]))
         mm = lambda a, wt: torch.cat([a[o0:o1] @ wt[u]
                                       for u, (o0, o1) in enumerate(spans)])
-        h = torch.nn.functional.silu(mm(xs, wg).to(torch.float32)
-                                     ).to(dt) * mm(xs, wu)
+        h = _act(cfg)(mm(xs, wg).to(torch.float32)).to(dt) * mm(xs, wu)
         ys = mm(h, wd).to(torch.float32)
     yk = ys[idx[R:]].reshape(T, K, -1)
     y = torch.einsum("tkd,tk->td", yk, w).to(x2d.dtype)

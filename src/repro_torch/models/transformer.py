@@ -2,10 +2,13 @@
 attention + MoE FFN or dense MLP, pre-norm residual.
 
 Port of the reference's ``models/transformer.py`` for the ``swa+moe``,
-``attn+moe``, ``swa+mlp`` and ``attn+mlp`` block kinds.  The reference
-stacks each pattern position's parameters over periods for ``lax.scan``;
-the port keeps one dict per layer, ``params["layers"][l]``, and loops in
-Python (``bridge`` un-stacks the reference's layout).  The decode state
+``attn+moe``, ``swa+mlp`` and ``attn+mlp`` block kinds (rmsnorm or
+layernorm, swiglu / geglu / gelu, optional attention biases, logit
+softcap, the image-token stub).  The reference stacks each pattern
+position's parameters over periods for ``lax.scan`` and keeps the layers
+past the last whole period (tail layers) apart; the port keeps one dict
+per layer, ``params["layers"][l]``, tail included, and loops in Python
+(``bridge`` un-stacks the reference's layout).  The decode state
 is one dense KV ring per layer plus the shared position (an int) or
 per-row positions (a host (B,) array), or, paged, one page pool per
 layer plus a page table and per-row positions kept on the host (numpy);
@@ -17,7 +20,8 @@ per-token gather, on dense or paged states.  The packed planes run the
 same mixer (:func:`decode_block_packed_mixer`) and their own MoE halves.
 :func:`forward_train` is the training forward: full-sequence attention
 and the scatter-dispatch MoE, plain PyTorch under autograd, with
-optional activation checkpointing per period of the block pattern; with
+optional activation checkpointing per period of the block pattern (the
+tail layers outside it); with
 ``want_state`` it is also the static engine's prefill (:func:`prefill`).
 """
 from __future__ import annotations
@@ -35,20 +39,23 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 
 BLOCK_KINDS = ("swa+moe", "attn+moe", "swa+mlp", "attn+mlp")
+NORMS = ("rmsnorm", "layernorm")
+MLP_ACTS = ("swiglu", "geglu", "gelu")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Refuse what the port does not run yet (ROADMAP queue 1, item 6)."""
+    """Refuse what the port does not run yet: the recurrent and
+    encoder-decoder mixers (ROADMAP queue 1, item 6, sub-items 3-4)."""
     bad = sorted(set(cfg.layer_kinds()) - set(BLOCK_KINDS))
-    if bad:
+    if bad or cfg.encoder_layers:
         raise NotImplementedError(
-            f"{cfg.name}: block kinds {bad} are not ported yet (the port "
-            f"runs {BLOCK_KINDS})")
-    if (cfg.norm != "rmsnorm" or cfg.mlp_act != "swiglu" or cfg.qkv_bias
-            or cfg.attn_out_bias or cfg.logit_softcap or cfg.n_tail_layers):
+            f"{cfg.name}: block kinds {bad or cfg.layer_kinds()} are not "
+            f"ported yet (the port runs {BLOCK_KINDS}; the recurrent mixers "
+            f"are ROADMAP item 6 sub-item 3, the encoder-decoder sub-item 4)")
+    if cfg.norm not in NORMS or cfg.mlp_act not in MLP_ACTS:
         raise NotImplementedError(
-            f"{cfg.name}: only rmsnorm, swiglu, bias-free attention, no "
-            f"softcap and no tail layers are ported")
+            f"{cfg.name}: norm {cfg.norm!r} or activation {cfg.mlp_act!r} "
+            f"(the port runs {NORMS} and {MLP_ACTS})")
 
 
 def _init_block(gen, cfg: ModelConfig, kind: str):
@@ -78,6 +85,9 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None,
     for l, kind in enumerate(cfg.layer_kinds()):
         blk = _init_block(gen, cfg, kind)
         params["layers"].append(blk if on_block is None else on_block(l, blk))
+    if cfg.num_image_tokens:
+        D = cfg.d_model
+        params["img_proj"] = L._randn(gen, (D, D), D ** -0.5, L._dt(cfg))
     return params
 
 
@@ -90,22 +100,28 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     dt = getattr(torch, cfg.dtype)
     leaf = lambda *shape: (tuple(shape), dt)
     norm = {"scale": leaf(D)}
+    if cfg.norm == "layernorm":
+        norm["bias"] = leaf(D)
+    attn = {"wq": leaf(D, H, hd), "wk": leaf(D, Hkv, hd),
+            "wv": leaf(D, Hkv, hd), "wo": leaf(H, hd, D)}
+    if cfg.qkv_bias:
+        attn.update(bq=leaf(H, hd), bk=leaf(Hkv, hd), bv=leaf(Hkv, hd))
+    if cfg.attn_out_bias:
+        attn["bo"] = leaf(D)
 
     def block(kind):
-        out = {"norm1": norm, "attn": {"wq": leaf(D, H, hd),
-                                       "wk": leaf(D, Hkv, hd),
-                                       "wv": leaf(D, Hkv, hd),
-                                       "wo": leaf(H, hd, D)},
-               "norm2": norm}
+        out = {"norm1": norm, "attn": attn, "norm2": norm}
         if parse_block(kind)[1] == "moe":
             E = cfg.moe.num_experts
             out["moe"] = {"router": ((D, E), torch.float32),
                           "experts": {"w_gate": leaf(E, D, F),
                                       "w_up": leaf(E, D, F),
                                       "w_down": leaf(E, F, D)}}
-        else:  # swiglu, the only activation check_supported admits
+        elif cfg.mlp_act in ("swiglu", "geglu"):
             out["mlp"] = {"w_gate": leaf(D, F), "w_up": leaf(D, F),
                           "w_down": leaf(F, D)}
+        else:
+            out["mlp"] = {"w_in": leaf(D, F), "w_out": leaf(F, D)}
         return out
 
     specs: Dict[str, Any] = {"embed": {"table": leaf(cfg.padded_vocab, D)}}
@@ -113,6 +129,8 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
         specs["lm_head"] = {"w": leaf(D, cfg.padded_vocab)}
     specs["final_norm"] = norm
     specs["layers"] = [block(kind) for kind in cfg.layer_kinds()]
+    if cfg.num_image_tokens:
+        specs["img_proj"] = leaf(D, D)
     return specs
 
 
@@ -201,10 +219,12 @@ def forward_train(params, cfg: ModelConfig, batch, *, remat: bool = False,
                   want_state: bool = False, max_len: int = 0):
     """Teacher-forced logits of ``batch["tokens"]`` (B, S) int tensor (with
     an optional left-pad ``batch["pad_mask"]``, a tensor or a host bool
-    array).  Returns ``(logits (B, S, V) float32, {"load_balance": sum
-    over MoE layers})``.  ``remat`` recomputes each period's blocks in the
-    backward pass and keeps only the residual stream between periods (the
-    reference's ``jax.checkpoint`` of its scan body).
+    array, and on a config with image tokens an optional
+    ``batch["image_embeds"]`` (B, n, D), :func:`_embed_inputs`).  Returns
+    ``(logits (B, S, V) float32, {"load_balance": sum over MoE layers})``.
+    ``remat`` recomputes each period's blocks in the backward pass and
+    keeps only the residual stream between periods (the reference's
+    ``jax.checkpoint`` of its scan body); tail layers run outside it.
 
     ``want_state`` also returns the decode state the prompt leaves (the
     static engine's prefill): every layer's KV ring of ``max_len``
@@ -212,8 +232,7 @@ def forward_train(params, cfg: ModelConfig, batch, *, remat: bool = False,
     S for every row, or with a pad mask each row's real-token count as a
     host (B,) array: the per-row positions decode continues from."""
     check_supported(cfg)
-    tokens = batch["tokens"]
-    x = embed_tokens(params, cfg, tokens)
+    x = _embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
     mask = mask_host = batch.get("pad_mask")
     if isinstance(mask, np.ndarray):
@@ -237,13 +256,16 @@ def forward_train(params, cfg: ModelConfig, batch, *, remat: bool = False,
         return x, lb
 
     lb = torch.zeros((), dtype=torch.float32, device=x.device)
-    for start in range(0, cfg.n_layers, period):
+    n_body = cfg.n_periods * period
+    for start in range(0, n_body, period):
         lps = params["layers"][start: start + period]
         if remat and torch.is_grad_enabled() and not want_state:
             x, lb = torch.utils.checkpoint.checkpoint(
                 run_period, x, lb, *lps, use_reentrant=False)
         else:
             x, lb = run_period(x, lb, *lps)
+    # the tail layers (pattern positions 0 .. n_tail - 1), never rematted
+    x, lb = run_period(x, lb, *params["layers"][n_body:])
     logits, aux = apply_head(params, cfg, x), {"load_balance": lb}
     if not want_state:
         return logits, aux
@@ -465,6 +487,19 @@ def layer_params(params, cfg: ModelConfig, layer_idx: int):
 def embed_tokens(params, cfg: ModelConfig, tokens):
     """(B, S) int -> (B, S, D) embeddings."""
     return L.embed(params["embed"], cfg, tokens)
+
+
+def _embed_inputs(params, cfg: ModelConfig, batch):
+    """The training forward's embeddings: with ``batch["image_embeds"]``
+    (B, n, D) on a config with image tokens (the vision-tower stub), the
+    first n positions are those embeddings through ``img_proj``."""
+    x = embed_tokens(params, cfg, batch["tokens"])
+    img = batch.get("image_embeds")
+    if cfg.num_image_tokens and img is not None:
+        img = torch.as_tensor(img, device=x.device).to(x.dtype)
+        img = torch.einsum("bnd,de->bne", img, params["img_proj"])
+        x = torch.cat([img, x[:, img.shape[1]:]], dim=1)
+    return x
 
 
 def apply_head(params, cfg: ModelConfig, x):

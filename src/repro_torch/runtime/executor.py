@@ -17,7 +17,8 @@ On the packed planes each layer runs its mixer (attention), then its MoE
 half, which routes, reads the routed ids (and, at batch-1 decode, the
 lookahead layer's predicted ids) to the host in ONE read, serves the
 routed experts from the device pool and stages the lookahead layer's
-predicted experts.
+predicted experts; a dense-MLP block between them (a tail layer, a
+mixed pattern) runs its MLP on resident weights.
 
 * ``packed_pipelined``: the staging copies are issued before the
   layer's expert compute, on a side copy stream; the compute stream waits
@@ -155,6 +156,17 @@ class Executor:
             self.prefill_tier, fused=self.fused)
         return x, route["ids_host"]
 
+    def _chunk_ffn(self, p, x, h2, l: int):
+        """The FFN half of a packed prompt chunk's layer ``l``: store-direct
+        through the prefill tier on an MoE layer, the dense MLP
+        otherwise."""
+        if l not in self.moe_ordinal:
+            return x + L.apply_mlp(p["mlp"], self.cfg, h2)
+        return T.prefill_block_packed_moe(p, self.cfg, x, h2, self.store,
+                                          self.moe_ordinal[l],
+                                          self.prefill_tier,
+                                          fused=self.fused)[0]
+
     # ------------------------------------------------------------------
     def init_state(self, batch: int, max_len: int):
         return T.init_decode_state(self.cfg, batch, max_len, self.device)
@@ -243,6 +255,12 @@ class Executor:
             x, st_l, h2 = T.decode_block_packed_mixer(p, cfg, kind, x, st_l,
                                                       pos, step=step)
             state["layers"][l] = st_l
+            if l not in self.moe_ordinal:
+                # a dense-MLP block: one mark, the reference's non-MoE bucket
+                x = x + L.apply_mlp(p["mlp"], cfg, h2)
+                if obs is not None:
+                    obs.mark(mixer)
+                continue
             if obs is not None:
                 obs.mark(mixer)
             if self._fetch_faulted():
@@ -294,10 +312,7 @@ class Executor:
             p = T.layer_params(self.params, cfg, l)
             x, st_l, h2 = T.decode_block_packed_mixer(
                 p, cfg, kind, x, state["layers"][l], pos)
-            x, _ = T.prefill_block_packed_moe(p, cfg, x, h2, self.store,
-                                              self.moe_ordinal[l],
-                                              self.prefill_tier,
-                                              fused=self.fused)
+            x = self._chunk_ffn(p, x, h2, l)
             state["layers"][l] = st_l
         logits = T.apply_head(self.params, cfg, x)
         state["pos"] = pos + int(tokens.shape[1])
@@ -324,10 +339,7 @@ class Executor:
             p = T.layer_params(self.params, cfg, l)
             x, st_l, h2 = T.decode_block_packed_mixer(
                 p, cfg, kind, x, state["layers"][l], None, step=step)
-            x, _ = T.prefill_block_packed_moe(p, cfg, x, h2, self.store,
-                                              self.moe_ordinal[l],
-                                              self.prefill_tier,
-                                              fused=self.fused)
+            x = self._chunk_ffn(p, x, h2, l)
             state["layers"][l] = st_l
         logits = T.apply_head(self.params, cfg, x)
         return logits, dict(state, pos=T.advance(state, C, row=slot))

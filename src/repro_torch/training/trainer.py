@@ -45,16 +45,24 @@ def loss_fn(params, cfg: ModelConfig, batch, remat: bool = False):
 
 def _grads(params, cfg, batch, remat):
     """(metrics, grads) of :func:`loss_fn` at ``params``; the gradients in
-    the parameters' layout, detached."""
-    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    the parameters' layout, detached.  ``img_proj``, which a batch without
+    ``image_embeds`` does not reach, gets a zero gradient, as it does under
+    ``jax.grad``; any other leaf the loss does not reach raises."""
+    idle = {"img_proj"} & params.keys() if batch.get("image_embeds") is None \
+        else set()
+    reached = {k: v for k, v in params.items() if k not in idle}
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(reached)]
     it = iter(leaves)
-    live = tree_map(lambda _: next(it), params)
+    live = {**tree_map(lambda _: next(it), reached),
+            **{k: params[k] for k in idle}}
     with torch.enable_grad():
         loss, metrics = loss_fn(live, cfg, batch, remat)
         grads = torch.autograd.grad(loss, leaves)
     it = iter(grads)
+    grads = {**tree_map(lambda _: next(it), reached),
+             **{k: torch.zeros_like(params[k]) for k in idle}}
     return ({k: v.detach() for k, v in metrics.items()},
-            tree_map(lambda _: next(it), params))
+            {k: grads[k] for k in params})
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: O.OptimizerConfig,

@@ -55,6 +55,8 @@ PALLAS_CASES = [  # (BH, BKV, Sq, Skv, d, causal, window, q_offset, bq)
     (4, 2, 64, 512, 32, True, 64, 448, 64),        # G = 2, window skips blocks
     (2, 1, 8, 128, 32, True, 16, 100, 8),          # one 8-row query block
     (4, 2, 16, 128, 64, False, None, 0, 8),        # not causal
+    (4, 4, 64, 128, 96, True, None, 64, 64),       # head_dim 96 (phi-3)
+    (4, 2, 32, 256, 96, True, 48, 224, 32),        # head_dim 96, G = 2, window
 ]
 
 

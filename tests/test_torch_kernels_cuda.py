@@ -192,7 +192,8 @@ def test_ragged_kernel_matches_plain_on_card(dtype, window, C):
     gen.manual_seed(7 + C)
     dt = getattr(torch, dtype)
     rtol = 2 ** -7 if dtype == "bfloat16" else None
-    for H, Hkv, hd, ps in ((8, 4, 32, 16), (32, 8, 128, 16), (4, 4, 64, 8)):
+    for H, Hkv, hd, ps in ((8, 4, 32, 16), (32, 8, 128, 16), (4, 4, 64, 8),
+                           (8, 8, 96, 16), (6, 2, 96, 8)):
         q, kp, vp, ppos, pages, qpos, lens = _paged_case(
             gen, dev, dt, [C + 40, 0, C + 5, C + 130], C, H, Hkv, hd, ps)
         qp = qpos.cpu().numpy()
@@ -318,6 +319,13 @@ FLASH_CASES = [  # (B, H, Hkv, Sq, Skv, hd, causal, window, q_offset)
     (1, 32, 8, 700, 700, 128, True, None, 0),    # 128-row blocks
     (1, 32, 8, 600, 2000, 128, True, 256, 1400), # 128-row blocks, window
     (1, 4, 4, 40, 50, 64, True, 5, 100),         # rows with no valid key
+    # head_dim 96 (phi-3-vision): the wgmma instance runs the 128 one over
+    # zero-filled columns; G 1 at phi-3's chunk, G 2 with a window, 128-row
+    # blocks, and one row
+    (1, 32, 32, 64, 64, 96, True, None, 0),      # phi-3's 64-token chunk
+    (1, 4, 2, 100, 300, 96, True, 64, 200),      # G 2, window
+    (1, 8, 8, 700, 700, 96, True, None, 0),      # 128-row blocks
+    (2, 8, 8, 1, 90, 96, True, None, 89),        # one row
 ]
 
 
@@ -542,7 +550,7 @@ def test_gemv_refuses_what_it_cannot_read():
 
 # ----------------------------------------------------------------------
 # the tensor-core ragged kernel (csrc/ragged_mma.cu): bfloat16, head_dim
-# 64/128, pages of a multiple of 16 positions
+# 64/96/128, pages of a multiple of 16 positions
 RAGGED_MMA_CASES = {  # name: (lens, C, H, Hkv, hd, ps, window)
     "decode_g4": ([37, 300, 1500, 4200], 1, 32, 8, 128, 16, 4096),
     "decode_idle_rows": ([0, 700, 0, 45], 1, 32, 8, 128, 16, None),
@@ -550,6 +558,11 @@ RAGGED_MMA_CASES = {  # name: (lens, C, H, Hkv, hd, ps, window)
     "admission_window": ([300, 0, 180], 70, 16, 4, 64, 16, 40),
     "g1_pages32": ([90, 600], 3, 8, 8, 128, 32, None),
     "g8_hd64": ([33, 250], 5, 16, 2, 64, 16, 100),
+    # head_dim 96 (phi-3-vision, MHA): decode rows, a 64-token admission
+    # chunk, and GQA 3 with a window
+    "phi3_decode": ([37, 300, 900, 64], 1, 32, 32, 96, 16, None),
+    "phi3_admission": ([64], 64, 32, 32, 96, 16, None),
+    "g3_hd96": ([33, 250], 5, 12, 4, 96, 16, 100),
 }
 
 

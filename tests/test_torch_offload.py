@@ -177,16 +177,53 @@ def test_default_device_needs_a_gpu():
         generate_plain({}, cfg, PROMPT, 2)
 
 
-@pytest.mark.parametrize("change", [dict(mlp_act="geglu"),
-                                    dict(norm="layernorm"),
-                                    dict(qkv_bias=True),
-                                    dict(n_layers=3, block_pattern=("swa+moe",
-                                                                    "attn+moe"))],
-                         ids=["geglu", "layernorm", "qkv-bias", "tail"])
+FORMERLY_REFUSED = {
+    "geglu": dict(mlp_act="geglu"),
+    "layernorm": dict(norm="layernorm"),
+    "qkv-bias": dict(qkv_bias=True, attn_out_bias=True),
+    "tail": dict(n_layers=3, block_pattern=("attn+mlp", "swa+moe")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FORMERLY_REFUSED))
+def test_formerly_refused_features_match_reference(name):
+    """geglu, layernorm, qkv / output biases and tail layers, which the
+    port refused before the config zoo: ``tiny-moe`` cut to 2 layers (3
+    for the tail) with the feature, on random numpy weights in the
+    reference's layout with random norm scales and biases
+    (``tests/zoo_models.py``): ``forward_train`` logits within atol 1e-4
+    of the reference's and ``generate_plain`` tokens exactly equal."""
+    from repro.core.offload_engine import generate_plain as jgenerate
+    from repro_torch.core.offload_engine import generate_plain
+    from repro_torch.models.transformer import forward_train
+    import zoo_models
+    change = {"n_layers": 2, "d_model": 128, "d_ff": 128,
+              **FORMERLY_REFUSED[name]}
+    jcfg, pcfg = jget("tiny-moe").replace(**change), \
+        pget("tiny-moe").replace(**change)
+    tree = zoo_models.random_params(jcfg)
+    jp = jax.tree.map(jnp.asarray, tree)
+    pp = bridge.params_from_numpy(tree, pcfg, "cpu")
+    toks = zoo_models.tokens(jcfg, 2, 12)
+    want, _ = JT.forward_train(jp, jcfg, {"tokens": jnp.asarray(toks)})
+    with torch.no_grad():
+        got, _ = forward_train(pp, pcfg, {"tokens": torch.as_tensor(toks)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=LOGIT_ATOL)
+    assert generate_plain(pp, pcfg, PROMPT, 5, device="cpu").tolist() == \
+        np.asarray(jgenerate(jp, jcfg, PROMPT, 5)).tolist()
+
+
+@pytest.mark.parametrize("change", [
+    dict(block_pattern=("rglru+mlp", "swa+mlp")),
+    dict(block_pattern=("mlstm+none", "slstm+mlp")),
+    dict(block_pattern=("xattn+mlp",), encoder_layers=2, encoder_seq=8)],
+    ids=["rglru", "mlstm", "xattn"])
 def test_unported_configs_are_refused(change):
-    """What the slice does not run raises instead of computing something
-    else."""
+    """The mixers the port does not run yet (the recurrent ones and the
+    encoder-decoder's, ROADMAP item 6 sub-items 3-4) raise instead of
+    computing something else."""
     from repro_torch.models.transformer import init_model
     cfg = pget("tiny-moe").replace(**{"n_layers": 2, **change})
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="sub-item"):
         init_model(cfg, device="cpu")

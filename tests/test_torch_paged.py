@@ -132,6 +132,39 @@ def test_plain_ragged_attention_matches_reference_and_pallas(window, C):
                                atol=ATOL)
 
 
+@pytest.mark.parametrize("C", [1, 4])
+def test_plain_ragged_attention_head_dim_96_matches_pallas(C):
+    """head_dim 96 (phi-3-vision's, a new instance of both CUDA kernels):
+    the CPU dispatch against the reference's plain version and its Pallas
+    kernel in interpret mode, MHA and GQA 3, pages of 16."""
+    for Hkv, G, window in ((4, 1, None), (2, 3, 20)):
+        rng = np.random.default_rng(96 + C + G)
+        ps, T, hd = 16, 4, 96
+        lens = np.array([C + 30, 0, C + 3])
+        pages, ppos = _tables(rng, lens, T, ps)
+        P = ppos.shape[0]
+        kp = rng.standard_normal((P, ps, Hkv, hd)).astype(np.float32)
+        vp = rng.standard_normal((P, ps, Hkv, hd)).astype(np.float32)
+        q = rng.standard_normal((len(lens), C, Hkv * G, hd)).astype(np.float32)
+        qpos = (np.maximum(lens, C)[:, None] - C + np.arange(C)).astype(np.int32)
+        wl = PRA.build_page_worklist(pages, lens, qpos[:, 0], qpos[:, -1], ps,
+                                     window=window, pad_to=16)
+        j = lambda a: jnp.asarray(a)
+        ref = JRA.ragged_attention_reference(j(q), j(kp), j(vp), j(ppos),
+                                             j(pages), j(qpos), window=window,
+                                             q_chunk=C)
+        pallas = JRA.ragged_attention_pallas(j(q), j(kp), j(vp), j(ppos),
+                                             j(qpos), *map(j, wl),
+                                             window=window, interpret=True)
+        t = torch.from_numpy
+        got = PRA.ragged_attention(t(q), t(kp), t(vp), t(ppos), t(pages),
+                                   t(qpos), window=window).numpy()
+        np.testing.assert_allclose(got, np.asarray(ref), rtol=0, atol=ATOL)
+        busy = lens > 0
+        np.testing.assert_allclose(got[busy], np.asarray(pallas)[busy],
+                                   rtol=0, atol=ATOL)
+
+
 # ----------------------------------------------------------------------
 # the paged attention layer
 @pytest.fixture(scope="module")
