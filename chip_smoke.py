@@ -57,9 +57,10 @@ last line):
    the card (``tiny-moe``, random weights): continuous against static,
    chunked-prefill latency on the plain and packed planes, dense slots
    against pages, prefix reuse (TTFT, the reference's 1.5x floor),
-   overload with preemption, telemetry overhead (the 0.95x floor)
-   and chaos goodput (the 0.7x floor), each scenario asserting its own
-   parities; its rows printed.
+   overload with preemption, telemetry overhead (the 0.95x floor),
+   chaos goodput (the 0.7x floor) and recurrent decode flat in context
+   (``zoo``, reduced ``xlstm-1.3b``, the < 2x floor), each scenario
+   asserting its own parities; its rows printed.
 10. bf16 parity: ``tiny-moe`` at 4 heads over 2 KV heads (head_dim 64) in
     bf16, inside every tensor-core route's scope, packed ``pipelined``
     batch 1 and ``ContinuousEngine`` (4 requests through 2 slots, pages of
@@ -247,6 +248,33 @@ gap.
     serves ``--arch granite-moe-1b-a400m --offload --quantize`` and
     ``--arch smollm-360m --continuous``, and checks that
     ``--arch command-r-plus-104b`` is refused with the bytes it needs.
+
+21. The recurrent config zoo (ROADMAP item 6, sub-items 3 and 5).
+    ``[ragged-hd256]`` and ``[flash-hd256]`` (after ``[flash-hd96]``): the
+    two attention kernels at recurrentgemma-9b's shapes (H 16, Hkv 1,
+    head_dim 256, bf16, window 2048): a 4-row decode step over pages of
+    16 (lens 64/300/1500/4000) and a 128-token admission chunk; the
+    64-token chunk, a 1024-row chunk at position 1024 over 2048 keys and
+    a C = 5 verify chunk; route (flash must take ``wgmma``, ragged
+    ``mma``), time, plain time, bound and SDPA as above.  ``[rec-parity]`` (after ``[zoo-parity]``): reduced
+    recurrentgemma and xlstm in f32, card against CPU, exactly equal:
+    ``generate_plain`` tokens, the plain ``ContinuousEngine`` on pages
+    (xlstm on a one-page pool, no page reserved) and on dense slots with
+    chunks of 4, and draft-and-verify on dense slots (4 requests through 2
+    slots: tokens and emit steps).  ``[zoo-rec]`` (after ``[zoo]``):
+    published widths in bf16, seed 0, full depth: recurrentgemma-9b (38
+    layers, 9.4B parameters) serving ``[serve]``'s 8 requests through 4
+    slots on pages of 16 and on dense slots with chunks of 32; xlstm-1.3b
+    (48 layers) at batch 1 and served on pages with no page in use;
+    tokens/s, admission s against decode s, ms per layer per decode
+    step, peak memory, launches against the expected on the routes, the
+    recurrent state bytes per row equal to ``recurrent_state_bytes``; each
+    served run held over 12 tokens of 4 requests to the run with the plain
+    versions by the near-tie rule.  ``[serve-bench]`` runs the ``zoo``
+    scenario (its < 2x context-flatness floor); ``[cli]`` also serves
+    ``--config xlstm-1.3b --continuous`` and ``--config recurrentgemma-9b
+    --continuous`` and checks that ``whisper-medium`` is refused naming
+    item 6 sub-item 4.
 
 The line before the card's line is ``{"kernels": [...]}``; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -1511,8 +1539,8 @@ def _serve(eng, cfg, prompts, max_news, *, max_slots, on_engine=None,
         return out
 
     def counted_decode(state, tokens, pstate=None, active=None, **kw):
-        calls["decode"] += 1
-        calls["rows"] += int(active.sum())
+        calls["decode"] += 1  # a recurrent row's replay passes no active
+        calls["rows"] += int(tokens.shape[0] if active is None else active.sum())
         return timed("decode_s", dec, state, tokens, pstate, active, **kw)
 
     def counted(fn):
@@ -3612,6 +3640,15 @@ def phase_cli(dev):
     _module("cli", ["repro_torch.launch.serve", "--arch", "command-r-plus-104b",
                     "--continuous"], timeout=120,
             refused=r"needs [0-9.]+ GB of device memory .* GB free")
+    # the recurrent zoo at its published widths; the encoder-decoder refused
+    for arch in REC_ARCHS:
+        out = _module("cli", ["repro_torch.launch.serve", "--config", arch,
+                              "--continuous", "--max-new", "8"], timeout=300)
+        if "[continuous] 12 requests" not in out or "published width" not in out:
+            fail(f"[cli] {arch}'s continuous run did not finish its 12 requests "
+                 f"at the published width")
+    _module("cli", ["repro_torch.launch.serve", "--config", "whisper-medium",
+                    "--continuous"], timeout=120, refused=r"item 6, sub-item 4")
     ck = out_dir / "tiny_moe.npz"
     _module("cli", ["repro_torch.launch.train", "--arch", "tiny-moe",
                     "--steps", "20", "--checkpoint", str(ck)], timeout=300)
@@ -3770,8 +3807,9 @@ def _zoo_config(name):
 
 
 def _random_norms(params, seed):
-    """Random norm scales and biases and attention biases (the init makes
-    them 1 and 0, which would hide a missing term)."""
+    """Random norm scales and biases, attention biases, the recurrent
+    mixers' head norms and conv biases (the init makes them 1 and 0, which
+    would hide a missing term)."""
     import torch
     gen = torch.Generator().manual_seed(seed)
 
@@ -3781,9 +3819,9 @@ def _random_norms(params, seed):
         if isinstance(t, list):
             return [walk(v) for v in t]
         z = torch.randn(t.shape, generator=gen).to(t.dtype)
-        if key == "scale":
+        if key in ("scale", "headnorm"):
             return 1 + 0.2 * z
-        if key in ("bias", "bq", "bk", "bv", "bo"):
+        if key in ("bias", "bq", "bk", "bv", "bo", "conv_b"):
             return 0.2 * z
         return t
     return walk(params)
@@ -3859,16 +3897,23 @@ def _zoo_requests(cfg):
         [SERVE_NEW] * SERVE_REQUESTS
 
 
-def _zoo_serve(label, eng, cfg, params, dev):
-    """``[serve]``'s 8 requests through 4 slots on pages of 16, on the
-    packed engine ``eng`` or the plain plane over ``params``: a warm-up,
-    the timed run (launches, routes, peak memory), then a kernel run and
-    a plain-version run of the first 4 requests traced and held to the
-    near-tie rule.  Returns (report, launches)."""
+def _zoo_serve(label, eng, cfg, params, dev, tag="zoo", **serve_kw):
+    """``[serve]``'s 8 requests through 4 slots on the packed engine
+    ``eng`` or the plain plane over ``params``, on pages of 16 unless
+    ``serve_kw`` asks for dense slots with chunked admission
+    (``kv_page=None, prefill_chunk=c``): a warm-up, the timed run
+    (tokens/s, admission s against decode s, ms per layer per decode
+    step, launches against the expected on the tensor-core / FMA routes,
+    peak memory, and on a stack with recurrent layers the recurrent state
+    bytes per row against ``cost_model.recurrent_state_bytes``), then a
+    kernel run and a plain-version run of the first 4 requests traced and
+    held to the near-tie rule.  Returns (report, launches)."""
     import torch
+    from repro_torch.core import cost_model as CM
     from repro_torch.kernels import ops
     prompts, news = _zoo_requests(cfg)
-    kw = dict(max_slots=SERVE_SLOTS, slot_len=256, params=params, device=dev)
+    kw = dict(max_slots=SERVE_SLOTS, slot_len=256, params=params, device=dev,
+              **serve_kw)
     _serve(eng, cfg, prompts[:2], [3, 3], **kw)  # warm-up
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3880,37 +3925,59 @@ def _zoo_serve(label, eng, cfg, params, dev):
     wall = time.perf_counter() - t
     launches, routes = ops.launches(), _routes_since(before)
     n_tok = sum(len(x) for x in toks)
-    report = {"tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+    paged = kw.get("kv_page", 16) is not None
+    n_kv = sum(sp.plane == "kv" for sp in cfg.state_planes())
+    if paged:  # every decode step and admission chunk of every KV layer
+        want = {"ragged_attention": n_kv * (calls["decode"] + calls["chunks"]),
+                "flash_attention": 0}
+    else:  # every admission chunk of more than one token, on wgmma
+        c = kw["prefill_chunk"]
+        want = {"ragged_attention": 0, "flash_attention": n_kv * sum(
+            len(x) // c + (len(x) % c > 1) for x in prompts)}
+    report = {"layout": "paged" if paged else "dense_chunked",
+              "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
               "steps": ce.step_count, "decode_steps": calls["decode"],
               "admission_chunks": calls["chunks"],
               "admission_s": calls["chunk_s"], "decode_s": calls["decode_s"],
-              "launches": launches, "routes": {k: v for k, v in routes.items() if v},
+              "ms_per_layer_per_decode_step": calls["decode_s"] * 1e3
+              / max(1, calls["decode"]) / cfg.n_layers,
+              "launches": launches, "launches_expected": want,
+              "routes": {k: v for k, v in routes.items() if v},
               "peak_device_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
-    expect = cfg.n_layers * (calls["decode"] + calls["chunks"])
+    bad = (any(launches[k] != v for k, v in want.items())
+           or routes["ragged_mma"] != want["ragged_attention"]
+           or routes["flash_wgmma"] != want["flash_attention"])
+    if paged:
+        report["pages_peak_committed"] = ce.kv.pool.peak_committed
+        bad |= not cfg.has_kv_layers and ce.kv.pool.peak_committed != 0
+    if cfg.has_recurrent_layers:
+        rec = [blk["rec"] for blk in ce.kv.state["layers"] if "rec" in blk]
+        report["rec_state_bytes_per_row"] = sum(
+            t[0].numel() * t.element_size() for r in rec for t in r.values())
+        report["recurrent_state_bytes"] = CM.recurrent_state_bytes(cfg)
+        bad |= report["rec_state_bytes_per_row"] != report["recurrent_state_bytes"]
     if eng is not None:
         st = ce._pstate
         report.update(hits=int(st.counts[0]), demand_loads=int(st.counts[2]),
                       bytes_h2d_issued=st.h2d_bytes,
                       bytes_h2d_counters=(int(st.counts[2]) + int(st.counts[3]))
                       * eng.expert_bytes)
-        if st.h2d_bytes != report["bytes_h2d_counters"]:
-            fail(f"[zoo] {label}: h2d bytes issued != counters: {report}")
-    log(f"[zoo] {label} serving {SERVE_REQUESTS} requests / {SERVE_SLOTS} slots: "
+        bad |= st.h2d_bytes != report["bytes_h2d_counters"]
+    log(f"[{tag}] {label} serving {SERVE_REQUESTS} requests / {SERVE_SLOTS} slots: "
         f"{json.dumps(report)}")
-    if (launches["ragged_attention"] != expect or routes["ragged_mma"] != expect
-            or any(len(x) != SERVE_NEW or not all(0 <= y < cfg.vocab_size for y in x)
-                   for x in toks)):
-        fail(f"[zoo] {label}: {expect} ragged launches on mma expected, or "
-             f"malformed tokens: {report}")
+    if bad or any(len(x) != SERVE_NEW or not all(0 <= y < cfg.vocab_size for y in x)
+                  for x in toks):
+        fail(f"[{tag}] {label}: launches / routes / h2d / state bytes / pages "
+             f"not as expected, or malformed tokens: {report}")
     # the near-tie hold on the first 4 requests, 12 new tokens each
     held = (prompts[:SERVE_SLOTS], [12] * SERVE_SLOTS)
     kern = _trace(lambda d: _serve(eng, cfg, *held, on_engine=d.watch, **kw))
     with _PlainKernels():
         plain = _trace(lambda d: _serve(eng, cfg, *held, on_engine=d.watch, **kw))
-    diff = _hold_to_near_tie(f"zoo] [{label} kernels vs plain", kern[0], plain[0],
+    diff = _hold_to_near_tie(f"{tag}] [{label} kernels vs plain", kern[0], plain[0],
                              ("kernels", "plain"))
     if diff is None and kern[1][1] != plain[1][1]:
-        fail(f"[zoo] {label}: every decision equal but the tokens differ")
+        fail(f"[{tag}] {label}: every decision equal but the tokens differ")
     return report, launches
 
 
@@ -4008,6 +4075,152 @@ def phase_zoo(dev):
 
 
 # ----------------------------------------------------------------------
+# the recurrent config zoo (ROADMAP item 6, sub-items 3 and 5)
+REC_ARCHS = ("recurrentgemma-9b", "xlstm-1.3b")
+RG_HEADS = (16, 1, 256)  # recurrentgemma-9b: H, Hkv (MQA), head_dim
+RG_WINDOW = 2048
+RG_FLASH = (("prefill_chunk", PROMPT_LEN, PROMPT_LEN, 0, RG_WINDOW),
+            ("windowed", 1024, 2048, 1024, RG_WINDOW),
+            ("verify_chunk", 5, PROMPT_LEN + 5, PROMPT_LEN, RG_WINDOW))
+RG_RAGGED = (("decode", [64, 300, 1500, 4000], 1), ("admission", [128], 128))
+REC_CHUNK = 32  # [zoo-rec]'s dense-slot admission chunk
+
+
+def phase_rec_parity(dev):
+    """The recurrent configs at ``reduced()`` size in f32, card (kernels)
+    against CPU (plain versions), weights from seed 0 with random norm
+    scales, head norms and conv biases, exactly equal: ``generate_plain``
+    tokens; the plain plane's ``ContinuousEngine`` (4 requests through 2
+    slots: tokens and emit steps) on pages (xlstm on a one-page pool, no
+    page reserved) and on dense slots with chunks of 4; draft-and-verify
+    on dense slots with an f32 ``tiny-draft`` (k = 2).  Returns the
+    card's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.offload_engine import generate_plain
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    t0 = time.perf_counter()
+    total = {}
+    dcfg = get_config("tiny-draft").replace(dtype="float32")
+    dparams = T.init_model(dcfg, seed=1, device="cpu")
+    for arch in REC_ARCHS:
+        cfg = get_config(arch).reduced()
+        params = _random_norms(T.init_model(cfg, seed=0, device="cpu"), 1)
+        rng = np.random.default_rng(1)
+        # prompt + new within the reduced window of 16 (draft-and-verify)
+        prompts = [rng.integers(1, cfg.vocab_size, n) for n in (6, 11, 8, 9)]
+        news = (8, 5, 7, 4)
+        runs = {}
+        for where in ("cpu", dev):
+            ops.reset_launches()
+            p = _to(params, where)
+            r = {"generate_plain": generate_plain(
+                p, cfg, prompts[1][None], 8, device=where).tolist()}
+            paged = {} if cfg.has_kv_layers else dict(kv_pages_total=1)
+            for variant, kw in (("paged", paged),
+                                ("dense_chunked", dict(kv_page=None,
+                                                       prefill_chunk=4)),
+                                ("dense_spec", dict(
+                                    kv_page=None, draft_params=_to(dparams, where),
+                                    draft_cfg=dcfg, num_draft_tokens=2))):
+                ce, toks, steps, _ = _serve(None, cfg, prompts, news,
+                                            max_slots=2, slot_len=64,
+                                            params=p, device=where, **kw)
+                r[variant] = (toks, steps)
+                if variant == "paged" and not cfg.has_kv_layers \
+                        and ce.kv.pool.peak_committed != 0:
+                    fail(f"[rec-parity] {arch}: pages reserved on a stack "
+                         f"without KV layers")
+            runs[str(where)] = r
+            if where != "cpu":
+                _add(total, ops.launches())
+        card, cpu = runs[str(dev)], runs["cpu"]
+        log(f"[rec-parity] {arch} ({cfg.n_layers} layers, d {cfg.d_model}, "
+            f"{cfg.block_pattern}): card == cpu {card == cpu} on {sorted(card)}")
+        if card != cpu:
+            fail(f"[rec-parity] {arch}: the card differs from the CPU: "
+                 f"{card} vs {cpu}")
+    log(f"[rec-parity] card launches {total}; {time.perf_counter() - t0:.1f} s")
+    return total
+
+
+def phase_zoo_rec(dev):
+    """The recurrent configs at their published widths and full depth in
+    bf16, random weights from seed 0: recurrentgemma-9b (38 layers, 12 of
+    them SWA at head_dim 256) served on pages of 16 (ragged at hd 256) and
+    on dense slots with chunked admission (flash at hd 256); xlstm-1.3b
+    (48 layers) at batch 1 (``Executor.generate_greedy``, 64-token prompt,
+    32 new tokens: prefill s, decode tok/s, equal to the run with the
+    plain versions) and served on pages with no page in use.  Returns the
+    launches."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.executor import Executor
+    total = {}
+    for arch in REC_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = get_config(arch)
+        t0 = time.perf_counter()
+        params = T.init_model(cfg, seed=0, device=dev)
+        torch.cuda.synchronize(dev)
+        n = T.count_params_analytic(cfg)
+        n_kv = sum(sp.plane == "kv" for sp in cfg.state_planes())
+        log(f"[zoo-rec] {arch}: {cfg.n_layers} layers ({n_kv} with KV), "
+            f"d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads x "
+            f"{cfg.head_dim}, {n / 1e9:.2f}B parameters ({n * 2 / 2**30:.1f} "
+            f"GiB bf16) drawn in {time.perf_counter() - t0:.1f} s")
+        if arch == "xlstm-1.3b":
+            ex = Executor(params, cfg, device=dev)
+            prompt = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                       (1, PROMPT_LEN))
+            ex.generate_greedy(prompt[:, :8], 3)  # warm-up
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t = time.perf_counter()
+            logits, state = ex.prefill(torch.as_tensor(prompt, device=dev),
+                                       PROMPT_LEN + NEW_TOKENS)
+            tok = torch.argmax(logits[:, -1], -1)[:, None].to(torch.int32)
+            torch.cuda.synchronize(dev)
+            prefill_s = time.perf_counter() - t
+            t = time.perf_counter()
+            for _ in range(NEW_TOKENS - 1):
+                nxt, state = ex.decode_sampled(state, tok, collect_info=False,
+                                               greedy=True)
+                tok = nxt[:, None]
+            torch.cuda.synchronize(dev)
+            decode_s = time.perf_counter() - t
+            toks = ex.generate_greedy(prompt, NEW_TOKENS)
+            with _PlainKernels():
+                plain = ex.generate_greedy(prompt, NEW_TOKENS)
+            report = {"prefill_s": prefill_s,
+                      "decode_tok_s": (NEW_TOKENS - 1) / decode_s,
+                      "ms_per_layer_per_decode_step":
+                          decode_s * 1e3 / (NEW_TOKENS - 1) / cfg.n_layers,
+                      "peak_device_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+                      "tokens": toks[0].tolist()}
+            log(f"[zoo-rec] {arch} batch 1: {json.dumps(report)}")
+            if not (toks == plain).all():
+                fail(f"[zoo-rec] {arch} batch 1: the run differs from the one "
+                     f"with the plain versions (it runs no kernel)")
+            del ex, state
+            layouts = ({},)
+        else:
+            layouts = ({}, dict(kv_page=None, prefill_chunk=REC_CHUNK))
+        for lay in layouts:
+            _, launches = _zoo_serve(f"{arch} plain", None, cfg, params, dev,
+                                     tag="zoo-rec", **lay)
+            _add(total, launches)
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+# ----------------------------------------------------------------------
 def main():
     card = phase_device()
     import torch
@@ -4020,7 +4233,16 @@ def main():
                                       window=None, label="ragged-hd96")
     phi3_flash, _ = phase_flash(dev, flush, heads=PHI3_HEADS, cases=PHI3_FLASH,
                                 label="flash-hd96")
-    for name, r in (("ragged_attention", phi3_ragged), ("flash_attention", phi3_flash)):
+    # recurrentgemma's attention (head_dim 256, MQA 16 / 1, window 2048)
+    rg_ragged = phase_ragged_kernel(dev, flush, heads=RG_HEADS, cases=RG_RAGGED,
+                                    window=RG_WINDOW, label="ragged-hd256")
+    rg_flash, rg_cases = phase_flash(dev, flush, heads=RG_HEADS, cases=RG_FLASH,
+                                     label="flash-hd256")
+    if any(r["route"] != "wgmma" for r in rg_cases.values()):
+        fail(f"[flash-hd256] bfloat16 at head_dim 256 left the wgmma instance: "
+             f"{ {n: r['route'] for n, r in rg_cases.items()} }")
+    for name, r in (("ragged_attention", phi3_ragged), ("flash_attention", phi3_flash),
+                    ("ragged_attention", rg_ragged), ("flash_attention", rg_flash)):
         kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"], r["max_abs_err"])
     phase_parity(dev)
     phase_continuous_parity(dev)
@@ -4032,6 +4254,7 @@ def main():
     item5 = phase_item5_parity(dev)
     _add(item5, phase_f4(dev))
     _add(item5, phase_zoo_parity(dev))
+    _add(item5, phase_rec_parity(dev))
     phase_train(dev)
     launches, batches, eng, cfg, prompt, main_run, main_report = phase_main(dev)
     # the host-bound decode runs come before any profiler window
@@ -4066,15 +4289,17 @@ def main():
     _add(item7, phase_attention_bench(dev))
     del eng
     zoo = phase_zoo(dev)
+    _add(zoo, phase_zoo_rec(dev))
     phase_cli(dev)
-    for name in launches:  # [zoo-parity], [zoo]
+    for name in launches:  # [zoo], [zoo-rec]
         launches[name] += zoo.get(name, 0)
     for name in ("ragged_attention", "flash_attention", "dequant_matmul_slots",
                  "dequant_matmul_batched"):
         launches[name] += serve_extra.get(name, 0)
     for name in launches:  # the draft-and-verify paths ([spec], [spec-serve])
         launches[name] += spec_launches.get(name, 0)
-    for name in launches:  # [item5-parity], [f4], [prefix], [preempt], [chaos]
+    for name in launches:  # [item5-parity], [f4], [zoo-parity], [rec-parity],
+        # [prefix], [preempt], [chaos]
         launches[name] += item5.get(name, 0)
     for name in launches:  # [telemetry], [attention-bench]
         launches[name] += item7.get(name, 0)

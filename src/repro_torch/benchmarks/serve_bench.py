@@ -53,14 +53,15 @@ Workload 8 (chaos): packed serving on pages under a seeded fault schedule
 clients, against the same traffic fault-free: no hang, an empty pool at
 teardown, goodput at least 0.7x.
 
+Workload 9 (zoo): recurrent decode (reduced ``xlstm-1.3b``) at two
+prompt lengths through the same continuous engine: the decode step's
+wall time stays flat in context (on the card < 2x), and so does the cost
+model's prediction.
+
 Workloads 5, 6 and 8 have a module-level drive function (what the
 card's smoke script and the CPU tests call) beside the ``run_*`` that
-times it; 5, 7 and 8 apply the reference's wall-clock floor in a
-``check_*`` function.
-
-The reference's ``zoo`` scenario is not ported (ROADMAP queue 1 item 6,
-sub-item 5: its workload is ``xlstm-1.3b``, whose mixers are sub-item 3):
-it raises.
+times it; 5, 7, 8 and 9 apply the reference's wall-clock floor in a
+``check_*`` function (on the card).
 """
 from __future__ import annotations
 
@@ -718,14 +719,83 @@ def check_chaos(row):
 
 
 # ----------------------------------------------------------------------
-def _not_ported(scenario: str, item: int):
-    raise NotImplementedError(
-        f"serve_bench scenario {scenario!r} is not ported yet (ROADMAP "
-        f"queue 1, item {item})")
+# workload 9: recurrent decode of the config zoo, flat in context
+def run_zoo(*, smoke=False, seed=0, device=None):
+    """Recurrent decode (reduced ``xlstm-1.3b``) through the same
+    ``ContinuousEngine`` the attention stacks use, at two prompt lengths:
+    the recurrent state is O(1) per slot, so a decode step's wall time
+    must not grow with the context before it (the measured counterpart of
+    the cost model's flat ``recurrent_state_bytes`` term), where an
+    attention stack pays a KV read that grows with it.  Median decode-step
+    ms, best of 2 passes per context, the contexts in turns after a
+    warm-up of both; the cost
+    model's prediction on the ``h100`` row must be flat too.  The
+    wall-clock floor (:func:`check_zoo`) is applied on the card only."""
+    from repro_torch.core.cost_model import (HARDWARE, TokenStats,
+                                             tokens_per_second)
+    dev = resolve_device(device)
+    cfg = get_config("xlstm-1.3b").reduced()
+    params = T.init_model(cfg, seed=1, device=dev)
+    rng = np.random.default_rng(seed)
+    short_ctx, long_ctx = (8, 64) if smoke else (8, 256)
+    max_new = 12 if smoke else 32
+
+    def decode_samples(ctx_len):
+        """Decode-step wall ms at one prompt length (chunked prefill at a
+        shared chunk size; only the steps that emit a decode token)."""
+        eng = ContinuousEngine(params, cfg, max_slots=1,
+                               slot_len=ctx_len + max_new + 8, eos_id=None,
+                               prefill_chunk=8, device=dev)
+        prompt = rng.integers(1, cfg.vocab_size, ctx_len).astype(np.int32)
+        req = eng.submit(prompt, max_new)
+        samples = []
+        while eng.sched.has_waiting or eng.sched.n_running:
+            before = len(req.generated)
+            t0 = time.perf_counter()
+            eng.step()
+            dt_ms = (time.perf_counter() - t0) * 1e3
+            if len(req.generated) > before and before > 0:
+                samples.append(dt_ms)
+            assert eng.step_count < 100_000
+        return samples
+
+    for ctx in (short_ctx, long_ctx):  # warm-up
+        decode_samples(ctx)
+    ms = {short_ctx: np.inf, long_ctx: np.inf}
+    for _ in range(2):  # the contexts in turns: host drift hits both
+        for ctx in ms:
+            ms[ctx] = min(ms[ctx], float(np.median(decode_samples(ctx))))
+    ratio = ms[long_ctx] / max(1e-9, ms[short_ctx])
+    stats = TokenStats(0.0, 0.0, 0.0, 0.0)
+    pred = [tokens_per_second(cfg, HARDWARE["h100"], stats, expert_bits=16,
+                              attn_bits=16, context_len=c)
+            for c in (short_ctx, long_ctx)]
+    assert pred[0] == pred[1], "cost model: recurrent tok/s must be flat"
+    row = {
+        "name": "serve_bench", "scenario": "zoo", "arch": cfg.name,
+        "device": _device_name(dev),
+        "short_ctx": short_ctx, "long_ctx": long_ctx, "max_new": max_new,
+        "short_ctx_decode_ms": ms[short_ctx],
+        "long_ctx_decode_ms": ms[long_ctx],
+        "short_ctx_tok_s": 1e3 / ms[short_ctx],
+        "long_ctx_tok_s": 1e3 / ms[long_ctx],
+        "context_cost_ratio": ratio,
+        "predicted_tok_s_flat": pred[0],
+    }
+    print(f"[serve_bench] zoo ({cfg.name}): decode "
+          f"{row['short_ctx_tok_s']:.1f} tok/s @ctx{short_ctx} vs "
+          f"{row['long_ctx_tok_s']:.1f} tok/s @ctx{long_ctx} ({ratio:.2f}x; "
+          f"predicted {pred[0]:.1f} tok/s at both)")
+    if dev.type == "cuda":
+        check_zoo(row)
+    return row
 
 
-def run_zoo(*args, **kwargs):
-    _not_ported("zoo", 6)
+def check_zoo(row):
+    assert row["context_cost_ratio"] < 2.0, \
+        f"recurrent decode cost grew with context: " \
+        f"{row['short_ctx_decode_ms']:.3f} -> " \
+        f"{row['long_ctx_decode_ms']:.3f} ms ({row['context_cost_ratio']:.2f}x)"
 
 
 # ----------------------------------------------------------------------
@@ -816,7 +886,7 @@ def run(quick=False, trained=False, n_requests=None, max_slots=4,
                                           max_slots=lat_slots, seed=seed,
                                           device=dev))
     results.append(run_chaos(params, cfg, off, smoke=quick, seed=seed))
-    print("[serve_bench] not ported: zoo (item 6)")
+    results.append(run_zoo(smoke=quick, seed=seed, device=dev))
     common.emit(results, "serve_bench")
     if quick:
         assert speedup > 0.2, "smoke: continuous path unreasonably slow"

@@ -39,9 +39,12 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device=None):
     ``stack[l % period]`` sliced at period ``l // period`` becomes
     ``layers[l]`` for the layers of whole periods, and ``tail[i]`` (an
     unstacked block) becomes ``layers[n_periods * period + i]``.  Every
-    other leaf carries across as it is: attention and its biases, norms,
-    the dense ``mlp`` of ``attn+mlp``/``swa+mlp`` blocks, ``img_proj``,
-    and the dense expert stacks of a non-packed tree (what the plain plane
+    other leaf carries across as it is, in its own dtype: attention and
+    its biases, norms, the dense ``mlp`` of ``attn+mlp``/``swa+mlp``
+    blocks, the recurrent mixers' ``rglru``/``mlstm``/``slstm`` leaves
+    (``lam``, ``wf``, ``bf``, ``wi``, ``bi``, ``headnorm`` and ``b_gates``
+    float32 as the reference keeps them), ``img_proj``, and the dense
+    expert stacks of a non-packed tree (what the plain plane
     and accounting mode compute with).  Zero-size leaves (the reference's
     placeholders for packed experts) are dropped."""
     dev = resolve_device(device)

@@ -24,13 +24,13 @@ _MODULES = {
     "mixtral-offload": "repro_torch.configs.mixtral_offload",
     "tiny-moe": "repro_torch.configs.tiny_moe",
     "tiny-draft": "repro_torch.configs.tiny_draft",
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
+    "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
 }
 
 # the reference's zoo names whose mixers the port lacks, with the ROADMAP
 # queue 1 sub-item of item 6 that ports them
 UNPORTED = {
-    "recurrentgemma-9b": "item 6, sub-item 3 (RG-LRU, models/recurrent.py)",
-    "xlstm-1.3b": "item 6, sub-item 3 (mLSTM and sLSTM, models/recurrent.py)",
     "whisper-medium": "item 6, sub-item 4 (the encoder-decoder)",
 }
 

@@ -3,7 +3,7 @@
 The fields, defaults and derived properties are those of the JAX
 package's ``configs/base.py`` (tests compare the two field by field); the
 port keeps its own copy so that nothing of the JAX package is imported.
-Only what the offloaded-generation slice reads is carried over.
+Only what the port's slices read is carried over.
 """
 from __future__ import annotations
 
@@ -15,6 +15,13 @@ from typing import Optional, Tuple
 MIXERS = ("attn", "swa", "xattn", "encattn", "rglru", "mlstm", "slstm")
 FFNS = ("mlp", "moe", "none")
 
+# The sequence state each mixer carries during decode: "kv", per-position
+# K/V that grows with context (a ring or pages); "rec", a fixed-size
+# recurrent state, one per row, that never pages; "none", no decode state.
+MIXER_STATE = {"attn": "kv", "swa": "kv", "xattn": "kv",
+               "encattn": "none", "rglru": "rec", "mlstm": "rec",
+               "slstm": "rec"}
+
 
 def parse_block(kind: str) -> Tuple[str, str]:
     mixer, _, ffn = kind.partition("+")
@@ -24,6 +31,19 @@ def parse_block(kind: str) -> Tuple[str, str]:
     if ffn not in FFNS:
         raise ValueError(f"unknown ffn {ffn!r} in block kind {kind!r}")
     return mixer, ffn
+
+
+@dataclass(frozen=True)
+class StatePlaneSpec:
+    """The sequence state one layer carries during decode: ``plane`` is
+    ``MIXER_STATE`` of its mixer, and ``grows`` marks the planes whose
+    footprint scales with live context, the only ones that hold pages."""
+
+    kind: str
+    mixer: str
+    plane: str
+    grows: bool
+    window: Optional[int] = None
 
 
 @dataclass(frozen=True)
@@ -119,6 +139,28 @@ class ModelConfig:
         """Block kind of every layer, in order."""
         return tuple(self.block_pattern[i % self.pattern_period]
                      for i in range(self.n_layers))
+
+    def state_planes(self) -> Tuple[StatePlaneSpec, ...]:
+        """One :class:`StatePlaneSpec` per layer, in layer order."""
+        out = []
+        for kind in self.layer_kinds():
+            mixer = parse_block(kind)[0]
+            plane = MIXER_STATE[mixer]
+            out.append(StatePlaneSpec(
+                kind=kind, mixer=mixer, plane=plane, grows=plane == "kv",
+                window=self.sliding_window if mixer == "swa" else None))
+        return tuple(out)
+
+    @property
+    def has_kv_layers(self) -> bool:
+        """Some layer carries a growing KV plane: only then do slot rings
+        and page reservations hold positions (a pure-recurrent stack
+        reserves no page)."""
+        return any(sp.plane == "kv" for sp in self.state_planes())
+
+    @property
+    def has_recurrent_layers(self) -> bool:
+        return any(sp.plane == "rec" for sp in self.state_planes())
 
     @property
     def moe_layer_count(self) -> int:

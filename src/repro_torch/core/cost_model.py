@@ -126,12 +126,25 @@ def check_fits(need: int, what: str, dev) -> None:
 
 
 def recurrent_state_bytes(cfg: ModelConfig) -> int:
-    """Recurrent decode state of one sequence.  The port runs attention
-    blocks only (``transformer.BLOCK_KINDS``: the config zoo's attention
-    half too), which keep no recurrent state, so this is 0; the
-    reference's RG-LRU/mLSTM/sLSTM terms come with those mixers (ROADMAP
-    queue 1, item 6, sub-item 3)."""
-    return 0
+    """Fixed-size recurrent decode state of one sequence, summed over the
+    layers (``models/recurrent.init_*_state``: float32 carries, the
+    RG-LRU's conv prefix in the parameter dtype).  Flat in the context
+    length: a recurrent layer's per-token decode cost does not grow with
+    it."""
+    H = cfg.n_heads
+    dh = cfg.d_model // H
+    D = cfg.d_model
+    pdt = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    total = 0
+    for kind in cfg.layer_kinds():
+        mixer = parse_block(kind)[0]
+        if mixer == "rglru":   # h (D, f32) + conv prefix ((cw-1) * D)
+            total += 4 * D + pdt * (cfg.rglru_conv_width - 1) * D
+        elif mixer == "mlstm":  # C (H, dh, dh) + n (H, dh) + m (H), f32
+            total += 4 * (H * dh * dh + H * dh + H)
+        elif mixer == "slstm":  # h, c, n, m, each (H, dh), f32
+            total += 4 * 4 * H * dh
+    return total
 
 
 def kv_read_bytes_per_token(cfg: ModelConfig, context_len: float,

@@ -32,7 +32,7 @@
 // tiles are issued longest-first, so the causal grid's long rows start early.
 //
 // Two instances of that design:
-//  * bfloat16, head_dim 64, 96 or 128, 16-byte aligned rows (the model's case),
+//  * bfloat16, head_dim 64, 96, 128 or 256, 16-byte aligned rows (the model's case),
 //    namespace tc, on the tensor cores through warpgroup wgmma.  A block owns
 //    (query tile, KV head, batch) and stacks the G query heads of its KV head
 //    as its rows (4 heads x 32 positions = 128 rows for Mixtral), so each
@@ -53,13 +53,20 @@
 //    head_dim 96 runs the 128 instance: the tensor maps zero-fill columns
 //    96 .. 127, which add exact zeros to Q K^T and give zero output columns
 //    that are not stored (a third more work than a 96-wide instance).
-//  * float32, unaligned bfloat16 or head_dim 32: float32 FMAs outside the tensor cores,
-//    the first version.  Tiles of Q (pre-scaled by log2(e) / sqrt(D)), K and
+//    head_dim 256 (recurrentgemma): one consumer warpgroup (64 rows: its
+//    m64n256 output accumulator is 128 registers a thread), Q 32 KB and
+//    three stages of 32 KB K and V tiles (four 64-column swizzle panels a
+//    row) in 224 KB; P V as two m64n128k16 per key step, panels 0-1 then
+//    2-3.
+//  * float32, unaligned bfloat16 or head_dim 32: float32 FMAs outside the
+//    tensor cores, the first version.  Tiles of Q (pre-scaled by log2(e) / sqrt(D)), K and
 //    V are staged in shared memory as float32; each of the 16 x 16 threads
 //    owns 4 query rows and 4 keys of the score tile (float4 reads along D,
 //    padded rows so the reads are free of bank conflicts) and 4 rows x D/16
 //    columns of the output; P goes through shared memory between the two
-//    products.
+//    products.  At head_dim 256 the Q, K, V and P tiles take 211 KB of the
+//    227 KB a block may use, and a thread keeps 4 rows x 16 output columns:
+//    one block per SM.
 //
 // Launches on the caller's stream, allocates nothing, and returns
 // cudaGetLastError().
@@ -289,6 +296,7 @@ int launch_d(const void* q, const void* k, const void* v, void* out, Strides qs,
     case 64: return launch<T, 64>(q, k, v, out, qs, ks, vs, os, B, H, G, Sq, Skv, causal, window, q_offset, stream);
     case 96: return launch<T, 96>(q, k, v, out, qs, ks, vs, os, B, H, G, Sq, Skv, causal, window, q_offset, stream);
     case 128: return launch<T, 128>(q, k, v, out, qs, ks, vs, os, B, H, G, Sq, Skv, causal, window, q_offset, stream);
+    case 256: return launch<T, 256>(q, k, v, out, qs, ks, vs, os, B, H, G, Sq, Skv, causal, window, q_offset, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -415,6 +423,14 @@ __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)
 template <>
 __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
   wgmma_rs_n128(d, a, db);
+}
+// head_dim 256: two m64n128k16, columns 0-127 (panels 0-1) then 128-255
+// (panels 2-3, 2 x BK x SW bytes on: the descriptor's start address field,
+// in 16-byte units, carries no further on a shared address under 256 KB)
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t (&a)[4], uint64_t db) {
+  wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(d), a, db);
+  wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(d + 64), a, db + (2 * BK * SW >> 4));
 }
 
 __device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
@@ -710,7 +726,7 @@ int launch_nwg(const void* q, const void* k, const void* v, void* out, Strides q
   return launch<D, 2>(q, k, v, out, qs, ks, vs, os, B, Hkv, G, Sq, Skv, causal, window, q_offset, dh, stream);
 }
 
-// the wgmma instance: bfloat16 rows of 64, 96 or 128, at most 64 query heads per
+// the wgmma instance: bfloat16 rows of 64, 96, 128 or 256, at most 64 query heads per
 // KV head, and 16-byte rows (every base and every batch / head / row stride
 // a multiple of 8 bf16, as TMA and the paired output stores need)
 bool takes(int D, int G, const void* q, const void* k, const void* v, const void* out,
@@ -719,7 +735,7 @@ bool takes(int D, int G, const void* q, const void* k, const void* v, const void
                       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
   long long m = 0;
   for (const Strides& s : st) m |= s.b | s.h | s.s;
-  return (D == 64 || D == 96 || D == 128) && G <= 64 && p % 16 == 0 && m % 8 == 0;
+  return (D == 64 || D == 96 || D == 128 || D == 256) && G <= 64 && p % 16 == 0 && m % 8 == 0;
 }
 
 int launch_d(const void* q, const void* k, const void* v, void* out, Strides qs, Strides ks,
@@ -727,6 +743,12 @@ int launch_d(const void* q, const void* k, const void* v, void* out, Strides qs,
              int window, int q_offset, cudaStream_t stream) {
   if (D == 64)
     return launch_nwg<64>(q, k, v, out, qs, ks, vs, os, B, Hkv, G, Sq, Skv, causal, window, q_offset, D, stream);
+  // 256: one consumer warpgroup.  With two (288 threads) a thread may hold
+  // 224 registers, short of the 128-register accumulator, the scores, P and
+  // the addresses; and two warpgroups' Q (64 KB) with three stages of K and
+  // V tiles (32 KB each) would not fit 227 KB of shared memory
+  if (D == 256)
+    return launch<256, 1>(q, k, v, out, qs, ks, vs, os, B, Hkv, G, Sq, Skv, causal, window, q_offset, D, stream);
   // 96 runs the 128 instance over zero-filled columns 96 .. 127
   return launch_nwg<128>(q, k, v, out, qs, ks, vs, os, B, Hkv, G, Sq, Skv, causal, window, q_offset, D, stream);
 }

@@ -41,9 +41,9 @@
 // before one online-softmax update per chunk.  Masking is per key, so pages
 // the window skip keeps are still masked inside.
 //
-// The binding's bfloat16 route (head_dim 64/96/128, pages of a multiple of
-// 16 positions) runs csrc/ragged_mma.cu on the tensor cores; this kernel
-// serves float32, head_dim 32 and other page sizes (head_dim 32, 64, 96, 128).  Launches on the
+// The binding's bfloat16 route (head_dim 64/96/128/256, pages of a multiple
+// of 16) runs csrc/ragged_mma.cu on the tensor cores; this kernel serves
+// float32, head_dim 32 and other page sizes (head_dim 32, 64, 96, 128, 256).  Launches on the
 // caller's stream, allocates nothing (the caller passes the scratch), and
 // returns cudaGetLastError().
 #include <cuda_bf16.h>
@@ -327,6 +327,8 @@ int launch_typed(const void* q, const void* kp, const void* vp, const int* ppos,
     case 96: return launch_dpl<3, T>(qt, kt, vt, ppos, qpos, work, n_seg, part_acc, part_ml,
                                      ot, B, C, H, Hkv, ps, window, stream);
     case 128: return launch_dpl<4, T>(qt, kt, vt, ppos, qpos, work, n_seg, part_acc, part_ml,
+                                      ot, B, C, H, Hkv, ps, window, stream);
+    case 256: return launch_dpl<8, T>(qt, kt, vt, ppos, qpos, work, n_seg, part_acc, part_ml,
                                       ot, B, C, H, Hkv, ps, window, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -42,9 +42,13 @@
 //    segments' loads in flight; rows without work are zeroed by B extra
 //    blocks.  No combine pass.
 //
-// Scope: bfloat16, head_dim 64, 96 or 128, page size a multiple of 16, G <= 64
-// (at 96 a key row is 208 bytes: 13 16-byte units, odd, so ldmatrix stays
-// conflict-free; 6 k16 chunks of q.k, 12 n8 tiles of the output).
+// Scope: bfloat16, head_dim 64, 96, 128 or 256, page size a multiple of 16,
+// G <= 64 (at 96 a key row is 208 bytes: 13 16-byte units, odd, so ldmatrix
+// stays conflict-free; 6 k16 chunks of q.k, 12 n8 tiles of the output).  At
+// 256 (recurrentgemma, G = 16: decode fills one m16 tile) a key row is 528
+// bytes, 33 units; a 16-position page is 16.9 KB, so 3 stages x 4 pages take
+// 199 KB, and the warps' merge area (66 KB) reuses that ring after the loop;
+// a thread holds Q as 16 k16 fragments and 32 n8 accumulator tiles.
 // float32, head_dim 32 and other page sizes run csrc/ragged_attention.cu.
 // Launches on the caller's stream, allocates nothing (the caller passes
 // the scratch and the zeroed counters), and returns cudaGetLastError().
@@ -452,6 +456,8 @@ extern "C" int ragged_mma(const void* q, const void* kp, const void* vp, const i
     case 96: return launch<96>(q, kp, vp, ppos, qpos, work, n_seg, part_acc, part_ml, counters,
                                out, B, C, H, Hkv, ps, ct, ksplit, window, s);
     case 128: return launch<128>(q, kp, vp, ppos, qpos, work, n_seg, part_acc, part_ml, counters,
+                                 out, B, C, H, Hkv, ps, ct, ksplit, window, s);
+    case 256: return launch<256>(q, kp, vp, ppos, qpos, work, n_seg, part_acc, part_ml, counters,
                                  out, B, C, H, Hkv, ps, ct, ksplit, window, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

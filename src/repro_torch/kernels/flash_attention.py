@@ -18,7 +18,9 @@ H, d) activations and KV ring without a copy.
   block loops over the KV tiles that can intersect its query tile's
   window, with the online softmax in registers; bf16 (head_dim 64 / 96 / 128)
   on ``wgmma`` with one block per (query tile, KV head, batch) and that
-  KV head's query heads stacked as rows, K/V tiles loaded by TMA.
+  KV head's query heads stacked as rows, K/V tiles loaded by TMA (head_dim
+  256 with one consumer warpgroup); float32, unaligned bf16 and head_dim
+  32 on float32 FMAs.
 * :func:`flash_attention`, the dispatch: a CPU tensor takes the plain
   version; a CUDA tensor launches the kernel (or raises) and counts the
   launch in ``flash_attention.launches``.  ``launch.routes`` counts the
@@ -36,7 +38,7 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 96, 128)
+_HEAD_DIMS = (32, 64, 96, 128, 256)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -96,10 +98,11 @@ def _as_4d(t: torch.Tensor, what: str) -> torch.Tensor:
 def wgmma_scope(q4, k4, v4, out) -> bool:
     """Whether the kernel runs its ``wgmma`` instance on these 4-D
     tensors (the kernel's own dispatch, ``tc::takes``): bfloat16, head_dim
-    64, 96 (on the 128 instance, columns 96-127 zero-filled) or 128, at most 64 query heads per KV head, 16-byte aligned bases
+    64, 96 (on the 128 instance, columns 96-127 zero-filled), 128 or 256,
+    at most 64 query heads per KV head, 16-byte aligned bases
     and batch / head / row strides a multiple of 8 elements."""
     ts = (q4, k4, v4, out)
-    return (q4.dtype == torch.bfloat16 and q4.shape[-1] in (64, 96, 128)
+    return (q4.dtype == torch.bfloat16 and q4.shape[-1] in (64, 96, 128, 256)
             and q4.shape[1] // k4.shape[1] <= 64
             and all(t.data_ptr() % 16 == 0 for t in ts)
             and all(t.stride(i) % 8 == 0 for t in ts for i in range(3)))

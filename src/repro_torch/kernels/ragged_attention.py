@@ -16,7 +16,7 @@ lives at page ``pages[b, p // page_size]``, offset ``p % page_size``.
   reads, so pages beyond a row's live length or wholly outside the
   window are never read; :func:`pack_worklist` cuts each row's pages
   into segments of at most ``SEG_PAGES``, one block each.  Two routes:
-  bfloat16 with head_dim 64/96/128 and pages of a multiple of 16 positions
+  bfloat16 with head_dim 64/96/128/256 and pages of a multiple of 16 positions
   (:func:`mma_scope`) run the tensor-core kernel ``csrc/ragged_mma.cu``
   (:func:`launch_mma`: query tiles x heads as ``mma.sync`` rows, one
   launch); float32, head_dim 32 and other pages the warp-reduction
@@ -39,7 +39,7 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 96, 128)
+_HEAD_DIMS = (32, 64, 96, 128, 256)
 _SMEM_LIMIT = 227 * 1024  # shared memory a block may use on Hopper
 SEG_PAGES = 16  # pages one block reads: long rows split over more blocks
 _P = ctypes.c_void_p
@@ -269,8 +269,8 @@ def mma_scope(q, kp, ppos) -> Optional[str]:
     ps, Hkv = kp.shape[1], kp.shape[2]
     if q.dtype != torch.bfloat16:
         return f"q is {q.dtype}, the tensor-core kernel reads bfloat16"
-    if hd not in (64, 96, 128) or ps % 16 or H % Hkv or H // Hkv > MMA_ROWS:
-        return (f"head_dim {hd} (64, 96 or 128), page size {ps} (a multiple of "
+    if hd not in (64, 96, 128, 256) or ps % 16 or H % Hkv or H // Hkv > MMA_ROWS:
+        return (f"head_dim {hd} (64, 96, 128 or 256), page size {ps} (a multiple of "
                 f"16) or {H} heads over {Hkv}")
     if _mma_smem(ps, hd, mma_tiles(C, H // Hkv)[2]) > _SMEM_LIMIT:
         return f"pages of {ps} x {hd} do not fit the kernel's shared memory"

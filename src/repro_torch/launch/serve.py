@@ -39,8 +39,9 @@ a model whose dense experts exceed the card's memory still starts.  A
 model whose resident weights exceed the card's free memory (a 64-layer
 ``command-r-plus-104b``: ~208 GB in bf16) is refused with the bytes it
 needs and the bytes free (``cost_model.check_fits``); there is no
-layer-cut flag.  The zoo's recurrent and encoder-decoder configs are
-refused (ROADMAP queue 1, item 6, sub-items 3-4).  Random weights come
+layer-cut flag.  The recurrent configs (``recurrentgemma-9b``,
+``xlstm-1.3b``) serve like the others; the encoder-decoder
+(``whisper-medium``) is refused (ROADMAP queue 1, item 6, sub-item 4).  Random weights come
 from ``--seed`` through the port's own generator, so the tokens equal
 the reference's only on shared weights: ``--checkpoint`` reads the
 reference's checkpoint files.
@@ -312,7 +313,7 @@ def _check_flags(args):
 
 
 def _config(args, dev):
-    """The served config: the recurrent and encoder-decoder zoo refused;
+    """The served config: the encoder-decoder refused;
     on the CPU a config wider than d_model 1024 or a vocabulary of 100k
     reduced as the reference's launcher does; the router top-k override
     applied."""

@@ -1,27 +1,31 @@
-"""Model assembly of the ported slices: blocks of (SWA or global)
-attention + MoE FFN or dense MLP, pre-norm residual.
+"""Model assembly of the ported slices: blocks of a mixer ((SWA or
+global) attention, or the recurrent RG-LRU / mLSTM / sLSTM of
+``models/recurrent``) + MoE FFN, dense MLP or no FFN, pre-norm residual.
 
-Port of the reference's ``models/transformer.py`` for the ``swa+moe``,
-``attn+moe``, ``swa+mlp`` and ``attn+mlp`` block kinds (rmsnorm or
-layernorm, swiglu / geglu / gelu, optional attention biases, logit
-softcap, the image-token stub).  The reference stacks each pattern
-position's parameters over periods for ``lax.scan`` and keeps the layers
-past the last whole period (tail layers) apart; the port keeps one dict
-per layer, ``params["layers"][l]``, tail included, and loops in Python
-(``bridge`` un-stacks the reference's layout).  The decode state
-is one dense KV ring per layer plus the shared position (an int) or
-per-row positions (a host (B,) array), or, paged, one page pool per
-layer plus a page table and per-row positions kept on the host (numpy);
-pools and rings are updated in place, positions never read back.
+Port of the reference's ``models/transformer.py`` for every block kind
+but the encoder-decoder's (rmsnorm or layernorm, swiglu / geglu / gelu,
+optional attention biases, logit softcap, the image-token stub).  The
+reference stacks each pattern position's parameters over periods for
+``lax.scan`` and keeps the layers past the last whole period (tail
+layers) apart; the port keeps one dict per layer, ``params["layers"][l]``,
+tail included, and loops in Python (``bridge`` un-stacks the reference's
+layout).  The decode state is one dense KV ring per attention layer plus
+the shared position (an int) or per-row positions (a host (B,) array),
+or, paged, one page pool per attention layer plus a page table and
+per-row positions kept on the host (numpy); pools and rings are updated
+in place, positions never read back.  A recurrent layer's state (``{"rec": ...}``, the reference's "rec"
+plane) is fixed-size and dense, one row per batch row, paged config or
+not; a step replaces it, except where a row chunk writes its row in
+place, and rows outside ``active`` keep theirs bit for bit.
 
 :func:`decode_step` is the plain plane's step (the reference's
 ``decode_step(moe_mode="gather")``): dense resident weights, MoE by the
 per-token gather, on dense or paged states.  The packed planes run the
 same mixer (:func:`decode_block_packed_mixer`) and their own MoE halves.
 :func:`forward_train` is the training forward: full-sequence attention
-and the scatter-dispatch MoE, plain PyTorch under autograd, with
-optional activation checkpointing per period of the block pattern (the
-tail layers outside it); with
+(or the recurrent mixers' training forms) and the scatter-dispatch MoE,
+plain PyTorch under autograd, with optional activation checkpointing per
+period of the block pattern (the tail layers outside it); with
 ``want_state`` it is also the static engine's prefill (:func:`prefill`).
 """
 from __future__ import annotations
@@ -34,24 +38,27 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig, parse_block
+from repro_torch.configs.base import MIXER_STATE, ModelConfig, parse_block
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import recurrent as R
 
-BLOCK_KINDS = ("swa+moe", "attn+moe", "swa+mlp", "attn+mlp")
+ATTN_MIXERS = ("attn", "swa")
+REC_MIXERS = ("rglru", "mlstm", "slstm")
 NORMS = ("rmsnorm", "layernorm")
 MLP_ACTS = ("swiglu", "geglu", "gelu")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Refuse what the port does not run yet: the recurrent and
-    encoder-decoder mixers (ROADMAP queue 1, item 6, sub-items 3-4)."""
-    bad = sorted(set(cfg.layer_kinds()) - set(BLOCK_KINDS))
+    """Refuse what the port does not run yet: the encoder-decoder mixers
+    (ROADMAP queue 1, item 6, sub-item 4)."""
+    mixers = {parse_block(k)[0] for k in cfg.layer_kinds()}
+    bad = sorted(mixers - set(ATTN_MIXERS) - set(REC_MIXERS))
     if bad or cfg.encoder_layers:
         raise NotImplementedError(
-            f"{cfg.name}: block kinds {bad or cfg.layer_kinds()} are not "
-            f"ported yet (the port runs {BLOCK_KINDS}; the recurrent mixers "
-            f"are ROADMAP item 6 sub-item 3, the encoder-decoder sub-item 4)")
+            f"{cfg.name}: mixers {bad or sorted(mixers)} are not ported yet "
+            f"(the port runs {ATTN_MIXERS + REC_MIXERS} without an encoder; "
+            f"the encoder-decoder is ROADMAP item 6 sub-item 4)")
     if cfg.norm not in NORMS or cfg.mlp_act not in MLP_ACTS:
         raise NotImplementedError(
             f"{cfg.name}: norm {cfg.norm!r} or activation {cfg.mlp_act!r} "
@@ -59,11 +66,19 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def _init_block(gen, cfg: ModelConfig, kind: str):
-    ffn = parse_block(kind)[1]
-    return {"norm1": L.init_norm(cfg, gen.device),
-            "attn": L.init_attention(gen, cfg),
-            "norm2": L.init_norm(cfg, gen.device),
-            ffn: M.init_moe(gen, cfg) if ffn == "moe" else L.init_mlp(gen, cfg)}
+    """A block's parameters: ``norm1`` and the mixer's (``attn``, or the
+    recurrent mixer's name), then ``norm2`` and the FFN's unless the
+    block has none (the reference's ``_init_block``)."""
+    mixer, ffn = parse_block(kind)
+    p = {"norm1": L.init_norm(cfg, gen.device)}
+    if mixer in REC_MIXERS:
+        p[mixer] = R.INIT[mixer](gen, cfg)
+    else:
+        p["attn"] = L.init_attention(gen, cfg)
+    if ffn != "none":
+        p["norm2"] = L.init_norm(cfg, gen.device)
+        p[ffn] = M.init_moe(gen, cfg) if ffn == "moe" else L.init_mlp(gen, cfg)
+    return p
 
 
 def init_model(cfg: ModelConfig, *, seed: int = 0, device=None,
@@ -109,9 +124,34 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     if cfg.attn_out_bias:
         attn["bo"] = leaf(D)
 
+    f32 = lambda *shape: (tuple(shape), torch.float32)
+    dh = D // H
+    rec = {
+        "rglru": {"w_x": leaf(D, D), "w_gate_br": leaf(D, D),
+                  "conv_w": leaf(cfg.rglru_conv_width, D), "conv_b": leaf(D),
+                  "w_rec_gate": leaf(D, D), "w_in_gate": leaf(D, D),
+                  "lam": f32(D), "w_out_r": leaf(D, D)},
+        "mlstm": {"wq": leaf(D, H, dh), "wk": leaf(D, H, dh),
+                  "wv": leaf(D, H, dh), "wf": f32(D, H), "bf": f32(H),
+                  "wi": f32(D, H), "bi": f32(H), "w_ogate": leaf(D, D),
+                  "headnorm": f32(H, dh), "out_proj": leaf(D, D)},
+        "slstm": {"w_gates_in": leaf(D, R.N_SGATES, H, dh),
+                  "r_gates": leaf(R.N_SGATES, H, dh, dh),
+                  "b_gates": f32(R.N_SGATES, H, dh), "headnorm": f32(H, dh),
+                  "out_proj": leaf(D, D)},
+    }
+
     def block(kind):
-        out = {"norm1": norm, "attn": attn, "norm2": norm}
-        if parse_block(kind)[1] == "moe":
+        mixer, ffn = parse_block(kind)
+        out = {"norm1": norm}
+        if mixer in REC_MIXERS:
+            out[mixer] = rec[mixer]
+        else:
+            out["attn"] = attn
+        if ffn == "none":
+            return out
+        out["norm2"] = norm
+        if ffn == "moe":
             E = cfg.moe.num_experts
             out["moe"] = {"router": ((D, E), torch.float32),
                           "experts": {"w_gate": leaf(E, D, F),
@@ -193,20 +233,31 @@ def _attn_train_with_cache(p, cfg: ModelConfig, h, positions, window,
 def _block_train(p, cfg: ModelConfig, kind: str, x, positions, pad_mask,
                  max_len=None):
     """One block over the full sequence: (x, load-balance term or None,
-    the layer's decode state when ``max_len`` asks for one, else None)."""
+    the layer's decode state when ``max_len`` asks for one, else None).
+    A recurrent mixer runs its training form (pads are not masked out of
+    it: callers do not left-pad a recurrent stack) and its state is its
+    final carry."""
+    mixer, ffn = parse_block(kind)
     h = L.apply_norm(p["norm1"], cfg, x)
-    window = attention_window(cfg, kind)
     st = None
-    if max_len is None:
-        y = L.attention_train(p["attn"], cfg, h, positions, window=window,
+    if mixer in REC_MIXERS:
+        y, rec = R.TRAIN[mixer](p[mixer], cfg, h)
+        if max_len is not None:
+            st = {"rec": rec}
+    elif max_len is None:
+        y = L.attention_train(p["attn"], cfg, h, positions,
+                              window=attention_window(cfg, kind),
                               pad_mask=pad_mask)
     else:
-        y, kv = _attn_train_with_cache(p["attn"], cfg, h, positions, window,
-                                       max_len, pad_mask)
+        y, kv = _attn_train_with_cache(p["attn"], cfg, h, positions,
+                                       attention_window(cfg, kind), max_len,
+                                       pad_mask)
         st = {"kv": kv}
     x = x + y
+    if ffn == "none":
+        return x, None, st
     h2 = L.apply_norm(p["norm2"], cfg, x)
-    if parse_block(kind)[1] == "mlp":
+    if ffn == "mlp":
         return x + L.apply_mlp(p["mlp"], cfg, h2), None, st
     B, S, D = h2.shape
     y2d, aux = M.moe_apply_dispatch(
@@ -227,8 +278,9 @@ def forward_train(params, cfg: ModelConfig, batch, *, remat: bool = False,
     ``jax.checkpoint`` of its scan body); tail layers run outside it.
 
     ``want_state`` also returns the decode state the prompt leaves (the
-    static engine's prefill): every layer's KV ring of ``max_len``
-    (default S) positions (:func:`_attn_train_with_cache`), and ``pos``,
+    static engine's prefill): every attention layer's KV ring of
+    ``max_len`` (default S) positions (:func:`_attn_train_with_cache`),
+    every recurrent layer's final carry, and ``pos``,
     S for every row, or with a pad mask each row's real-token count as a
     host (B,) array: the per-row positions decode continues from."""
     check_supported(cfg)
@@ -291,18 +343,24 @@ def make_prefill(cfg: ModelConfig):
 
 
 # ----------------------------------------------------------------------
-def block_decode(p, cfg: ModelConfig, kind: str, x_t, state, pos, step=None):
-    """One plain block's step: the mixer (over a dense KV ring, or the
-    prepared per-row or paged ``step``), then the MoE by the per-token
-    gather over the dense expert stack, or the dense MLP.  Returns (x_t,
-    state, info); info is ``{"route": {ids, weights, probs},
-    "hidden_pre_moe": (B*C, D)}`` for an MoE block, ``{}`` otherwise (the
-    reference's ``_block_decode(moe_mode="gather")``)."""
+def block_decode(p, cfg: ModelConfig, kind: str, x_t, state, pos, step=None,
+                 *, active=None, row=None):
+    """One plain block's step: the mixer (attention over a dense KV ring,
+    or the prepared per-row or paged ``step``; a recurrent mixer from its
+    carried state, :func:`decode_block_packed_mixer`), then the MoE by the
+    per-token gather over the dense expert stack, the dense MLP, or
+    nothing.  Returns (x_t, state, info); info is ``{"route": {ids,
+    weights, probs}, "hidden_pre_moe": (B*C, D)}`` for an MoE block, ``{}``
+    otherwise (the reference's ``_block_decode(moe_mode="gather")``)."""
     x_t, state, h2 = decode_block_packed_mixer(p, cfg, kind, x_t, state, pos,
-                                               step=step)
+                                               step=step, active=active,
+                                               row=row)
+    ffn = parse_block(kind)[1]
+    if ffn == "none":
+        return x_t, state, {}
     B, S, D = h2.shape
     h2d = h2.reshape(B * S, D)
-    if parse_block(kind)[1] == "moe":
+    if ffn == "moe":
         y2d, route = M.moe_apply_gather(p["moe"], cfg, h2d)
         info = {"route": route, "hidden_pre_moe": h2d}
     else:
@@ -331,6 +389,11 @@ def decode_step(params, cfg: ModelConfig, state, tokens, *,
       tokens (1, C) as that row's chunk against the shared page pools,
       through the ragged binding, advancing only that row.
 
+    A recurrent layer steps its carry: at C = 1 by its decode form, at C
+    > 1 by its chunk form; rows outside ``active`` keep their carry bit
+    for bit (dense or paged), and a row chunk reads and writes its row's
+    carry alone.
+
     ``step`` is the step's prepared :func:`prepare_step` (built here when
     not given)."""
     if row is not None and "pages" not in state:
@@ -345,7 +408,7 @@ def decode_step(params, cfg: ModelConfig, state, tokens, *,
     for l, kind in enumerate(cfg.layer_kinds()):
         x, state["layers"][l], info = block_decode(
             layer_params(params, cfg, l), cfg, kind, x, state["layers"][l],
-            pos, step)
+            pos, step, active=active, row=row)
         infos.append(info)
     logits = apply_head(params, cfg, x)
     state = dict(state, pos=advance(state, C, active=active, row=row))
@@ -353,10 +416,20 @@ def decode_step(params, cfg: ModelConfig, state, tokens, *,
 
 
 def attention_windows(cfg: ModelConfig):
-    """The distinct attention windows of the stack, in layer order (one
-    ragged work list each)."""
+    """The distinct attention windows of the stack's KV layers, in layer
+    order (one ragged work list each; none on a pure-recurrent stack)."""
     return tuple(dict.fromkeys(attention_window(cfg, k)
-                               for k in cfg.layer_kinds()))
+                               for k in cfg.layer_kinds()
+                               if MIXER_STATE[parse_block(k)[0]] == "kv"))
+
+
+def _page_size(state) -> int:
+    """The page size of a paged state: its first KV layer's; 1 on a
+    stack without one (its page table maps nothing)."""
+    for blk in state["layers"]:
+        if "kv" in blk:
+            return int(blk["kv"]["ppos"].shape[1])
+    return 1
 
 
 def prepare_step(cfg: ModelConfig, state, C: int, device, *, active=None,
@@ -371,8 +444,7 @@ def prepare_step(cfg: ModelConfig, state, C: int, device, *, active=None,
         rows = slice(None) if row is None else slice(row, row + 1)
         return L.paged_step(pos[rows], state["pages"][rows],
                             None if row is not None else active, C,
-                            state["layers"][0]["kv"]["ppos"].shape[1],
-                            device, attention_windows(cfg), staging,
+                            _page_size(state), device, attention_windows(cfg), staging,
                             tokens=tokens)
     if isinstance(pos, np.ndarray):
         return L.ring_step(pos, C, device, staging, active=active,
@@ -397,21 +469,68 @@ def advance(state, C: int, *, active=None, row=None):
 
 
 def decode_block_packed_mixer(p, cfg: ModelConfig, kind: str, x_t, state,
-                              pos, pages=None, active=None, step=None):
-    """Mixer half of a block's step (every plane): norm1 + attention +
-    residual, plus the pre-MoE norm.  x_t: (B, C, D); the KV ring in
-    ``state["kv"]`` is written at ``pos .. pos+C-1``, at each row's own
-    position with a ``layers.RingStep``, or with ``pages`` (or a prepared
-    ``layers.PagedStep``) the page pool at each row's own positions,
-    active rows only.  Returns (x_t, state, h2 (B, C, D))."""
+                              pos, pages=None, active=None, step=None,
+                              row=None):
+    """Mixer half of a block's step (every plane): norm1 + mixer +
+    residual, plus the pre-FFN norm.  x_t: (B, C, D).  Attention writes
+    the KV ring in ``state["kv"]`` at ``pos .. pos+C-1``, at each row's
+    own position with a ``layers.RingStep``, or with ``pages`` (or a
+    prepared ``layers.PagedStep``) the page pool at each row's own
+    positions, active rows only.  A recurrent mixer steps
+    ``state["rec"]`` (:func:`_rec_step`).  Returns (x_t, state, h2 (B, C,
+    D), or None on a block without an FFN)."""
+    mixer, ffn = parse_block(kind)
     h = L.apply_norm(p["norm1"], cfg, x_t)
-    window = attention_window(cfg, kind)
-    y, kv = L.attention_decode(p["attn"], cfg, h, state["kv"], pos,
-                               window=window, pages=pages, active=active,
-                               step=step)
-    state = dict(state, kv=kv)
+    if mixer in REC_MIXERS:
+        y, rec = _rec_step(p[mixer], cfg, mixer, h, state["rec"],
+                           active=active, step=step, row=row)
+        state = dict(state, rec=rec)
+    else:
+        y, kv = L.attention_decode(p["attn"], cfg, h, state["kv"], pos,
+                                   window=attention_window(cfg, kind),
+                                   pages=pages, active=active, step=step)
+        state = dict(state, kv=kv)
     x_t = x_t + y
+    if ffn == "none":
+        return x_t, state, None
     return x_t, state, L.apply_norm(p["norm2"], cfg, x_t)
+
+
+def _active_rows(active, step, C: int, device):
+    """The (r,) long device indices of the active rows, or None when every
+    row is active: from the prepared step's token rows where there is
+    one, else uploaded."""
+    if active is None:
+        return None
+    act = np.asarray(active, bool)
+    if act.all():
+        return None
+    if step is not None:
+        return step.rows.view(-1, C)[:, 0] // C
+    return torch.as_tensor(np.flatnonzero(act), device=device)
+
+
+def _rec_step(p, cfg: ModelConfig, mixer: str, h, rec, *, active=None,
+              step=None, row=None):
+    """A recurrent mixer's step over h (B, C, D): the decode form at C = 1,
+    the chunk form at C > 1 (the reference's ``_mixer_decode``).  With
+    ``row`` (h is that row's (1, C, D) chunk) only that row's carry is read
+    and written back, in place; otherwise rows outside ``active`` keep
+    their carry bit for bit (the reference's ``_gate_rows``).  Returns
+    (y, rec)."""
+    C = h.shape[1]
+    fn = R.DECODE[mixer] if C == 1 else R.CHUNK[mixer]
+    if row is not None:
+        y, new = fn(p, cfg, h, {k: v[row: row + 1] for k, v in rec.items()})
+        for k, v in rec.items():
+            v[row] = new[k][0]
+        return y, rec
+    y, new = fn(p, cfg, h, rec)
+    idx = _active_rows(active, step, C, h.device)
+    if idx is not None:
+        new = {k: rec[k].index_copy(0, idx, v.index_select(0, idx))
+               for k, v in new.items()}
+    return y, new
 
 
 def decode_block_packed_moe(p, cfg: ModelConfig, x_t, h2, store, pstate,
@@ -457,27 +576,35 @@ def attention_window(cfg: ModelConfig, kind: str):
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
                       device, *, kv_pages: int = None, kv_page: int = None,
                       kv_max_pages: int = None) -> Dict[str, Any]:
-    """One dense KV ring per layer (SWA layers ring at the window) and the
-    shared start position of the next chunk.
+    """One dense KV ring per attention layer (SWA layers ring at the
+    window), one zero recurrent state per recurrent layer (``{"rec":
+    ...}``, B rows), and the shared start position of the next chunk.
 
-    ``kv_pages``/``kv_page``/``kv_max_pages`` switch to block-paged KV:
-    every layer holds a batch-free pool of ``kv_pages`` pages of
-    ``kv_page`` positions, and the state grows a page table ``pages``
+    ``kv_pages``/``kv_page``/``kv_max_pages`` switch the attention layers
+    to block-paged KV: each holds a batch-free pool of ``kv_pages`` pages
+    of ``kv_page`` positions, and the state grows a page table ``pages``
     ((batch, kv_max_pages), -1 = unallocated) shared by all layers and
     per-row positions ``pos`` (batch,), both numpy on the host, where the
-    serving layer keeps them authoritative."""
+    serving layer keeps them authoritative.  Recurrent layers keep their
+    dense rows either way (a pure-recurrent stack has no pool at all)."""
     check_supported(cfg)
     dev = resolve_device(device)
+
+    def layer(kind):
+        mixer = parse_block(kind)[0]
+        if mixer in REC_MIXERS:
+            return {"rec": R.INIT_STATE[mixer](cfg, batch, dev)}
+        if kv_page is not None:
+            return {"kv": L.init_paged_attn_cache(cfg, kv_pages, kv_page,
+                                                  dev)}
+        return {"kv": L.init_attn_cache(cfg, batch, max_len, dev,
+                                        attention_window(cfg, kind))}
+
+    layers = [layer(kind) for kind in cfg.layer_kinds()]
     if kv_page is not None:
-        return {"layers": [{"kv": L.init_paged_attn_cache(cfg, kv_pages,
-                                                          kv_page, dev)}
-                           for _ in cfg.layer_kinds()],
-                "pos": np.zeros((batch,), np.int32),
+        return {"layers": layers, "pos": np.zeros((batch,), np.int32),
                 "pages": np.full((batch, kv_max_pages), -1, np.int32)}
-    rings = [{"kv": L.init_attn_cache(cfg, batch, max_len, dev,
-                                      attention_window(cfg, kind))}
-             for kind in cfg.layer_kinds()]
-    return {"layers": rings, "pos": 0}
+    return {"layers": layers, "pos": 0}
 
 
 def layer_params(params, cfg: ModelConfig, layer_idx: int):

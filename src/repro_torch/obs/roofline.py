@@ -21,8 +21,10 @@ Hot-path discipline: the per-step feed is two integer adds.  Transfer
 counters are read only at window boundaries; in the port they are the
 pool state's host-side ``counts`` array (the LRU state machine runs on
 the host), so the read is no device synchronisation at all.
-``rec_state_bytes_per_token`` and ``enc_kv_read_bytes_per_token`` are 0:
-the port runs no recurrent or encoder-decoder stack yet.
+``rec_state_bytes_per_token`` is the recurrent state read and written
+once per decode token (``cost_model.recurrent_state_bytes``, 0 on an
+attention-only stack); ``enc_kv_read_bytes_per_token`` is 0: the port
+runs no encoder-decoder stack yet.
 """
 from __future__ import annotations
 
@@ -91,8 +93,8 @@ class RooflineAccountant:
         self._g["window_steps"].set(self.window)
         self._g["windows"].set(0)
         # per-layer-kind state-plane traffic: the recurrent carries (read
-        # and written) and the encoder-KV cross-read at zero decoded
-        # context; both 0 on the attention stacks the port runs
+        # and written; 0 on an attention-only stack) and the encoder-KV
+        # cross-read (0: the port runs no encoder)
         self._g["rec_state_bytes_per_token"].set(
             2.0 * cost_model.recurrent_state_bytes(cfg))
         self._g["enc_kv_read_bytes_per_token"].set(

@@ -158,8 +158,10 @@ class Executor:
 
     def _chunk_ffn(self, p, x, h2, l: int):
         """The FFN half of a packed prompt chunk's layer ``l``: store-direct
-        through the prefill tier on an MoE layer, the dense MLP
-        otherwise."""
+        through the prefill tier on an MoE layer, the dense MLP on an MLP
+        layer, nothing on a block without an FFN (``h2`` None)."""
+        if h2 is None:
+            return x
         if l not in self.moe_ordinal:
             return x + L.apply_mlp(p["mlp"], self.cfg, h2)
         return T.prefill_block_packed_moe(p, self.cfg, x, h2, self.store,
@@ -253,11 +255,14 @@ class Executor:
             p = T.layer_params(self.params, cfg, l)
             st_l = state["layers"][l]
             x, st_l, h2 = T.decode_block_packed_mixer(p, cfg, kind, x, st_l,
-                                                      pos, step=step)
+                                                      pos, step=step,
+                                                      active=active)
             state["layers"][l] = st_l
             if l not in self.moe_ordinal:
-                # a dense-MLP block: one mark, the reference's non-MoE bucket
-                x = x + L.apply_mlp(p["mlp"], cfg, h2)
+                # a dense-MLP block (or none): one mark, the reference's
+                # non-MoE bucket
+                if h2 is not None:
+                    x = x + L.apply_mlp(p["mlp"], cfg, h2)
                 if obs is not None:
                     obs.mark(mixer)
                 continue
@@ -338,7 +343,8 @@ class Executor:
         for l, kind in enumerate(self.kinds):
             p = T.layer_params(self.params, cfg, l)
             x, st_l, h2 = T.decode_block_packed_mixer(
-                p, cfg, kind, x, state["layers"][l], None, step=step)
+                p, cfg, kind, x, state["layers"][l], None, step=step,
+                row=slot)
             x = self._chunk_ffn(p, x, h2, l)
             state["layers"][l] = st_l
         logits = T.apply_head(self.params, cfg, x)

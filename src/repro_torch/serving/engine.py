@@ -24,8 +24,9 @@
   decode runs as draft-and-verify: each step the draft proposes up to k
   tokens per row and the target verifies every row's proposals in one C
   = k + 1 chunk, then each row's KV rolls back past its rejection point
-  (:meth:`ContinuousEngine._step_speculative`); the tokens are those of
-  greedy decode.  On pages, a radix prefix cache lets requests that share
+  (:meth:`ContinuousEngine._step_speculative`; a recurrent stack's rows
+  by snapshot, restore and replay); the tokens are those of greedy
+  decode.  On pages, a radix prefix cache lets requests that share
   a prompt prefix share its full pages and prefill from where they
   diverge, and preemption admits optimistically and, when the pool runs
   dry, swaps a victim's pages to pinned host memory (or drops them for a
@@ -315,13 +316,18 @@ class ContinuousEngine:
                               or offload is not None))
         self.usage = (ExpertUsageTracker.for_config(cfg)
                       if self._collect else None)
-        # only sliding-window rings roll inside a dense slot, so on an
-        # all-SWA stack whose slots hold the window a request may decode
-        # past slot_len; pages are position-indexed and never roll
-        mixers = {parse_block(k)[0] for k in cfg.layer_kinds()}
-        self._unbounded = (not self.paged and mixers == {"swa"}
-                           and bool(cfg.sliding_window)
-                           and self.slot_len >= cfg.sliding_window)
+        # only growing planes consume positions: sliding-window rings roll
+        # inside a dense slot, so on an all-SWA stack whose slots hold the
+        # window a request may decode past slot_len, and a pure-recurrent
+        # stack has no growing plane at all; pages are position-indexed
+        # and never roll
+        kv_mixers = {sp.mixer for sp in cfg.state_planes() if sp.grows}
+        self._unbounded = (not self.paged
+                           and (not kv_mixers
+                                or (kv_mixers == {"swa"}
+                                    and bool(cfg.sliding_window)
+                                    and self.slot_len >= cfg.sliding_window)))
+        self._has_rec = cfg.has_recurrent_layers
         self.tokens = np.zeros((max_slots, 1), np.int32)
         self.step_count = 0
         self._gen = torch.Generator(self.device)
@@ -379,6 +385,12 @@ class ContinuousEngine:
             raise ValueError(
                 "draft-and-verify decoding is greedy-only: the acceptance "
                 "rule compares the target's argmax stream")
+        if self._has_rec and (self.paged or self.offload is not None):
+            raise ValueError(
+                f"draft-and-verify on {cfg.name!r} needs the dense plain "
+                f"engine: recurrent carries roll back by a snapshot of the "
+                f"pre-round row state and a restore, which the page-table "
+                f"trim and the packed step do not carry")
         # a wrapped ring cannot roll back: a rejected verify-chunk write
         # would overwrite the live entry W positions back.  Dense rings
         # are min(slot_len, window) wide; pages never wrap
@@ -1128,12 +1140,20 @@ class ContinuousEngine:
         its longest matching prefix plus the target's own next token, and
         the target's KV (``truncate``: a position reset on dense rings,
         the table trim on pages) and the draft's bookkeeping roll back
-        past each row's rejection point."""
+        past each row's rejection point.  On a stack with recurrent layers
+        (dense slots only) each row's state is snapshotted before the
+        round, restored after it and stepped through the accepted tokens
+        one at a time."""
         C = k_round + 1
         for req in reqs:
             if self._draft_rid[req.slot] != req.rid:
                 self._draft_admit(req)
         props = self._draft_propose(reqs, k_round)
+        # a verify chunk folds rejected tokens into the recurrent carries,
+        # which no position reset undoes: snapshot each row's state now,
+        # restore it and replay the accepted tokens after the verdict
+        snaps = ({req.slot: self.kv.snapshot(req.slot) for req in reqs}
+                 if self._has_rec else {})
         chunk = np.zeros((self.max_slots, C), np.int32)
         for req in reqs:
             chunk[req.slot, 0] = self.tokens[req.slot, 0]
@@ -1191,7 +1211,18 @@ class ContinuousEngine:
                 # roll back to where non-speculative decode would stand:
                 # prompt + generated, minus the last token not yet fed
                 self.tokens[r, 0] = req.generated[-1]
-                self.kv.truncate(r, len(req.prompt) + len(req.generated) - 1)
+                if self._has_rec:
+                    # one token at a time: C = 1 steps are plain decode's
+                    # own, so the carries (and the rings riding along) land
+                    # where non-speculative decode would leave them
+                    snap = snaps[r]
+                    for j in range(len(emitted)):
+                        _, snap, _, _ = self._exec.decode(
+                            snap, chunk[r: r + 1, j: j + 1])
+                    self.kv.restore(snap, r)
+                else:
+                    self.kv.truncate(
+                        r, len(req.prompt) + len(req.generated) - 1)
                 self._draft_consumed[r] += min(a, k_round - 1)
         if self.offload is not None:
             total = (int(self._pstate.counts[2]) + int(self._pstate.counts[3])

@@ -8,7 +8,12 @@ window's width on SWA layers) at its own position.  A request's prompt
 prefills into a fresh B = 1 row state (:meth:`KVSlotManager.new_row_state`)
 that :meth:`KVSlotManager.write_prefill` copies into its slot's row;
 nothing else in the batch is touched, and ring entries at position -1
-are invisible to attention, so a freed slot needs no scrubbing.
+are invisible to attention, so a freed slot needs no scrubbing.  A
+recurrent layer's carry rides in the same rows (the reference's "rec"
+plane, fixed-size, never paged): the install overwrites it, and
+:meth:`KVSlotManager.snapshot` / :meth:`KVSlotManager.restore` copy a
+slot's whole row out and back, the rollback of draft-and-verify on such
+a stack.
 
 On the paged plane KV lives in one pool of fixed-size pages per
 attention layer (``models/layers.init_paged_attn_cache``) and each slot
@@ -24,8 +29,10 @@ layers:
 * pages are refcounted (:class:`PagePool`): a prefix-cache hit maps the
   cache's pages as a slot's leading ordinals, and a page is freed, and
   scrubbed, only when its last holder lets go;
-* admission chunks write straight into the slot's pages: there is no
-  side state and no install copy;
+* admission chunks write straight into the slot's pages (and a recurrent
+  layer's carry into the slot's dense row, zeroed at allocation): there
+  is no side state and no install copy;
+* only attention layers hold pages: a pure-recurrent stack reserves none;
 * a decode step's table is sliced to the live page horizon
   (:meth:`PagedKVManager.live_width`) for the plain path; the kernel's
   work list skips dead pages anyway.
@@ -53,9 +60,14 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 
-def _not_ported(what: str, item: int):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1, item {item})")
+def _kv_layers(state):
+    """The KV planes of a state's attention layers (recurrent layers hold
+    a ``rec`` plane instead)."""
+    return [blk["kv"] for blk in state["layers"] if "kv" in blk]
+
+
+def _rec_layers(state):
+    return [blk["rec"] for blk in state["layers"] if "rec" in blk]
 
 
 class KVSlotManager:
@@ -108,25 +120,43 @@ class KVSlotManager:
 
     def write_prefill(self, small_state, slot: int) -> None:
         """Install a prefilled B = 1 state (``max_len == slot_len``) into
-        ``slot``: every layer's ring row and the slot's position."""
-        width = small_state["layers"][0]["kv"]["k"].shape[1]
-        slot_width = self.state["layers"][0]["kv"]["k"].shape[1]
-        if width != slot_width:
-            raise ValueError(
-                f"prefill state width {width} != slot width {slot_width}; "
-                f"prefill with max_len == slot_len")
+        ``slot``: every layer's ring row or recurrent carry, and the
+        slot's position.  The width is checked on the first layer that has
+        a ring (a hybrid may lead with recurrent layers)."""
+        rings = _kv_layers(self.state)
+        if rings:
+            width = _kv_layers(small_state)[0]["k"].shape[1]
+            slot_width = rings[0]["k"].shape[1]
+            if width != slot_width:
+                raise ValueError(
+                    f"prefill state width {width} != slot width {slot_width}; "
+                    f"prefill with max_len == slot_len")
+        self._write(small_state, slot)
+
+    def _write(self, small_state, slot: int) -> None:
         for big, small in zip(self.state["layers"], small_state["layers"]):
-            for name, t in big["kv"].items():
-                t[slot] = small["kv"][name][0]
+            for name, plane in big.items():
+                for k, t in plane.items():
+                    t[slot] = small[name][k][0]
         pos = self.state["pos"].copy()
         pos[slot] = int(np.reshape(small_state["pos"], -1)[0])
         self.state = dict(self.state, pos=pos)
 
     def snapshot(self, slot: int):
-        raise _not_ported("KVSlotManager.snapshot (recurrent rollback)", 6)
+        """A B = 1 copy of the slot's whole state (every layer's ring row
+        and recurrent carry, and its position): the pre-round snapshot of
+        draft-and-verify on a stack with recurrent layers, whose carries
+        cannot roll back by a position reset."""
+        return {"layers": [{name: {k: t[slot: slot + 1].clone()
+                                   for k, t in plane.items()}
+                            for name, plane in blk.items()}
+                           for blk in self.state["layers"]],
+                "pos": self.state["pos"][slot: slot + 1].copy()}
 
     def restore(self, small_state, slot: int) -> None:
-        raise _not_ported("KVSlotManager.restore (recurrent rollback)", 6)
+        """Write a :meth:`snapshot` (or a continuation of one) back into
+        ``slot``: the restore half of the recurrent rollback."""
+        self._write(small_state, slot)
 
     def truncate(self, slot: int, n_tokens: int) -> None:
         """Roll the slot back so exactly ``n_tokens`` positions are live
@@ -382,6 +412,10 @@ class PagedKVManager:
                  device=None, bucket: bool = True):
         self.cfg = cfg
         self.device = resolve_device(device)
+        # only layers whose plane grows with context hold pages: a stack
+        # without one (pure-recurrent) reserves no page per request and
+        # admits on free slots alone
+        self.has_kv = cfg.has_kv_layers
         self.n_slots = n_slots
         self.page_size = page_size
         self.max_pages = max_pages_per_slot
@@ -422,6 +456,8 @@ class PagedKVManager:
         be unreserved."""
         if self._finj is not None and self._finj.fires("page_pool"):
             return False  # injected exhaustion: admission retries next step
+        if not self.has_kv:
+            return bool(self._free)
         need = max(0, self.pool.pages_for(n_tokens) - prealloc_pages)
         return bool(self._free) and self.pool.can_reserve(need)
 
@@ -431,18 +467,25 @@ class PagedKVManager:
         passes the cache's pages as ``shared_pages`` (the slot's leading
         ordinals, refcounted, never written) and ``base`` = the matched
         token count: the slot starts there and prefills ``[base,
-        total)``.  Otherwise its position resets to 0."""
+        total)``.  Otherwise its position resets to 0.  No page is reserved
+        on a stack without KV layers.  A reused slot's recurrent carries
+        are zeroed (chunks write them in place, so nothing else would)."""
         assert base == len(shared_pages) * self.page_size
         slot = heapq.heappop(self._free)
-        self.pool.reserve(slot, n_tokens, prealloc_pages=len(shared_pages))
-        if shared_pages:
-            self.pool.adopt_shared(slot, list(shared_pages))
-            self._pages_np[slot, :len(shared_pages)] = shared_pages
+        if self.has_kv:
+            self.pool.reserve(slot, n_tokens,
+                              prealloc_pages=len(shared_pages))
+            if shared_pages:
+                self.pool.adopt_shared(slot, list(shared_pages))
+                self._pages_np[slot, :len(shared_pages)] = shared_pages
         self._owner[slot] = owner
         self._len[slot] = base
         pos = self.state["pos"].copy()
         pos[slot] = base
         self.state = dict(self.state, pos=pos)
+        for rec in _rec_layers(self.state):
+            for t in rec.values():
+                t[slot] = 0
         return slot
 
     def release(self, slot: int) -> None:
@@ -469,6 +512,8 @@ class PagedKVManager:
 
     def ensure(self, slot: int, n_tokens: int) -> None:
         """Grow the slot's page list to cover positions < n_tokens."""
+        if not self.has_kv:
+            return
         new = self.pool.ensure(slot, n_tokens)
         base = len(self.pool.owned[slot]) - len(new)
         for j, pid in enumerate(new):
@@ -478,11 +523,14 @@ class PagedKVManager:
         """Could the slot's reservation stretch to ``n_tokens``?  When not,
         the preempting engine frees pages first (cache eviction, then a
         victim)."""
-        return self.pool.can_grow_reservation(slot, n_tokens)
+        return not self.has_kv or self.pool.can_grow_reservation(slot,
+                                                                  n_tokens)
 
     def grow(self, slot: int, n_tokens: int) -> None:
         """Extend the slot's reservation (optimistic admission under
         preemption) and allocate the pages that cover ``n_tokens``."""
+        if not self.has_kv:
+            return
         self.pool.grow_reservation(slot, n_tokens)
         self.ensure(slot, n_tokens)
 
@@ -495,7 +543,7 @@ class PagedKVManager:
         swap traffic."""
         P = self.pool.n_pages
         return sum(t.numel() * t.element_size() // P
-                   for blk in self.state["layers"] for t in blk["kv"].values())
+                   for kv in _kv_layers(self.state) for t in kv.values())
 
     def swap_out(self, slot: int):
         """Stage the slot's pages to host memory so the engine can release
@@ -507,7 +555,7 @@ class PagedKVManager:
         the KV and resumes by recompute).  Shared prefix pages survive the
         release through the cache's reference; the blob holds their
         content too, so the restore is exact either way."""
-        if self.host is None:
+        if self.host is None or not self.has_kv:
             return None
         pids = list(self.pool.owned.get(slot, []))
         k = len(pids)
@@ -519,8 +567,8 @@ class PagedKVManager:
         pin = self.device.type == "cuda"
         data = {}
         for name in ("kp", "vp", "ppos"):
-            dev = torch.stack([blk["kv"][name].index_select(0, idx)
-                               for blk in self.state["layers"]])
+            dev = torch.stack([kv[name].index_select(0, idx)
+                               for kv in _kv_layers(self.state)])
             host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=pin)
             data[name] = host.copy_(dev, non_blocking=pin)
         self.host.note_out(k, k * self.page_nbytes())
@@ -542,8 +590,8 @@ class PagedKVManager:
         pin = self.device.type == "cuda"
         for name, host in blob["data"].items():
             dev = host.to(self.device, non_blocking=pin)
-            for l, blk in enumerate(self.state["layers"]):
-                blk["kv"][name].index_copy_(0, idx, dev[l])
+            for l, kv in enumerate(_kv_layers(self.state)):
+                kv[name].index_copy_(0, idx, dev[l])
         self.host.note_in(k, k * self.page_nbytes())
         n_live = blob["n_tokens"]
         self._len[slot] = n_live
@@ -576,9 +624,10 @@ class PagedKVManager:
         holds."""
         assert 0 <= n_tokens <= self._len[slot], \
             f"truncate({slot}, {n_tokens}) would extend, not roll back"
-        freed = self.pool.trim(slot, n_tokens)
-        self._pages_np[slot, len(self.pool.owned[slot]):] = -1
-        self._scrub(freed)
+        if self.has_kv:
+            freed = self.pool.trim(slot, n_tokens)
+            self._pages_np[slot, len(self.pool.owned[slot]):] = -1
+            self._scrub(freed)
         self._len[slot] = n_tokens
         pos = self.state["pos"].copy()
         pos[slot] = n_tokens
@@ -624,8 +673,8 @@ class PagedKVManager:
         if not page_ids:
             return
         idx = self._staging.upload(np.asarray(page_ids), self.device).long()
-        for blk in self.state["layers"]:
-            blk["kv"]["ppos"][idx] = -1
+        for kv in _kv_layers(self.state):
+            kv["ppos"][idx] = -1
 
     # ------------------------------------------------------------------
     def metrics(self) -> Dict[str, object]:
@@ -697,8 +746,10 @@ class PagedKVManager:
 
 class StateManager:
     """Construction point of the slot-state manager for a config: dense
-    slot rings (:class:`KVSlotManager`) or, with ``kv_page``, block-paged
-    KV (:class:`PagedKVManager`)."""
+    slot rings and recurrent rows (:class:`KVSlotManager`) or, with
+    ``kv_page``, block-paged KV (:class:`PagedKVManager`, whose pool holds
+    pages for the growing planes only: none on a pure-recurrent stack,
+    which then reserves zero pages per request)."""
 
     @staticmethod
     def create(cfg: ModelConfig, n_slots: int, slot_len: int, *,

@@ -101,17 +101,22 @@ class AdmissionCost:
 
 def admission_cost(cfg: ModelConfig, prompt_len: int,
                    max_new_tokens: int) -> AdmissionCost:
-    """What admitting one request costs on an attention-only stack (the
-    port's block kinds): every position of prompt + max_new on the KV
-    plane, no recurrent state, no encoder KV."""
-    from repro_torch.models.transformer import attention_window
+    """What admitting one request costs, per state plane: every position
+    of prompt + max_new on each growing KV plane (none on a
+    pure-recurrent stack, which then admits without a page), the flat
+    recurrent state, no encoder KV (the port runs no encoder)."""
+    from repro_torch.core.cost_model import recurrent_state_bytes
     need = prompt_len + max_new_tokens
-    windows = [attention_window(cfg, k) for k in cfg.layer_kinds()]
-    return AdmissionCost(
-        kv_positions=need,
-        kv_positions_windowed=max(min(need, w) if w else need
-                                  for w in windows),
-        rec_state_bytes=0, enc_kv_bytes=0)
+    kv_pos = kv_pos_win = 0
+    for sp in cfg.state_planes():
+        if sp.plane == "kv":
+            kv_pos = max(kv_pos, need)
+            kv_pos_win = max(kv_pos_win,
+                             min(need, sp.window) if sp.window else need)
+    return AdmissionCost(kv_positions=kv_pos,
+                         kv_positions_windowed=kv_pos_win,
+                         rec_state_bytes=recurrent_state_bytes(cfg),
+                         enc_kv_bytes=0)
 
 
 # ----------------------------------------------------------------------

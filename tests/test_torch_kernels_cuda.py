@@ -193,7 +193,8 @@ def test_ragged_kernel_matches_plain_on_card(dtype, window, C):
     dt = getattr(torch, dtype)
     rtol = 2 ** -7 if dtype == "bfloat16" else None
     for H, Hkv, hd, ps in ((8, 4, 32, 16), (32, 8, 128, 16), (4, 4, 64, 8),
-                           (8, 8, 96, 16), (6, 2, 96, 8)):
+                           (8, 8, 96, 16), (6, 2, 96, 8), (16, 1, 256, 16),
+                           (4, 2, 256, 8)):
         q, kp, vp, ppos, pages, qpos, lens = _paged_case(
             gen, dev, dt, [C + 40, 0, C + 5, C + 130], C, H, Hkv, hd, ps)
         qp = qpos.cpu().numpy()
@@ -326,6 +327,14 @@ FLASH_CASES = [  # (B, H, Hkv, Sq, Skv, hd, causal, window, q_offset)
     (1, 4, 2, 100, 300, 96, True, 64, 200),      # G 2, window
     (1, 8, 8, 700, 700, 96, True, None, 0),      # 128-row blocks
     (2, 8, 8, 1, 90, 96, True, None, 89),        # one row
+    # head_dim 256 (recurrentgemma: 16 query heads over one KV head, window
+    # 2048) on the wgmma instance's one-warpgroup blocks: its 64-token chunk,
+    # a C = 5 verify chunk, a window that skips KV tiles, and rows with no
+    # valid key
+    (1, 16, 1, 64, 64, 256, True, 2048, 0),      # recurrentgemma's chunk
+    (1, 16, 1, 5, 300, 256, True, 2048, 295),    # verify chunk
+    (1, 16, 1, 200, 1200, 256, True, 256, 1000), # window skips KV tiles
+    (2, 4, 2, 40, 50, 256, True, 5, 100),        # rows with no valid key
 ]
 
 
@@ -550,7 +559,7 @@ def test_gemv_refuses_what_it_cannot_read():
 
 # ----------------------------------------------------------------------
 # the tensor-core ragged kernel (csrc/ragged_mma.cu): bfloat16, head_dim
-# 64/96/128, pages of a multiple of 16 positions
+# 64/96/128/256, pages of a multiple of 16 positions
 RAGGED_MMA_CASES = {  # name: (lens, C, H, Hkv, hd, ps, window)
     "decode_g4": ([37, 300, 1500, 4200], 1, 32, 8, 128, 16, 4096),
     "decode_idle_rows": ([0, 700, 0, 45], 1, 32, 8, 128, 16, None),
@@ -563,6 +572,11 @@ RAGGED_MMA_CASES = {  # name: (lens, C, H, Hkv, hd, ps, window)
     "phi3_decode": ([37, 300, 900, 64], 1, 32, 32, 96, 16, None),
     "phi3_admission": ([64], 64, 32, 32, 96, 16, None),
     "g3_hd96": ([33, 250], 5, 12, 4, 96, 16, 100),
+    # head_dim 256 (recurrentgemma, MQA: G 16 fills one m16 tile at decode):
+    # decode rows, a 128-token admission chunk, and a window
+    "rg_decode": ([64, 300, 1500, 4000], 1, 16, 1, 256, 16, 2048),
+    "rg_admission": ([128], 128, 16, 1, 256, 16, 2048),
+    "rg_window": ([300, 0, 180], 70, 16, 1, 256, 16, 40),
 }
 
 

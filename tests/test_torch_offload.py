@@ -220,10 +220,32 @@ def test_formerly_refused_features_match_reference(name):
     dict(block_pattern=("xattn+mlp",), encoder_layers=2, encoder_seq=8)],
     ids=["rglru", "mlstm", "xattn"])
 def test_unported_configs_are_refused(change):
-    """The mixers the port does not run yet (the recurrent ones and the
-    encoder-decoder's, ROADMAP item 6 sub-items 3-4) raise instead of
-    computing something else."""
-    from repro_torch.models.transformer import init_model
-    cfg = pget("tiny-moe").replace(**{"n_layers": 2, **change})
-    with pytest.raises(NotImplementedError, match="sub-item"):
-        init_model(cfg, device="cpu")
+    """The encoder-decoder's mixers (ROADMAP item 6 sub-item 4), which the
+    port does not run yet, raise instead of computing something else; the
+    recurrent ones (``rglru``, and ``mlstm`` beside ``slstm`` with a dense
+    MLP) run now: ``forward_train`` logits within atol 1e-4 of the
+    reference's and ``generate_plain`` tokens exactly equal, as in the
+    test above."""
+    from repro.core.offload_engine import generate_plain as jgenerate
+    from repro_torch.core.offload_engine import generate_plain
+    from repro_torch.models.transformer import forward_train, init_model
+    import zoo_models
+    if "encoder_layers" in change:
+        cfg = pget("tiny-moe").replace(**{"n_layers": 2, **change})
+        with pytest.raises(NotImplementedError, match="sub-item 4"):
+            init_model(cfg, device="cpu")
+        return
+    change = {"n_layers": 2, "d_model": 128, "d_ff": 128, **change}
+    jcfg, pcfg = jget("tiny-moe").replace(**change), \
+        pget("tiny-moe").replace(**change)
+    tree = zoo_models.random_params(jcfg)
+    jp = jax.tree.map(jnp.asarray, tree)
+    pp = bridge.params_from_numpy(tree, pcfg, "cpu")
+    toks = zoo_models.tokens(jcfg, 2, 12)
+    want, _ = JT.forward_train(jp, jcfg, {"tokens": jnp.asarray(toks)})
+    with torch.no_grad():
+        got, _ = forward_train(pp, pcfg, {"tokens": torch.as_tensor(toks)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=LOGIT_ATOL)
+    assert generate_plain(pp, pcfg, PROMPT, 5, device="cpu").tolist() == \
+        np.asarray(jgenerate(jp, jcfg, PROMPT, 5)).tolist()

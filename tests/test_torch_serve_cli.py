@@ -11,11 +11,13 @@ its new benchmark entry points, against the JAX reference's, on the CPU.
 * Every flag of the reference's parser is in the port's with the same
   default, except ``--roofline-hw`` (``h100``, the port's only measured
   row; the reference's rows are refused by name) and the added
-  ``--device``; the reference's config zoo is refused with item 6's
-  message.
+  ``--device``; the encoder-decoder (``whisper-medium``) is refused
+  with item 6 sub-item 4's message.
 * ``main()`` under ``--device cpu`` prints the reference's ``gen:`` /
   per-request tokens for ``--offload --quantize`` and ``--continuous
-  --kv-page 16`` on ``tiny-moe`` from one checkpoint the reference wrote.
+  --kv-page 16`` on ``tiny-moe`` from one checkpoint the reference wrote,
+  and for ``--config xlstm-1.3b --continuous`` (served ``reduced()`` on
+  the CPU by both launchers) likewise.
 * ``launch.train`` for 2 steps writes a checkpoint that the reference
   restores and that the port's serving CLI serves with the prefix cache,
   preemption, injected faults and the packed plane, its metrics and trace
@@ -249,7 +251,7 @@ def _run(mod, argv):
 @pytest.mark.parametrize("argv,message", [
     (["--offload", "--roofline-hw", "t4", "--metrics-json", "m.json"],
      "t4.*3060.*3080m.*a100"),
-    (["--config", "xlstm-1.3b"], "item 6")])
+    (["--config", "whisper-medium"], "item 6, sub-item 4")])
 def test_refusals(argv, message):
     with pytest.raises(SystemExit, match=message):
         PS.main(argv + ["--device", "cpu"])
@@ -297,6 +299,25 @@ def test_main_prints_reference_tokens(checkpoint, argv):
     want = _generations(_run(JS, argv))
     got = _generations(_run(PS, argv + ["--device", "cpu"]))
     assert len(got) >= 2 and got == want
+
+
+def test_recurrent_config_serves_reference_tokens(tmp_path):
+    """``--config xlstm-1.3b --continuous``: both launchers serve its
+    ``reduced()`` variant on the CPU from one checkpoint the reference
+    wrote (numpy weights in its layout, ``tests/zoo_models.py``), with the
+    same per-request tokens."""
+    import zoo_models
+    cfg = jget("xlstm-1.3b").reduced()
+    path = str(tmp_path / "xlstm.npz")
+    jsave(path, jax.tree.map(jax.numpy.asarray,
+                             zoo_models.random_params(cfg)),
+          meta={"arch": cfg.name})
+    argv = ["--config", "xlstm-1.3b", "--continuous", "--n-requests", "3",
+            "--max-new", "4", "--max-slots", "2", "--slot-len", "64",
+            "--checkpoint", path]
+    want = _generations(_run(JS, argv))
+    got = _generations(_run(PS, argv + ["--device", "cpu"]))
+    assert len(got) == 3 and got == want
 
 
 def _load_checker():

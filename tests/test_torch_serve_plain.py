@@ -360,10 +360,33 @@ def test_slot_manager_matches_reference(model, seed):
     wide = PT.init_decode_state(pcfg, 1, 32, "cpu")
     with pytest.raises(ValueError, match="width"):
         pm.write_prefill(wide, 0)
-    for call, item in ((lambda: pm.snapshot(0), "item 6"),
-                       (lambda: pm.restore(None, 0), "item 6")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    # snapshot / restore (the recurrent rollback) round-trip a slot: the
+    # reference's B = 1 copy, then a later install undone by the restore
+    s = pm.allocate("snap")
+    assert s == jm.allocate("snap")
+    psnap, jsnap = pm.snapshot(s), jm.snapshot(s)
+    assert psnap["pos"].tolist() == np.asarray(jsnap["pos"]).tolist()
+    for l, blk in enumerate(psnap["layers"]):
+        for name in ("k", "v", "pos"):
+            np.testing.assert_array_equal(
+                blk["kv"][name].numpy(), _ref_layer(jsnap, l, name)
+                .astype(blk["kv"][name].numpy().dtype))
+    before = [{n: t.clone() for n, t in b["kv"].items()}
+              for b in pm.state["layers"]]
+    other = pm.new_row_state()
+    other["pos"] = 7
+    for blk in other["layers"]:
+        blk["kv"]["k"].normal_()
+    pm.write_prefill(other, s)
+    assert int(pm.state["pos"][s]) == 7
+    pm.restore(psnap, s)
+    jm.restore(jsnap, s)
+    assert int(pm.state["pos"][s]) == int(np.asarray(jm.state["pos"])[s])
+    for l, (blk, old) in enumerate(zip(pm.state["layers"], before)):
+        for name, t in blk["kv"].items():
+            assert torch.equal(t, old[name]), (l, name)
+    pm.release(s)
+    jm.release(s)
     # truncate (the draft-and-verify rollback) is ported: a position reset
     # that never extends
     s = pm.allocate("t")
@@ -410,7 +433,7 @@ def test_serve_bench_scenarios_run(model, monkeypatch, tmp_path):
     monkeypatch.setattr(serve_bench.common, "BENCH_OUT", tmp_path)
     # the wall-clock floors are the card's (chip_smoke.py's [serve-bench]):
     # here they are only seen to be applied, to this run's rows; the
-    # telemetry overhead floor is applied on the card only
+    # telemetry overhead and zoo floors are applied on the card only
     floors = []
     monkeypatch.setattr(serve_bench, "check_prefix_reuse",
                         lambda row, smoke=False: floors.append(row))
@@ -422,7 +445,7 @@ def test_serve_bench_scenarios_run(model, monkeypatch, tmp_path):
     assert [r["scenario"] for r in rows] == [
         "continuous_vs_static", "chunked_prefill", "chunked_prefill_packed",
         "paged_kv", "prefix_reuse", "overload_preempt", "telemetry_overhead",
-        "chaos_goodput"]
+        "chaos_goodput", "zoo"]
     assert all(r["device"] == "cpu" for r in rows)
     assert rows[2]["counters_identical"] and rows[3]["token_parity"]
     assert rows[3]["paged_peak_kv_positions"] < rows[3]["dense_peak_kv_positions"]
@@ -430,6 +453,7 @@ def test_serve_bench_scenarios_run(model, monkeypatch, tmp_path):
     assert rows[5]["preemptions"] > 0 and rows[5]["token_parity"]
     assert rows[6]["token_parity"] and rows[6]["overhead_ratio"] > 0
     assert rows[7]["failed"] == 1 and rows[7]["cancelled"] == 2
+    assert rows[8]["predicted_tok_s_flat"] > 0  # its floor is the card's
     assert (tmp_path / "serve_bench.json").exists()
 
 
@@ -561,23 +585,35 @@ def _drive_chaos(model, packed):
     assert ps["faults_fired_expert_fetch"] > 0
 
 
+def _drive_zoo(model, packed):
+    """The zoo scenario at its quick size (reduced ``xlstm-1.3b``): both
+    contexts decode, the cost model's prediction is flat; the < 2x
+    wall-clock floor is the card's (``check_zoo``), so here it is
+    recorded, not asserted."""
+    row = serve_bench.run_zoo(smoke=True, device="cpu")
+    assert row["device"] == "cpu" and row["arch"] == "xlstm-1.3b-reduced"
+    assert (row["short_ctx"], row["long_ctx"]) == (8, 64)
+    assert row["short_ctx_decode_ms"] > 0 and row["long_ctx_decode_ms"] > 0
+    assert row["predicted_tok_s_flat"] > 0
+    with pytest.raises(AssertionError, match="grew with context"):
+        serve_bench.check_zoo(dict(row, context_cost_ratio=2.5))
+    serve_bench.check_zoo(dict(row, context_cost_ratio=1.2))
+
+
 @pytest.mark.parametrize("scenario,item", [
     ("run_telemetry_overhead", "item 7"), ("run_prefix_reuse", "item 5"),
     ("run_overload_preempt", "item 5"), ("run_chaos", "item 5"),
     ("run_zoo", "item 6")])
 def test_unported_scenarios_raise(scenario, item, model, packed):
-    """The scenario still to port (``zoo``) raises naming its item; those
-    of items 5 and 7 are ported: they run on the CPU with the parities
-    their ``run_*`` asserts (no wall-clock floor here)."""
+    """Every scenario is ported now (those of items 5 and 7, and item 6's
+    ``zoo``): each runs on the CPU with the parities its ``run_*``
+    asserts (no wall-clock floor here)."""
     drives = {"run_prefix_reuse": _drive_prefix_reuse,
               "run_overload_preempt": _drive_overload,
               "run_chaos": _drive_chaos,
-              "run_telemetry_overhead": _drive_telemetry}
-    if scenario in drives:
-        drives[scenario](model, packed)
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        getattr(serve_bench, scenario)(None, None)
+              "run_telemetry_overhead": _drive_telemetry,
+              "run_zoo": _drive_zoo}
+    drives[scenario](model, packed)
 
 
 @pytest.mark.parametrize("name", ["tiny-moe", "mixtral-offload"])

@@ -108,16 +108,28 @@ def test_registry_matches_reference():
                                        ("xlstm-1.3b", "sub-item 3"),
                                        ("whisper-medium", "sub-item 4")])
 def test_unported_zoo_names_are_refused(arch, item):
-    """The zoo names whose mixers the port lacks are refused, naming
-    ROADMAP item 6 and the sub-item that ports them."""
+    """The encoder-decoder (``whisper-medium``, whose mixers the port
+    lacks) is refused, naming ROADMAP item 6 and the sub-item that ports
+    it; the recurrent names (sub-item 3, ported) give the reference's
+    configs, field by field."""
+    if item == "sub-item 3":
+        got, want = PC.get_config(arch), JC.get_config(arch)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+        assert got.state_planes() == tuple(
+            type(got.state_planes()[0])(**dataclasses.asdict(sp))
+            for sp in want.state_planes())
+        assert (got.has_kv_layers, got.has_recurrent_layers) == \
+            (want.has_kv_layers, want.has_recurrent_layers)
+        return
     with pytest.raises(NotImplementedError, match=f"item 6, {item}"):
         PC.get_config(arch)
 
 
-@pytest.mark.parametrize("arch", Z.ZOO)
+@pytest.mark.parametrize("arch", Z.ZOO + Z.REC)
 def test_zoo_count_params_analytic_matches(arch):
     """At the published size (shapes only), and at the reduced size
-    against the leaves ``init_model`` makes."""
+    against the leaves ``init_model`` makes (the recurrent configs' too:
+    no ``attn`` in a recurrent block, no ``norm2`` without an FFN)."""
     assert PT.count_params_analytic(PC.get_config(arch)) == \
         JT.count_params_analytic(JC.get_config(arch))
     cfg = PC.get_config(arch).reduced()

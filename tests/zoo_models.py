@@ -1,6 +1,7 @@
 """Shared models of the port's config-zoo tests (imported, not collected).
 
-The six attention-only zoo architectures at ``reduced()`` size, plus the
+The six attention-only zoo architectures and the two recurrent ones
+(:data:`REC`) at ``reduced()`` size, plus the
 narrow configs that carry features no zoo config reaches at that size:
 granite kept at 32 experts / top-8 / cache 8, phi-3 at head_dim 96,
 tail layers and a logit softcap.  Parameters are drawn once per module
@@ -8,7 +9,11 @@ with numpy from a seed, in the reference's layout (the leaves and shapes
 of its ``init_model``, found by ``jax.eval_shape``, with its init scales),
 and crossed into the port by ``bridge``.  Every norm scale, norm bias and
 attention bias is random too, where the reference initialises scales to
-one and biases to zero, which would hide a missing term.
+one and biases to zero, which would hide a missing term.  The recurrent
+mixers' leaves follow the reference's init distributions: the RG-LRU's
+``lam`` ~ U(-9, -4.3), the mLSTM's forget-bias ramp ``bf`` = linspace(3,
+6) and ``bi`` = -3, the sLSTM's forget-gate bias ramp (the other gate
+biases 0), with the conv bias and head norms random as above.
 """
 from __future__ import annotations
 
@@ -22,7 +27,8 @@ from repro_torch.configs import get_config as pget
 
 ZOO = ("granite-moe-1b-a400m", "smollm-360m", "stablelm-1.6b", "qwen1.5-4b",
        "command-r-plus-104b", "phi-3-vision-4.2b")
-UNPORTED = ("recurrentgemma-9b", "xlstm-1.3b", "whisper-medium")
+REC = ("recurrentgemma-9b", "xlstm-1.3b")
+UNPORTED = ("whisper-medium",)
 
 # granite at its published expert count, top-k and offload spec, widths
 # narrowed by hand (reduced() would give 4 experts and top-2, below its
@@ -71,17 +77,38 @@ def random_params(cfg, seed: int = 0):
     """A numpy tree in the reference's layout for ``cfg``: norm scales 1 +
     0.2 N, norm and attention biases 0.2 N, output matrices (``wo``,
     ``w_down``, ``w_out``) N / sqrt(their K * 2 n_layers), every other
-    leaf N / sqrt(d_model), the reference's init scales."""
+    leaf N / sqrt(d_model), the reference's init scales; the recurrent
+    leaves as the module docstring says."""
     rng = np.random.default_rng(seed)
     shapes = jax.eval_shape(lambda: JT.init_model(jax.random.key(0), cfg))
+
+    H = cfg.n_heads
+    dh = cfg.d_model // H
+    ramp = np.linspace(3.0, 6.0, H)
+    rec_out = 1 / np.sqrt(cfg.d_model * 2 * cfg.n_layers)
 
     def draw(path, s):
         name = getattr(path[-1], "key", None)
         z = rng.standard_normal(s.shape)
-        if name == "scale":
+        if name == "lam":
+            z = rng.uniform(-9.0, -4.3, s.shape)
+        elif name == "bf":
+            z = np.broadcast_to(ramp, s.shape)
+        elif name == "bi":
+            z = np.full(s.shape, -3.0)
+        elif name == "b_gates":
+            z = np.zeros(s.shape)
+            z[..., 2, :, :] = ramp[:, None]  # the forget gate
+        elif name in ("scale", "headnorm"):
             z = 1 + 0.2 * z
-        elif name in ("bias", "bq", "bk", "bv", "bo"):
+        elif name in ("bias", "bq", "bk", "bv", "bo", "conv_b"):
             z = 0.2 * z
+        elif name == "conv_w":
+            z = 0.1 * z
+        elif name == "r_gates":
+            z = z / np.sqrt(dh)
+        elif name in ("w_out_r", "out_proj"):
+            z = z * rec_out
         elif name == "wo":
             z = z / np.sqrt(cfg.n_heads * cfg.head_dim * 2 * cfg.n_layers)
         elif name in ("w_down", "w_out"):
