@@ -273,8 +273,35 @@ gap.
     versions by the near-tie rule.  ``[serve-bench]`` runs the ``zoo``
     scenario (its < 2x context-flatness floor); ``[cli]`` also serves
     ``--config xlstm-1.3b --continuous`` and ``--config recurrentgemma-9b
-    --continuous`` and checks that ``whisper-medium`` is refused naming
-    item 6 sub-item 4.
+    --continuous``.
+
+22. The encoder-decoder (ROADMAP item 6, sub-item 4).
+    ``[ragged-whisper]`` and ``[flash-whisper]`` (after ``[flash-hd256]``):
+    the two attention kernels at whisper-medium's shapes (H 16, Hkv 16,
+    head_dim 64, bf16, no window): a 4-row decode step over pages of 16
+    and a 128-token admission chunk; the causal 64-token chunk and the
+    non-causal cases: the encoder's 1500 x 1500 self-attention,
+    cross-attention at decode (4 rows x 1 query over 1500 frames) and of a
+    64-token chunk over 1500 frames; route (flash must take ``wgmma``,
+    ragged ``mma``), time, plain time, bound and SDPA (``is_causal`` as
+    the case) as above.  ``[whisper-parity]`` (after ``[rec-parity]``):
+    reduced whisper in f32 (2 + 2 layers, 24 frames) with a seeded
+    frontend per request, card against CPU, exactly equal:
+    ``generate_plain`` tokens, the plain ``ContinuousEngine`` on pages, on
+    dense slots with chunks of 4, and draft-and-verify (f32 ``tiny-draft``,
+    k = 2) on dense slots and on pages (4 requests through 2 slots: tokens
+    and emit steps).  ``[whisper]`` (after ``[zoo-rec]``): whisper-medium
+    at its published widths and full depth (24 + 24 layers, 1500 frames)
+    in bf16, seed 0, ``[serve]``'s 8 requests through 4 slots on pages of
+    16 and on dense slots with chunks of 32: tokens/s, encoder, admission
+    and decode seconds, ms per layer per decode step, peak memory, every
+    flash launch (cross-attention per step and chunk, the encoder's per
+    request) on ``wgmma`` and every ragged one on ``mma``, the encoder-KV
+    bytes per row equal to ``admission_cost().enc_kv_bytes``; each held
+    over 12 tokens of 4 requests to the run with the plain versions by
+    the near-tie rule.  ``[cli]`` also serves ``--config whisper-medium
+    --continuous --max-new 8`` (12 requests, published width) and checks
+    that static mode is refused with the reference's message.
 
 The line before the card's line is ``{"kernels": [...]}``; the last line
 is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -1508,22 +1535,24 @@ def phase_ragged_kernel(dev, flush, *, heads=(32, 8, 128), cases=RAGGED_CASES,
 
 # ----------------------------------------------------------------------
 def _serve(eng, cfg, prompts, max_news, *, max_slots, on_engine=None,
-           params=None, device=None, priorities=None, **kw):
-    """Serve ``prompts`` (with ``priorities``, default 0) through a
+           params=None, device=None, priorities=None, extras=None, **kw):
+    """Serve ``prompts`` (with ``priorities``, default 0, and an
+    encoder-decoder's per-request ``extras``) through a
     ContinuousEngine over ``eng``'s pool (``eng`` None: the plain plane
     over ``params`` on ``device``), on paged KV of 16-position pages
     unless ``kv_page`` says otherwise; returns (engine, tokens per
     request, emit step of every token, decode calls and active rows,
-    admission chunks).  ``on_engine`` is called with the engine before it
-    serves."""
+    admission chunks and encoder passes, with their seconds).
+    ``on_engine`` is called with the engine before it serves."""
     from repro_torch.serving.engine import ContinuousEngine
     ce = ContinuousEngine(params, cfg, offload=eng, max_slots=max_slots,
                           eos_id=None, device=device, **{"kv_page": 16, **kw})
     if on_engine is not None:
         on_engine(ce)
-    calls = {"decode": 0, "rows": 0, "chunks": 0, "decode_s": 0.0, "chunk_s": 0.0}
+    calls = {"decode": 0, "rows": 0, "chunks": 0, "encodes": 0,
+             "decode_s": 0.0, "chunk_s": 0.0, "encode_s": 0.0}
     ex = ce._exec
-    names = ("decode", "prefill_chunk", "prefill_chunk_row")
+    names = ("decode", "prefill_chunk", "prefill_chunk_row", "encode")
     saved = {n: ex.__dict__.get(n) for n in names}
     dec = ex.decode
 
@@ -1549,14 +1578,21 @@ def _serve(eng, cfg, prompts, max_news, *, max_slots, on_engine=None,
             return timed("chunk_s", fn, *a)
         return chunk
 
+    def counted_encode(audio):
+        calls["encodes"] += 1
+        return timed("encode_s", encode, audio)
+
+    encode = ex.encode
     ex.decode = counted_decode
     ex.prefill_chunk = counted(ex.prefill_chunk)
     ex.prefill_chunk_row = counted(ex.prefill_chunk_row)
+    ex.encode = counted_encode
     steps = {}
     try:
-        reqs = [ce.submit(p, m, priority=q, on_token=lambda r, t: steps.setdefault(
+        reqs = [ce.submit(p, m, priority=q, extras=e, on_token=lambda r, t: steps.setdefault(
             r.rid, []).append(ce.step_count))
-            for p, m, q in zip(prompts, max_news, priorities or [0] * len(prompts))]
+            for p, m, q, e in zip(prompts, max_news, priorities or [0] * len(prompts),
+                                  extras or [None] * len(prompts))]
         ce.run(max_steps=1000)
     finally:
         for n, fn in saved.items():
@@ -2065,7 +2101,7 @@ def phase_serve_plain(dev, eng, cfg, dense):
 
 
 # ----------------------------------------------------------------------
-FLASH_CASES = (  # (name, Sq, Skv, q_offset, window)
+FLASH_CASES = (  # (name, Sq, Skv, q_offset, window[, causal, batch])
     ("prefill_chunk", PROMPT_LEN, PROMPT_LEN, 0, 4096),
     ("long_prompt", 4096, 4096, 0, None),
     ("windowed", 1024, 8192, 7168, 4096),
@@ -2073,17 +2109,17 @@ FLASH_CASES = (  # (name, Sq, Skv, q_offset, window)
 )
 
 
-def _flash_work(Sq, Skv, q_offset, window, H, Hkv, hd):
-    """(bytes, operations) the function must move and do: q and out once,
-    the K/V rows some query can see once; 2 x 2 x hd operations per valid
-    (query head, query, key)."""
+def _flash_work(Sq, Skv, q_offset, window, H, Hkv, hd, causal=True, B=1):
+    """(bytes, operations) the function must move and do over B rows: q
+    and out once, the K/V rows some query can see once; 2 x 2 x hd
+    operations per valid (query head, query, key)."""
     qpos = q_offset + np.arange(Sq)
     lo = np.zeros(Sq, np.int64) if window is None else np.maximum(0, qpos - window + 1)
-    hi = np.minimum(Skv, qpos + 1)  # causal
+    hi = np.minimum(Skv, qpos + 1) if causal else np.full(Sq, Skv)
     pairs = int(np.maximum(hi - lo, 0).sum())
     keys = int(hi.max() - lo.min())
     nbytes = 2 * H * Sq * hd * 2 + 2 * Hkv * keys * hd * 2
-    return nbytes, 4 * hd * H * pairs
+    return B * nbytes, B * 4 * hd * H * pairs
 
 
 def phase_flash(dev, flush, *, heads=(32, 8, 128), cases=FLASH_CASES,
@@ -2092,12 +2128,13 @@ def phase_flash(dev, flush, *, heads=(32, 8, 128), cases=FLASH_CASES,
     attention shapes (H 32, Hkv 8, hd 128, bf16), called through the
     binding the model path calls (``ops.flash_attention``) on (B, H, S,
     hd) views of (B, S, H, hd) tensors, as the prefill chunk passes its
-    queries and KV ring.  Each (head, row) is held against the plain
+    queries and KV ring; a case may be non-causal over B rows (whisper's
+    encoder and cross-attention).  Each (head, row) is held against the plain
     version run in f32 on the same (upcast) inputs, within
     ``FLASH_BF16_RTOL`` of that row's own max |plain|.  One launch timed
     alone after an L2 flush; ``scaled_dot_product_attention``
-    (``is_causal``, no window) is timed as a yardstick on the cases a
-    window does not cut; the port never calls it.  On the main path's
+    (``is_causal`` as the case, no window) is timed as a yardstick on the
+    cases a window does not cut; the port never calls it.  On the main path's
     chunk, ``attention_core`` (what the chunk ran before it took the
     kernel) is timed too.  ``heads`` (H, Hkv, hd) and ``cases`` give
     another model's shapes (phi-3's, under ``label``).  Returns the figures
@@ -2108,11 +2145,12 @@ def phase_flash(dev, flush, *, heads=(32, 8, 128), cases=FLASH_CASES,
     gen.manual_seed(4)
     H, Hkv, hd = heads
     out = {}
-    for name, Sq, Skv, q_offset, window in cases:
+    for name, Sq, Skv, q_offset, window, *more in cases:
+        causal, B = more or (True, 1)
         rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-        q, k, v = (t.transpose(1, 2) for t in (rnd(1, Sq, H, hd), rnd(1, Skv, Hkv, hd),
-                                               rnd(1, Skv, Hkv, hd)))
-        kw = dict(causal=True, window=window, q_offset=q_offset)
+        q, k, v = (t.transpose(1, 2) for t in (rnd(B, Sq, H, hd), rnd(B, Skv, Hkv, hd),
+                                               rnd(B, Skv, Hkv, hd)))
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
         run = lambda: ops.flash_attention(q, k, v, **kw)
         plain = lambda: FA.flash_attention_reference(q, k, v, **kw)
         before, wg = ops.flash_attention.launches, FA.launch.routes["wgmma"]
@@ -2128,12 +2166,13 @@ def phase_flash(dev, flush, *, heads=(32, 8, 128), cases=FLASH_CASES,
         tol = FLASH_BF16_RTOL * y32.abs().amax(-1)
         if not bool((err <= tol).all()):
             worst = int((err - tol).argmax())
-            fail(f"flash_attention {name}: (head, row) {divmod(worst, Sq)} max "
+            fail(f"flash_attention {name}: (head, row) {divmod(worst % (H * Sq), Sq)} max "
                  f"|kernel - plain f32| {err.flatten()[worst]:.3g} > "
                  f"{tol.flatten()[worst]:.3g}")
-        nbytes, flops = _flash_work(Sq, Skv, q_offset, window, H, Hkv, hd)
+        nbytes, flops = _flash_work(Sq, Skv, q_offset, window, H, Hkv, hd,
+                                    causal, B)
         bound_ms, bound_by = _bound(nbytes, flops)
-        r = dict(H=H, Hkv=Hkv, hd=hd, route=route, Sq=Sq, Skv=Skv,
+        r = dict(H=H, Hkv=Hkv, hd=hd, route=route, B=B, causal=causal, Sq=Sq, Skv=Skv,
                  q_offset=q_offset, window=window, ms=_event_ms(run, 10, flush), plain_ms=_event_ms(plain, 3, flush),
                  bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
                  max_abs_err=float(err.max()),
@@ -2141,10 +2180,10 @@ def phase_flash(dev, flush, *, heads=(32, 8, 128), cases=FLASH_CASES,
         r["library_ms"] = None
         if window is None or window >= q_offset + Sq:
             # causal from the top left at q_offset 0, else an explicit mask
-            mask = (None if q_offset == 0 else
+            mask = (None if q_offset == 0 or not causal else
                     FA._valid(Sq, Skv, True, window, q_offset, dev))
             sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, is_causal=mask is None,
+                q, k, v, attn_mask=mask, is_causal=causal and mask is None,
                 enable_gqa=True)
             r["library_err_over_tolerance"] = float(
                 ((sdpa().float() - y32).abs().amax(-1) / tol).max())
@@ -3640,15 +3679,17 @@ def phase_cli(dev):
     _module("cli", ["repro_torch.launch.serve", "--arch", "command-r-plus-104b",
                     "--continuous"], timeout=120,
             refused=r"needs [0-9.]+ GB of device memory .* GB free")
-    # the recurrent zoo at its published widths; the encoder-decoder refused
-    for arch in REC_ARCHS:
+    # the recurrent zoo and the encoder-decoder at their published widths;
+    # whisper outside --continuous refused
+    for arch in REC_ARCHS + (WHISPER,):
         out = _module("cli", ["repro_torch.launch.serve", "--config", arch,
                               "--continuous", "--max-new", "8"], timeout=300)
-        if "[continuous] 12 requests" not in out or "published width" not in out:
+        wide = arch == WHISPER or "published width" in out  # 1024 wide: never reduced
+        if "[continuous] 12 requests" not in out or not wide or "reduced" in out:
             fail(f"[cli] {arch}'s continuous run did not finish its 12 requests "
                  f"at the published width")
-    _module("cli", ["repro_torch.launch.serve", "--config", "whisper-medium",
-                    "--continuous"], timeout=120, refused=r"item 6, sub-item 4")
+    _module("cli", ["repro_torch.launch.serve", "--config", WHISPER], timeout=120,
+            refused=r"encoder-decoder: serve it with --continuous")
     ck = out_dir / "tiny_moe.npz"
     _module("cli", ["repro_torch.launch.train", "--arch", "tiny-moe",
                     "--steps", "20", "--checkpoint", str(ck)], timeout=300)
@@ -3897,6 +3938,17 @@ def _zoo_requests(cfg):
         [SERVE_NEW] * SERVE_REQUESTS
 
 
+def _frontends(cfg, n, seed=1):
+    """An encoder-decoder's per-request stub frontends (seeded (S_e,
+    d_model) float32 frames, as the launcher's); None per request on any
+    other config."""
+    if not cfg.is_encoder_decoder:
+        return None
+    rng = np.random.default_rng(seed)
+    return [{"audio_embeds": rng.standard_normal(
+        (cfg.encoder_seq, cfg.d_model)).astype(np.float32)} for _ in range(n)]
+
+
 def _zoo_serve(label, eng, cfg, params, dev, tag="zoo", **serve_kw):
     """``[serve]``'s 8 requests through 4 slots on the packed engine
     ``eng`` or the plain plane over ``params``, on pages of 16 unless
@@ -3904,23 +3956,27 @@ def _zoo_serve(label, eng, cfg, params, dev, tag="zoo", **serve_kw):
     (``kv_page=None, prefill_chunk=c``): a warm-up, the timed run
     (tokens/s, admission s against decode s, ms per layer per decode
     step, launches against the expected on the tensor-core / FMA routes,
-    peak memory, and on a stack with recurrent layers the recurrent state
-    bytes per row against ``cost_model.recurrent_state_bytes``), then a
+    peak memory, on a stack with recurrent layers the recurrent state
+    bytes per row against ``cost_model.recurrent_state_bytes``, and on an
+    encoder-decoder the encoder passes' seconds and the encoder-KV bytes
+    per row against ``admission_cost().enc_kv_bytes``), then a
     kernel run and a plain-version run of the first 4 requests traced and
     held to the near-tie rule.  Returns (report, launches)."""
     import torch
     from repro_torch.core import cost_model as CM
     from repro_torch.kernels import ops
+    from repro_torch.serving.scheduler import admission_cost
     prompts, news = _zoo_requests(cfg)
+    audio = _frontends(cfg, len(prompts))
     kw = dict(max_slots=SERVE_SLOTS, slot_len=256, params=params, device=dev,
               **serve_kw)
-    _serve(eng, cfg, prompts[:2], [3, 3], **kw)  # warm-up
+    _serve(eng, cfg, prompts[:2], [3, 3], extras=audio and audio[:2], **kw)  # warm-up
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launches()
     before = _routes()
     t = time.perf_counter()
-    ce, toks, steps, calls = _serve(eng, cfg, prompts, news, **kw)
+    ce, toks, steps, calls = _serve(eng, cfg, prompts, news, extras=audio, **kw)
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t
     launches, routes = ops.launches(), _routes_since(before)
@@ -3934,11 +3990,17 @@ def _zoo_serve(label, eng, cfg, params, dev, tag="zoo", **serve_kw):
         c = kw["prefill_chunk"]
         want = {"ragged_attention": 0, "flash_attention": n_kv * sum(
             len(x) // c + (len(x) % c > 1) for x in prompts)}
+    # an encoder-decoder's cross-attention in every step and chunk of every
+    # decoder layer, and the encoder's self-attention once per request
+    n_x = sum(sp.mixer == "xattn" for sp in cfg.state_planes())
+    want["flash_attention"] += (n_x * (calls["decode"] + calls["chunks"])
+                                + cfg.encoder_layers * calls["encodes"])
     report = {"layout": "paged" if paged else "dense_chunked",
               "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
               "steps": ce.step_count, "decode_steps": calls["decode"],
               "admission_chunks": calls["chunks"],
               "admission_s": calls["chunk_s"], "decode_s": calls["decode_s"],
+              "encoder_passes": calls["encodes"], "encoder_s": calls["encode_s"],
               "ms_per_layer_per_decode_step": calls["decode_s"] * 1e3
               / max(1, calls["decode"]) / cfg.n_layers,
               "launches": launches, "launches_expected": want,
@@ -3956,6 +4018,13 @@ def _zoo_serve(label, eng, cfg, params, dev, tag="zoo", **serve_kw):
             t[0].numel() * t.element_size() for r in rec for t in r.values())
         report["recurrent_state_bytes"] = CM.recurrent_state_bytes(cfg)
         bad |= report["rec_state_bytes_per_row"] != report["recurrent_state_bytes"]
+    if cfg.is_encoder_decoder:
+        plane = ce.kv.state["enc_kv"]
+        report["enc_kv_bytes_per_row"] = sum(
+            t[:, 0].numel() * t.element_size() for t in plane.values())
+        report["enc_kv_bytes"] = admission_cost(cfg, 1, 1).enc_kv_bytes
+        bad |= (report["enc_kv_bytes_per_row"] != report["enc_kv_bytes"]
+                or calls["encodes"] != len(prompts))
     if eng is not None:
         st = ce._pstate
         report.update(hits=int(st.counts[0]), demand_loads=int(st.counts[2]),
@@ -3971,6 +4040,7 @@ def _zoo_serve(label, eng, cfg, params, dev, tag="zoo", **serve_kw):
              f"not as expected, or malformed tokens: {report}")
     # the near-tie hold on the first 4 requests, 12 new tokens each
     held = (prompts[:SERVE_SLOTS], [12] * SERVE_SLOTS)
+    kw["extras"] = audio and audio[:SERVE_SLOTS]
     kern = _trace(lambda d: _serve(eng, cfg, *held, on_engine=d.watch, **kw))
     with _PlainKernels():
         plain = _trace(lambda d: _serve(eng, cfg, *held, on_engine=d.watch, **kw))
@@ -4221,6 +4291,111 @@ def phase_zoo_rec(dev):
 
 
 # ----------------------------------------------------------------------
+# the encoder-decoder (ROADMAP item 6, sub-item 4)
+WHISPER = "whisper-medium"
+WHISPER_HEADS = (16, 16, 64)  # H, Hkv, head_dim
+WHISPER_FLASH = (  # (name, Sq, Skv, q_offset, window, causal, batch)
+    ("prefill_chunk", PROMPT_LEN, PROMPT_LEN, 0, None, True, 1),
+    ("encoder", 1500, 1500, 0, None, False, 1),
+    ("cross_decode", 1, 1500, 0, None, False, 4),
+    ("cross_chunk", PROMPT_LEN, 1500, 0, None, False, 1))
+WHISPER_RAGGED = (("decode", [64, 300, 1500, 4000], 1), ("admission", [128], 128))
+WHISPER_CHUNK = 32  # [whisper]'s dense-slot admission chunk
+
+
+def phase_whisper_parity(dev):
+    """whisper at ``reduced()`` size in f32 (2 + 2 layers, d 256, 4 / 4 x
+    64, 24 frames), card (kernels) against CPU (plain versions), weights
+    from seed 0 with random norm scales and biases, a seeded frontend per
+    request, exactly equal: ``generate_plain`` tokens; the plain
+    ``ContinuousEngine`` (4 requests through 2 slots: tokens and emit
+    steps) on pages, on dense slots with chunks of 4, and draft-and-verify
+    with an f32 ``tiny-draft`` (k = 2) on dense slots and on pages.
+    Returns the card's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.offload_engine import generate_plain
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    t0 = time.perf_counter()
+    total = {}
+    cfg = get_config(WHISPER).reduced()
+    dcfg = get_config("tiny-draft").replace(dtype="float32")
+    dparams = T.init_model(dcfg, seed=1, device="cpu")
+    params = _random_norms(T.init_model(cfg, seed=0, device="cpu"), 1)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab_size, n) for n in (6, 11, 8, 14)]
+    news = (8, 5, 7, 4)
+    audio = _frontends(cfg, len(prompts))
+    runs = {}
+    for where in ("cpu", dev):
+        ops.reset_launches()
+        p = _to(params, where)
+        one = {"audio_embeds": audio[1]["audio_embeds"][None]}
+        r = {"generate_plain": generate_plain(
+            p, cfg, prompts[1][None], 8, extras=one, device=where).tolist()}
+        spec = dict(draft_params=_to(dparams, where), draft_cfg=dcfg,
+                    num_draft_tokens=2)
+        for variant, kw in (("paged", {}),
+                            ("dense_chunked", dict(kv_page=None, prefill_chunk=4)),
+                            ("dense_spec", dict(kv_page=None, **spec)),
+                            ("paged_spec", spec)):
+            _, toks, steps, _ = _serve(None, cfg, prompts, news, max_slots=2,
+                                       slot_len=64, params=p, device=where,
+                                       extras=audio, **kw)
+            r[variant] = (toks, steps)
+        runs[str(where)] = r
+        if where != "cpu":
+            _add(total, ops.launches())
+    card, cpu = runs[str(dev)], runs["cpu"]
+    log(f"[whisper-parity] {WHISPER} reduced ({cfg.n_layers} + "
+        f"{cfg.encoder_layers} layers, d {cfg.d_model}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads} x {cfg.head_dim}, {cfg.encoder_seq} frames): card == "
+        f"cpu {card == cpu} on {sorted(card)}; card launches {total}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if card != cpu:
+        fail(f"[whisper-parity] the card differs from the CPU: {card} vs {cpu}")
+    if not (total.get("flash_attention") and total.get("ragged_attention")):
+        fail(f"[whisper-parity] the card ran no flash or ragged kernel: {total}")
+    return total
+
+
+def phase_whisper(dev):
+    """whisper-medium at its published widths and full depth (24 encoder
+    + 24 decoder layers, d 1024, 16 / 16 heads x 64, 1500 frames, vocab
+    51865) in bf16, random weights from seed 0, a seeded stub frontend
+    per request: ``[serve]``'s 8 requests through 4 slots on pages of 16
+    and on dense slots with chunks of 32 (``_zoo_serve``: tokens/s,
+    encoder, admission and decode seconds, ms per layer per decode step,
+    peak memory, launches by route against the expected, the encoder-KV
+    bytes per row against ``enc_kv_bytes``; held to the plain versions by
+    the near-tie rule).  Returns the launches."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(WHISPER)
+    t0 = time.perf_counter()
+    params = T.init_model(cfg, seed=0, device=dev)
+    torch.cuda.synchronize(dev)
+    n = T.count_params_analytic(cfg)
+    log(f"[whisper] {WHISPER}: {cfg.encoder_layers} + {cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim}, "
+        f"{cfg.encoder_seq} frames, {n / 1e9:.3f}B parameters ({n * 2 / 2**30:.2f} "
+        f"GiB bf16) drawn in {time.perf_counter() - t0:.1f} s")
+    total = {}
+    for lay in ({}, dict(kv_page=None, prefill_chunk=WHISPER_CHUNK)):
+        _, launches = _zoo_serve(f"{WHISPER} plain", None, cfg, params, dev,
+                                 tag="whisper", **lay)
+        _add(total, launches)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+# ----------------------------------------------------------------------
 def main():
     card = phase_device()
     import torch
@@ -4241,8 +4416,19 @@ def main():
     if any(r["route"] != "wgmma" for r in rg_cases.values()):
         fail(f"[flash-hd256] bfloat16 at head_dim 256 left the wgmma instance: "
              f"{ {n: r['route'] for n, r in rg_cases.items()} }")
+    # whisper's attention (head_dim 64, MHA 16 / 16): its encoder and
+    # cross-attention are the flash kernel's non-causal cases
+    wh_ragged = phase_ragged_kernel(dev, flush, heads=WHISPER_HEADS,
+                                    cases=WHISPER_RAGGED, window=None,
+                                    label="ragged-whisper")
+    wh_flash, wh_cases = phase_flash(dev, flush, heads=WHISPER_HEADS,
+                                     cases=WHISPER_FLASH, label="flash-whisper")
+    if any(r["route"] != "wgmma" for r in wh_cases.values()):
+        fail(f"[flash-whisper] bfloat16 at head_dim 64 left the wgmma instance: "
+             f"{ {n: r['route'] for n, r in wh_cases.items()} }")
     for name, r in (("ragged_attention", phi3_ragged), ("flash_attention", phi3_flash),
-                    ("ragged_attention", rg_ragged), ("flash_attention", rg_flash)):
+                    ("ragged_attention", rg_ragged), ("flash_attention", rg_flash),
+                    ("ragged_attention", wh_ragged), ("flash_attention", wh_flash)):
         kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"], r["max_abs_err"])
     phase_parity(dev)
     phase_continuous_parity(dev)
@@ -4255,6 +4441,7 @@ def main():
     _add(item5, phase_f4(dev))
     _add(item5, phase_zoo_parity(dev))
     _add(item5, phase_rec_parity(dev))
+    _add(item5, phase_whisper_parity(dev))
     phase_train(dev)
     launches, batches, eng, cfg, prompt, main_run, main_report = phase_main(dev)
     # the host-bound decode runs come before any profiler window
@@ -4290,8 +4477,9 @@ def main():
     del eng
     zoo = phase_zoo(dev)
     _add(zoo, phase_zoo_rec(dev))
+    _add(zoo, phase_whisper(dev))
     phase_cli(dev)
-    for name in launches:  # [zoo], [zoo-rec]
+    for name in launches:  # [zoo], [zoo-rec], [whisper]
         launches[name] += zoo.get(name, 0)
     for name in ("ragged_attention", "flash_attention", "dequant_matmul_slots",
                  "dequant_matmul_batched"):
@@ -4299,7 +4487,7 @@ def main():
     for name in launches:  # the draft-and-verify paths ([spec], [spec-serve])
         launches[name] += spec_launches.get(name, 0)
     for name in launches:  # [item5-parity], [f4], [zoo-parity], [rec-parity],
-        # [prefix], [preempt], [chaos]
+        # [whisper-parity], [prefix], [preempt], [chaos]
         launches[name] += item5.get(name, 0)
     for name in launches:  # [telemetry], [attention-bench]
         launches[name] += item7.get(name, 0)

@@ -4,7 +4,10 @@ the reference's layout, both ways.
 The reference keeps each block-pattern position's parameters stacked over
 periods (``params["stack"][pos]``, leading axis = period, for
 ``lax.scan``) and the layers past the last whole period unstacked in
-``params["tail"]``; the port keeps one dict per layer.  The packed expert store
+``params["tail"]``; the port keeps one dict per layer.  An encoder-decoder's
+encoder is one pattern position stacked over its layers in the reference
+(``encoder["stack"][0]``) and a list of layers in the port
+(``encoder["layers"]``).  The packed expert store
 arrives as the reference's per-matrix leaves, ``(L_moe, E, ...)``, and is
 rebuilt into the port's one-record-per-(layer, expert) store, bit for bit.
 The caller converts its arrays to numpy; nothing here imports the
@@ -45,7 +48,9 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device=None):
     (``lam``, ``wf``, ``bf``, ``wi``, ``bi``, ``headnorm`` and ``b_gates``
     float32 as the reference keeps them), ``img_proj``, and the dense
     expert stacks of a non-packed tree (what the plain plane
-    and accounting mode compute with).  Zero-size leaves (the reference's
+    and accounting mode compute with), each decoder block's ``norm_x`` and
+    ``xattn``.  The encoder's stacked ``stack[0]`` becomes ``layers[i]``
+    (its ``final_norm`` as it is).  Zero-size leaves (the reference's
     placeholders for packed experts) are dropped."""
     dev = resolve_device(device)
     period = cfg.pattern_period
@@ -62,8 +67,15 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device=None):
               for l in range(cfg.n_periods * period)]
     layers += [take(blk) for blk in tree["tail"]]
     assert len(layers) == cfg.n_layers, (len(layers), cfg.n_layers)
-    out = {k: v for k, v in tree.items() if k not in ("stack", "tail")}
+    out = {k: v for k, v in tree.items()
+           if k not in ("stack", "tail", "encoder")}
     out["layers"] = layers
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = {
+            "layers": [take(enc["stack"][0], i)
+                       for i in range(cfg.encoder_layers)],
+            "final_norm": enc["final_norm"]}
     return _to_torch(out, dev)
 
 
@@ -71,7 +83,8 @@ def params_to_numpy(params, cfg: ModelConfig) -> Dict[str, Any]:
     """The inverse of :func:`params_from_numpy`: the port's ``layers[l]``
     of whole periods re-stacked into the reference's ``stack[l % period]``
     with a leading period axis, the tail layers as the unstacked blocks of
-    ``tail``, every leaf a numpy array on the host.  bfloat16 leaves come
+    ``tail``, the encoder's layers stacked into ``encoder["stack"][0]``,
+    every leaf a numpy array on the host.  bfloat16 leaves come
     out as float32 (numpy has no bfloat16; the widening is exact and a
     reader casts back to its own dtype)."""
     period = cfg.pattern_period
@@ -87,12 +100,24 @@ def params_to_numpy(params, cfg: ModelConfig) -> Dict[str, Any]:
         return np.stack([host(b) for b in blocks])
 
     out = {k: hqq.tree_map(host, v) for k, v in params.items()
-           if k != "layers"}
+           if k not in ("layers", "encoder")}
     out["stack"] = [stack(params["layers"][i:n_body:period])
                     for i in range(period)]
     out["tail"] = [hqq.tree_map(host, blk)
                    for blk in params["layers"][n_body:]]
+    if "encoder" in params:
+        enc = params["encoder"]
+        out["encoder"] = {"stack": [stack(enc["layers"])],
+                          "final_norm": hqq.tree_map(host, enc["final_norm"])}
     return out
+
+
+def enc_kv_from_numpy(tree, device=None):
+    """The reference's encoder-KV pytree (``{"k", "v": (n_layers, B, S_e,
+    Hkv, hd), "pos": (n_layers, S_e)}``, numpy leaves) -> the port's plane
+    ``{"k", "v"}`` (its positions are ``arange(S_e)``, implicit)."""
+    dev = resolve_device(device)
+    return {k: _to_torch(tree[k], dev) for k in ("k", "v")}
 
 
 def store_from_numpy(leaves: Dict[str, Dict[str, Any]], cfg: ModelConfig,

@@ -26,12 +26,7 @@ _MODULES = {
     "tiny-draft": "repro_torch.configs.tiny_draft",
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
     "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
-}
-
-# the reference's zoo names whose mixers the port lacks, with the ROADMAP
-# queue 1 sub-item of item 6 that ports them
-UNPORTED = {
-    "whisper-medium": "item 6, sub-item 4 (the encoder-decoder)",
+    "whisper-medium": "repro_torch.configs.whisper_medium",
 }
 
 ASSIGNED_ARCHS: List[str] = [
@@ -58,17 +53,12 @@ SWA_FOR_LONG = {
 
 
 def list_archs() -> List[str]:
-    """Every name of the reference's registry, sorted (what the launchers
-    accept); :func:`get_config` serves the port's own and refuses
-    :data:`UNPORTED`."""
-    return sorted(set(_MODULES) | set(UNPORTED))
+    """Every name of the registry, sorted (what the launchers accept): the
+    reference's."""
+    return sorted(_MODULES)
 
 
 def get_config(name: str) -> ModelConfig:
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"{name} needs a mixer the port does not run yet (ROADMAP queue "
-            f"1, {UNPORTED[name]}); the port runs {sorted(_MODULES)}")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(_MODULES)}")
     return importlib.import_module(_MODULES[name]).CONFIG

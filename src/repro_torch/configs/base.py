@@ -171,9 +171,15 @@ class ModelConfig:
         """Every mixer is causal self-attention (attn/swa) and there is no
         encoder: the stacks whose decode state rolls back by a position
         reset (a draft model's condition)."""
-        return (self.encoder_layers == 0
+        return (not self.is_encoder_decoder
                 and all(parse_block(k)[0] in ("attn", "swa")
                         for k in self.block_pattern))
+
+    @property
+    def is_encoder_decoder(self) -> bool:
+        """An encoder stack (``encattn+mlp`` x ``encoder_layers``) feeds
+        every decoder layer's cross-attention."""
+        return self.encoder_layers > 0
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -151,13 +151,17 @@ def kv_read_bytes_per_token(cfg: ModelConfig, context_len: float,
                             kv_bits: int = 16) -> float:
     """Device bytes of KV cache that one decode token reads at a live
     context of ``context_len``: every K and V entry of every attention
-    layer, sliding-window layers capped at the window."""
+    layer, sliding-window layers capped at the window; a cross-attention
+    layer (``xattn``) also reads the encoder's ``encoder_seq`` K/V rows.
+    The encoder's own ``encattn`` runs once per prompt, not per token."""
     per_pos = 2 * cfg.n_kv_heads * cfg.head_dim * kv_bits / 8.0  # K and V
     total = 0.0
     for kind in cfg.layer_kinds():
         mixer = parse_block(kind)[0]
         if mixer == "attn":
             span = context_len
+        elif mixer == "xattn":
+            span = context_len + (cfg.encoder_seq or 0)
         elif mixer == "swa":
             span = min(context_len, cfg.sliding_window or context_len)
         else:

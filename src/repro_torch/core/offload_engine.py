@@ -690,11 +690,12 @@ class OffloadEngine:
 
 # ----------------------------------------------------------------------
 def generate_plain(params, cfg: ModelConfig, prompt, max_new_tokens: int, *,
-                   prefill_chunk: Optional[int] = None,
+                   prefill_chunk: Optional[int] = None, extras=None,
                    device=None) -> np.ndarray:
     """Greedy decode with no offload bookkeeping (the parity oracle), on
     the plain plane: dense resident weights, MoE by the per-token gather,
-    each prompt chunk's attention through the flash binding.  Runs on the
-    card unless ``device="cpu"``.  Returns (1, n) ints."""
+    each prompt chunk's attention through the flash binding; an
+    encoder-decoder passes ``extras={"audio_embeds": (1, S_e, D)}``.  Runs
+    on the card unless ``device="cpu"``.  Returns (1, n) ints."""
     return Executor(params, cfg, device=device).generate_greedy(
-        prompt, max_new_tokens, prefill_chunk=prefill_chunk)
+        prompt, max_new_tokens, prefill_chunk=prefill_chunk, extras=extras)

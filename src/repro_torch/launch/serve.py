@@ -40,8 +40,11 @@ model whose resident weights exceed the card's free memory (a 64-layer
 ``command-r-plus-104b``: ~208 GB in bf16) is refused with the bytes it
 needs and the bytes free (``cost_model.check_fits``); there is no
 layer-cut flag.  The recurrent configs (``recurrentgemma-9b``,
-``xlstm-1.3b``) serve like the others; the encoder-decoder
-(``whisper-medium``) is refused (ROADMAP queue 1, item 6, sub-item 4).  Random weights come
+``xlstm-1.3b``) serve like the others.  The encoder-decoder
+(``whisper-medium``, 1024 wide, not reduced) serves with ``--continuous``:
+each request gets a seeded stub frontend (``default_rng(seed + 1)``,
+``(encoder_seq, d_model)`` float32 frames), encoded once at admission;
+static mode is refused, as in the reference.  Random weights come
 from ``--seed`` through the port's own generator, so the tokens equal
 the reference's only on shared weights: ``--checkpoint`` reads the
 reference's checkpoint files.
@@ -313,16 +316,11 @@ def _check_flags(args):
 
 
 def _config(args, dev):
-    """The served config: the encoder-decoder refused;
-    on the CPU a config wider than d_model 1024 or a vocabulary of 100k
-    reduced as the reference's launcher does; the router top-k override
-    applied."""
-    try:
-        cfg = get_config(args.arch)
-        if args.draft_config is not None:
-            get_config(args.draft_config)
-    except NotImplementedError as e:
-        raise SystemExit(str(e))
+    """The served config: on the CPU a config wider than d_model 1024 or a
+    vocabulary of 100k reduced as the reference's launcher does; the
+    router top-k override applied; an encoder-decoder refused outside
+    ``--continuous``."""
+    cfg = get_config(args.arch)
     if cfg.vocab_size > 100_000 or cfg.d_model > 1024:
         if dev.type == "cpu":
             cfg = cfg.reduced()
@@ -338,6 +336,11 @@ def _config(args, dev):
     if args.top_k_override is not None:
         print(f"[serve] router top-k override: {cfg.moe.top_k} "
               f"experts/token")
+    if cfg.is_encoder_decoder and not args.continuous:
+        raise SystemExit(
+            f"{cfg.name} is encoder-decoder: serve it with --continuous "
+            f"(the frontend output is encoded once at admission into the "
+            f"shared encoder-KV plane)")
     return cfg
 
 
@@ -489,6 +492,9 @@ def _serve_continuous(args, params, cfg, dev, enc, offload_eng, telem,
               f"{decode_bytes(np.array(req.generated))!r}")
 
     arrivals = np.random.default_rng(args.seed)
+    # an encoder-decoder's requests need a frontend output each; with no
+    # audio pipeline a seeded stub stands in for it (the reference's)
+    frontend = np.random.default_rng(args.seed + 1)
     submitted = 0
     pending_cancel = []
     # a preempted request is neither waiting nor running while off the
@@ -500,9 +506,13 @@ def _serve_continuous(args, params, cfg, dev, enc, offload_eng, telem,
         while (submitted < args.n_requests
                and (idle or arrivals.random() < args.arrival_rate)):
             idle = False
+            extras = None
+            if cfg.is_encoder_decoder:
+                extras = {"audio_embeds": frontend.standard_normal(
+                    (cfg.encoder_seq, cfg.d_model)).astype(np.float32)}
             try:
                 req = eng.submit(enc[submitted % len(enc)], args.max_new,
-                                 on_finish=on_finish)
+                                 on_finish=on_finish, extras=extras)
             except ValueError as err:
                 raise SystemExit(f"--continuous: {err} (raise --slot-len "
                                  f"or lower --max-new)")

@@ -48,10 +48,11 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     dev = resolve_device(args.device)
-    try:
-        cfg = get_config(args.arch)
-    except NotImplementedError as e:
-        raise SystemExit(str(e))
+    cfg = get_config(args.arch)
+    if cfg.is_encoder_decoder:
+        raise SystemExit(f"{cfg.name} is encoder-decoder: its batches need "
+                         f"audio_embeds, which the text pipeline does not "
+                         f"make")
     if args.reduced or (dev.type == "cpu" and (cfg.vocab_size > 100_000
                                                or cfg.d_model > 1024)):
         cfg = cfg.reduced()

@@ -1,6 +1,7 @@
 """Transformer layers of the ported slices: RMS norm and layernorm,
 interleaved-pair (partial) RoPE, GQA attention (optional qkv and output
-biases) over a dense KV ring or block-paged KV, dense MLPs, embeddings and
+biases) over a dense KV ring or block-paged KV, cross-attention over an
+encoder's K/V, dense MLPs, embeddings and
 the (optionally soft-capped) unembedding.
 
 The port of the reference's ``models/layers.py``.  Parameters are plain
@@ -8,7 +9,9 @@ dicts of tensors with the reference's layouts (``wq: (D, H, hd)``,
 ``wo: (H, hd, D)``); norms, rotary and softmax run in float32 whatever the
 parameter dtype, and every cast sits where the reference puts it.
 A prefill chunk over a dense ring that has not wrapped attends through
-the flash-attention binding (``kernels/ops.flash_attention``); decode
+the flash-attention binding (``kernels/ops.flash_attention``), and so does,
+non-causal, bidirectional attention over all keys (an encoder's
+self-attention, cross-attention over its K/V) outside autograd; decode
 steps (in lock-step or at per-row positions) and chunks that wrap the
 ring stay plain PyTorch (``attention_core``, the reference's model
 path); attention over paged KV goes through the ragged paged-attention
@@ -102,6 +105,9 @@ def apply_rope(x, positions, cfg):
 # ----------------------------------------------------------------------
 # Attention
 def init_attention(gen, cfg):
+    """An attention layer's projections (and biases); a cross-attention
+    layer (an encoder-decoder's ``xattn``) has the same leaves, its K/V
+    projecting the encoder's output."""
     D, H, Hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     sc = 1.0 / math.sqrt(D)
     dt = _dt(cfg)
@@ -194,24 +200,65 @@ def attention_core(q, k, v, qpos, kpos, *, causal, window,
     return o.reshape(B, Sq, H, hd)
 
 
+def attend_all(q, k, v):
+    """Bidirectional attention of q (B, Sq, H, hd) over every key of k, v
+    (B, Skv, Hkv, hd): the encoder's self-attention and cross-attention
+    over the encoder's K/V, whose keys are all valid.  Through the flash
+    binding with ``causal=False`` on (B, H, S, hd) views (k and v read in
+    place); under autograd (training) plain :func:`attention_core`, as the
+    flash kernel has no backward.  Flash keeps the softmax weights in
+    float32 through P.V where ``attention_core`` rounds them to the model
+    dtype first: equal in float32, one rounding of P apart in bfloat16."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        kpos = torch.arange(k.shape[1], dtype=torch.int32, device=q.device)
+        return attention_core(q, k, v, kpos[:1], kpos, causal=False,
+                              window=None)
+    return ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2),
+                               causal=False).transpose(1, 2)
+
+
 def attention_train(p, cfg, x, positions, *, window=None, causal=True,
-                    pad_mask=None):
-    """Full-sequence self-attention (the training forward): x (B, S, D) at
-    ``positions`` (S,) or (B, S).  ``pad_mask`` (B, S) bool, True at real
-    tokens, removes pads from every key set (their own query rows are
-    garbage that callers ignore).  Plain PyTorch through
-    :func:`attention_core`, differentiable; the flash kernel has no
-    backward, and neither has the reference's."""
+                    pad_mask=None, kv_override=None):
+    """Full-sequence attention (the training forward, the static prefill,
+    the encoder): x (B, S, D) at ``positions`` (S,) or (B, S).
+    ``pad_mask`` (B, S) bool, True at real tokens, removes pads from every
+    key set (their own query rows are garbage that callers ignore).
+    ``kv_override`` (B, S_e, D), the encoder's output, makes it
+    cross-attention: K and V project it, neither q nor K gets RoPE, and
+    every query sees every frame (non-causal, no window).  Causal
+    attention is plain PyTorch through :func:`attention_core`,
+    differentiable; bidirectional attention over all keys goes through
+    :func:`attend_all`."""
     q = _project_q(p, cfg, x)
+    if kv_override is not None:
+        k, v = _project_kv(p, cfg, kv_override)
+        return _out_proj(p, cfg, attend_all(q, k, v))
     k, v = _project_kv(p, cfg, x)
     q = apply_rope(q, positions, cfg)
     k = apply_rope(k, positions, cfg)
+    if not causal and window is None and pad_mask is None:
+        return _out_proj(p, cfg, attend_all(q, k, v))
     kpos = positions
     if pad_mask is not None:
         kpos = torch.where(pad_mask, positions.expand(pad_mask.shape),
                            torch.full_like(pad_mask, -1, dtype=positions.dtype))
     o = attention_core(q, k, v, positions, kpos, causal=causal, window=window)
     return _out_proj(p, cfg, o)
+
+
+def cross_attention_decode(p, cfg, x_t, enc_k, enc_v):
+    """Cross-attention of a decode step or chunk x_t (B, C, D) over the
+    encoder-KV plane's rows enc_k, enc_v (B, S_e, Hkv, hd), read in place
+    (:func:`attend_all`)."""
+    return _out_proj(p, cfg, attend_all(_project_q(p, cfg, x_t), enc_k,
+                                        enc_v))
+
+
+def precompute_cross_kv(p, cfg, enc_out):
+    """The cross-attention K, V (B, S_e, Hkv, hd) of the encoder's output:
+    computed once per request, read by every decode step."""
+    return _project_kv(p, cfg, enc_out)
 
 
 def init_attn_cache(cfg, batch, max_len, device, window=None):

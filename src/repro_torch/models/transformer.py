@@ -1,10 +1,11 @@
 """Model assembly of the ported slices: blocks of a mixer ((SWA or
-global) attention, or the recurrent RG-LRU / mLSTM / sLSTM of
+global) attention, self-attention plus cross-attention over an encoder
+(``xattn``), or the recurrent RG-LRU / mLSTM / sLSTM of
 ``models/recurrent``) + MoE FFN, dense MLP or no FFN, pre-norm residual.
 
 Port of the reference's ``models/transformer.py`` for every block kind
-but the encoder-decoder's (rmsnorm or layernorm, swiglu / geglu / gelu,
-optional attention biases, logit softcap, the image-token stub).  The
+(rmsnorm or layernorm, swiglu / geglu / gelu, optional attention biases,
+logit softcap, the image-token stub, the encoder-decoder).  The
 reference stacks each pattern position's parameters over periods for
 ``lax.scan`` and keeps the layers past the last whole period (tail
 layers) apart; the port keeps one dict per layer, ``params["layers"][l]``,
@@ -17,6 +18,16 @@ in place, positions never read back.  A recurrent layer's state (``{"rec": ...}`
 plane) is fixed-size and dense, one row per batch row, paged config or
 not; a step replaces it, except where a row chunk writes its row in
 place, and rows outside ``active`` keep theirs bit for bit.
+
+An encoder-decoder (whisper) has ``params["encoder"]``: a stack of
+bidirectional ``encattn+mlp`` blocks (self-attention with RoPE, no mask)
+and a final norm, run once per request over its frontend embeddings
+(``audio_embeds`` (B, S_e, D)).  Each decoder layer's cross-attention K/V
+of the encoder's output form the shared encoder-KV plane,
+``state["enc_kv"]`` = {"k", "v": (n_layers, B, S_e, Hkv, hd)}, batch-indexed
+like the rings and never paged: written whole at admission
+(:func:`encode_enc_kv`), only read after.  Every key of it is valid, so
+cross-attention is non-causal over all S_e frames (``layers.attend_all``).
 
 :func:`decode_step` is the plain plane's step (the reference's
 ``decode_step(moe_mode="gather")``): dense resident weights, MoE by the
@@ -43,22 +54,27 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
 
-ATTN_MIXERS = ("attn", "swa")
+ATTN_MIXERS = ("attn", "swa", "xattn")  # self-attention over a ring or pages
 REC_MIXERS = ("rglru", "mlstm", "slstm")
 NORMS = ("rmsnorm", "layernorm")
 MLP_ACTS = ("swiglu", "geglu", "gelu")
+ENCODER_KIND = "encattn+mlp"  # every block of an encoder-decoder's encoder
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Refuse what the port does not run yet: the encoder-decoder mixers
-    (ROADMAP queue 1, item 6, sub-item 4)."""
+    """Refuse a stack the port does not run: a decoder mixer outside
+    ``ATTN_MIXERS + REC_MIXERS``, or an encoder whose decoder is not all
+    ``xattn`` (and ``xattn`` without an encoder), as the reference reads
+    every decoder layer's cross K/V from the encoder."""
     mixers = {parse_block(k)[0] for k in cfg.layer_kinds()}
     bad = sorted(mixers - set(ATTN_MIXERS) - set(REC_MIXERS))
-    if bad or cfg.encoder_layers:
+    enc_dec = mixers == {"xattn"} if cfg.is_encoder_decoder \
+        else "xattn" not in mixers
+    if bad or not enc_dec:
         raise NotImplementedError(
-            f"{cfg.name}: mixers {bad or sorted(mixers)} are not ported yet "
-            f"(the port runs {ATTN_MIXERS + REC_MIXERS} without an encoder; "
-            f"the encoder-decoder is ROADMAP item 6 sub-item 4)")
+            f"{cfg.name}: mixers {sorted(mixers)} with {cfg.encoder_layers} "
+            f"encoder layers (the port runs {ATTN_MIXERS + REC_MIXERS}, "
+            f"xattn exactly when there is an encoder)")
     if cfg.norm not in NORMS or cfg.mlp_act not in MLP_ACTS:
         raise NotImplementedError(
             f"{cfg.name}: norm {cfg.norm!r} or activation {cfg.mlp_act!r} "
@@ -67,7 +83,8 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def _init_block(gen, cfg: ModelConfig, kind: str):
     """A block's parameters: ``norm1`` and the mixer's (``attn``, or the
-    recurrent mixer's name), then ``norm2`` and the FFN's unless the
+    recurrent mixer's name; ``xattn`` adds ``norm_x`` and the
+    cross-attention's ``xattn``), then ``norm2`` and the FFN's unless the
     block has none (the reference's ``_init_block``)."""
     mixer, ffn = parse_block(kind)
     p = {"norm1": L.init_norm(cfg, gen.device)}
@@ -75,6 +92,9 @@ def _init_block(gen, cfg: ModelConfig, kind: str):
         p[mixer] = R.INIT[mixer](gen, cfg)
     else:
         p["attn"] = L.init_attention(gen, cfg)
+    if mixer == "xattn":
+        p["norm_x"] = L.init_norm(cfg, gen.device)
+        p["xattn"] = L.init_attention(gen, cfg)
     if ffn != "none":
         p["norm2"] = L.init_norm(cfg, gen.device)
         p[ffn] = M.init_moe(gen, cfg) if ffn == "moe" else L.init_mlp(gen, cfg)
@@ -100,6 +120,14 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None,
     for l, kind in enumerate(cfg.layer_kinds()):
         blk = _init_block(gen, cfg, kind)
         params["layers"].append(blk if on_block is None else on_block(l, blk))
+    if cfg.is_encoder_decoder:
+        # the reference's encoder config: its depth sets the init scales
+        enc_cfg = cfg.replace(block_pattern=(ENCODER_KIND,),
+                              n_layers=cfg.encoder_layers)
+        params["encoder"] = {
+            "layers": [_init_block(gen, enc_cfg, ENCODER_KIND)
+                       for _ in range(cfg.encoder_layers)],
+            "final_norm": L.init_norm(cfg, dev)}
     if cfg.num_image_tokens:
         D = cfg.d_model
         params["img_proj"] = L._randn(gen, (D, D), D ** -0.5, L._dt(cfg))
@@ -148,6 +176,8 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
             out[mixer] = rec[mixer]
         else:
             out["attn"] = attn
+        if mixer == "xattn":
+            out.update(norm_x=norm, xattn=attn)
         if ffn == "none":
             return out
         out["norm2"] = norm
@@ -169,6 +199,9 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
         specs["lm_head"] = {"w": leaf(D, cfg.padded_vocab)}
     specs["final_norm"] = norm
     specs["layers"] = [block(kind) for kind in cfg.layer_kinds()]
+    if cfg.is_encoder_decoder:
+        specs["encoder"] = {"layers": [block(ENCODER_KIND)] * cfg.encoder_layers,
+                            "final_norm": norm}
     if cfg.num_image_tokens:
         specs["img_proj"] = leaf(D, D)
     return specs
@@ -231,12 +264,14 @@ def _attn_train_with_cache(p, cfg: ModelConfig, h, positions, window,
 
 
 def _block_train(p, cfg: ModelConfig, kind: str, x, positions, pad_mask,
-                 max_len=None):
+                 max_len=None, enc_out=None):
     """One block over the full sequence: (x, load-balance term or None,
     the layer's decode state when ``max_len`` asks for one, else None).
     A recurrent mixer runs its training form (pads are not masked out of
     it: callers do not left-pad a recurrent stack) and its state is its
-    final carry."""
+    final carry.  ``encattn`` (an encoder block) attends both ways with
+    no state; ``xattn`` is causal self-attention (with its ring when
+    asked), then ``norm_x`` and cross-attention over ``enc_out``."""
     mixer, ffn = parse_block(kind)
     h = L.apply_norm(p["norm1"], cfg, x)
     st = None
@@ -244,6 +279,8 @@ def _block_train(p, cfg: ModelConfig, kind: str, x, positions, pad_mask,
         y, rec = R.TRAIN[mixer](p[mixer], cfg, h)
         if max_len is not None:
             st = {"rec": rec}
+    elif mixer == "encattn":
+        y = L.attention_train(p["attn"], cfg, h, positions, causal=False)
     elif max_len is None:
         y = L.attention_train(p["attn"], cfg, h, positions,
                               window=attention_window(cfg, kind),
@@ -254,6 +291,10 @@ def _block_train(p, cfg: ModelConfig, kind: str, x, positions, pad_mask,
                                        pad_mask)
         st = {"kv": kv}
     x = x + y
+    if mixer == "xattn":
+        hx = L.apply_norm(p["norm_x"], cfg, x)
+        x = x + L.attention_train(p["xattn"], cfg, hx, positions,
+                                  kv_override=enc_out)
     if ffn == "none":
         return x, None, st
     h2 = L.apply_norm(p["norm2"], cfg, x)
@@ -270,8 +311,10 @@ def forward_train(params, cfg: ModelConfig, batch, *, remat: bool = False,
                   want_state: bool = False, max_len: int = 0):
     """Teacher-forced logits of ``batch["tokens"]`` (B, S) int tensor (with
     an optional left-pad ``batch["pad_mask"]``, a tensor or a host bool
-    array, and on a config with image tokens an optional
-    ``batch["image_embeds"]`` (B, n, D), :func:`_embed_inputs`).  Returns
+    array, on a config with image tokens an optional
+    ``batch["image_embeds"]`` (B, n, D), :func:`_embed_inputs`, and on an
+    encoder-decoder the frontend's ``batch["audio_embeds"]`` (B, S_e, D),
+    through the encoder first, :func:`_run_encoder`).  Returns
     ``(logits (B, S, V) float32, {"load_balance": sum over MoE layers})``.
     ``remat`` recomputes each period's blocks in the backward pass and
     keeps only the residual stream between periods (the reference's
@@ -280,11 +323,21 @@ def forward_train(params, cfg: ModelConfig, batch, *, remat: bool = False,
     ``want_state`` also returns the decode state the prompt leaves (the
     static engine's prefill): every attention layer's KV ring of
     ``max_len`` (default S) positions (:func:`_attn_train_with_cache`),
-    every recurrent layer's final carry, and ``pos``,
-    S for every row, or with a pad mask each row's real-token count as a
-    host (B,) array: the per-row positions decode continues from."""
+    every recurrent layer's final carry, the encoder-KV plane
+    (``enc_kv``, :func:`_collect_enc_kv`) on an encoder-decoder, and
+    ``pos``, S for every row, or with a pad mask each row's real-token
+    count as a host (B,) array: the per-row positions decode continues
+    from."""
     check_supported(cfg)
     x = _embed_inputs(params, cfg, batch)
+    enc_out = None
+    if cfg.is_encoder_decoder:
+        if batch.get("audio_embeds") is None:
+            raise ValueError(
+                f"{cfg.name} is encoder-decoder: the batch needs "
+                f"'audio_embeds' (B, encoder_seq, d_model)")
+        enc_out = _run_encoder(params, cfg, batch["audio_embeds"],
+                               remat=remat and not want_state)
     B, S, _ = x.shape
     mask = mask_host = batch.get("pad_mask")
     if isinstance(mask, np.ndarray):
@@ -300,7 +353,7 @@ def forward_train(params, cfg: ModelConfig, batch, *, remat: bool = False,
     def run_period(x, lb, *layer_params):
         for i, lp in enumerate(layer_params):
             x, term, st = _block_train(lp, cfg, kinds[i], x, positions,
-                                       pad_mask, ring_len)
+                                       pad_mask, ring_len, enc_out)
             if term is not None:
                 lb = lb + term
             if want_state:
@@ -323,7 +376,56 @@ def forward_train(params, cfg: ModelConfig, batch, *, remat: bool = False,
         return logits, aux
     pos = (S if pad_mask is None
            else mask_host.astype(bool).sum(1).astype(np.int32))
-    return logits, aux, {"layers": states, "pos": pos}
+    state = {"layers": states, "pos": pos}
+    if enc_out is not None:
+        state["enc_kv"] = _collect_enc_kv(params, cfg, enc_out)
+    return logits, aux, state
+
+
+def _run_encoder(params, cfg: ModelConfig, audio_embeds, remat: bool = False):
+    """The encoder over the frontend's embeddings (B, S_e, D), a tensor or
+    a host array, cast to the model dtype first: its ``encattn+mlp``
+    blocks at positions ``arange(S_e)``, then its final norm.  ``remat``
+    recomputes each block in the backward pass."""
+    dev = params["embed"]["table"].device
+    x = torch.as_tensor(audio_embeds, device=dev).to(L._dt(cfg))
+    pos = torch.arange(x.shape[1], dtype=torch.int32, device=dev)
+    block = lambda x, lp: _block_train(lp, cfg, ENCODER_KIND, x, pos,
+                                       None)[0]
+    for lp in params["encoder"]["layers"]:
+        if remat and torch.is_grad_enabled():
+            x = torch.utils.checkpoint.checkpoint(block, x, lp,
+                                                  use_reentrant=False)
+        else:
+            x = block(x, lp)
+    return L.apply_norm(params["encoder"]["final_norm"], cfg, x)
+
+
+def _collect_enc_kv(params, cfg: ModelConfig, enc_out):
+    """The encoder-KV plane of ``enc_out`` (B, S_e, D): every decoder
+    layer's cross-attention K and V, stacked (n_layers, B, S_e, Hkv,
+    hd)."""
+    kv = [L.precompute_cross_kv(lp["xattn"], cfg, enc_out)
+          for lp in params["layers"]]
+    return {"k": torch.stack([k for k, _ in kv]),
+            "v": torch.stack([v for _, v in kv])}
+
+
+def encode_enc_kv(params, cfg: ModelConfig, audio_embeds):
+    """The encoder pass and the encoder-KV plane of ``audio_embeds`` (B,
+    S_e, D): what admission computes once per request."""
+    return _collect_enc_kv(params, cfg, _run_encoder(params, cfg,
+                                                     audio_embeds))
+
+
+def enc_kv_layer(state, l: int, row=None):
+    """Layer ``l``'s (k, v) rows of the encoder-KV plane, views (row
+    ``row`` alone for a row chunk), or None without a plane."""
+    plane = state.get("enc_kv")
+    if plane is None:
+        return None
+    rows = slice(None) if row is None else slice(row, row + 1)
+    return plane["k"][l, rows], plane["v"][l, rows]
 
 
 def prefill(params, cfg: ModelConfig, batch, max_len: int):
@@ -344,17 +446,18 @@ def make_prefill(cfg: ModelConfig):
 
 # ----------------------------------------------------------------------
 def block_decode(p, cfg: ModelConfig, kind: str, x_t, state, pos, step=None,
-                 *, active=None, row=None):
+                 *, active=None, row=None, enc_kv=None):
     """One plain block's step: the mixer (attention over a dense KV ring,
     or the prepared per-row or paged ``step``; a recurrent mixer from its
-    carried state, :func:`decode_block_packed_mixer`), then the MoE by the
+    carried state; ``xattn`` then cross-attention over ``enc_kv``,
+    :func:`decode_block_packed_mixer`), then the MoE by the
     per-token gather over the dense expert stack, the dense MLP, or
     nothing.  Returns (x_t, state, info); info is ``{"route": {ids,
     weights, probs}, "hidden_pre_moe": (B*C, D)}`` for an MoE block, ``{}``
     otherwise (the reference's ``_block_decode(moe_mode="gather")``)."""
     x_t, state, h2 = decode_block_packed_mixer(p, cfg, kind, x_t, state, pos,
                                                step=step, active=active,
-                                               row=row)
+                                               row=row, enc_kv=enc_kv)
     ffn = parse_block(kind)[1]
     if ffn == "none":
         return x_t, state, {}
@@ -392,7 +495,8 @@ def decode_step(params, cfg: ModelConfig, state, tokens, *,
     A recurrent layer steps its carry: at C = 1 by its decode form, at C
     > 1 by its chunk form; rows outside ``active`` keep their carry bit
     for bit (dense or paged), and a row chunk reads and writes its row's
-    carry alone.
+    carry alone.  An ``xattn`` layer's cross-attention reads its layer of
+    the encoder-KV plane (a row chunk its row alone).
 
     ``step`` is the step's prepared :func:`prepare_step` (built here when
     not given)."""
@@ -408,7 +512,8 @@ def decode_step(params, cfg: ModelConfig, state, tokens, *,
     for l, kind in enumerate(cfg.layer_kinds()):
         x, state["layers"][l], info = block_decode(
             layer_params(params, cfg, l), cfg, kind, x, state["layers"][l],
-            pos, step, active=active, row=row)
+            pos, step, active=active, row=row,
+            enc_kv=enc_kv_layer(state, l, row))
         infos.append(info)
     logits = apply_head(params, cfg, x)
     state = dict(state, pos=advance(state, C, active=active, row=row))
@@ -470,15 +575,17 @@ def advance(state, C: int, *, active=None, row=None):
 
 def decode_block_packed_mixer(p, cfg: ModelConfig, kind: str, x_t, state,
                               pos, pages=None, active=None, step=None,
-                              row=None):
+                              row=None, enc_kv=None):
     """Mixer half of a block's step (every plane): norm1 + mixer +
     residual, plus the pre-FFN norm.  x_t: (B, C, D).  Attention writes
     the KV ring in ``state["kv"]`` at ``pos .. pos+C-1``, at each row's
     own position with a ``layers.RingStep``, or with ``pages`` (or a
     prepared ``layers.PagedStep``) the page pool at each row's own
     positions, active rows only.  A recurrent mixer steps
-    ``state["rec"]`` (:func:`_rec_step`).  Returns (x_t, state, h2 (B, C,
-    D), or None on a block without an FFN)."""
+    ``state["rec"]`` (:func:`_rec_step`).  ``xattn`` adds ``norm_x`` and
+    cross-attention over ``enc_kv`` = (k, v) (B, S_e, Hkv, hd) and its
+    residual.  Returns (x_t, state, h2 (B, C, D), or None on a block
+    without an FFN)."""
     mixer, ffn = parse_block(kind)
     h = L.apply_norm(p["norm1"], cfg, x_t)
     if mixer in REC_MIXERS:
@@ -491,6 +598,9 @@ def decode_block_packed_mixer(p, cfg: ModelConfig, kind: str, x_t, state,
                                    pages=pages, active=active, step=step)
         state = dict(state, kv=kv)
     x_t = x_t + y
+    if mixer == "xattn":
+        hx = L.apply_norm(p["norm_x"], cfg, x_t)
+        x_t = x_t + L.cross_attention_decode(p["xattn"], cfg, hx, *enc_kv)
     if ffn == "none":
         return x_t, state, None
     return x_t, state, L.apply_norm(p["norm2"], cfg, x_t)
@@ -586,7 +696,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
     ((batch, kv_max_pages), -1 = unallocated) shared by all layers and
     per-row positions ``pos`` (batch,), both numpy on the host, where the
     serving layer keeps them authoritative.  Recurrent layers keep their
-    dense rows either way (a pure-recurrent stack has no pool at all)."""
+    dense rows either way (a pure-recurrent stack has no pool at all).
+    An encoder-decoder's state has the encoder-KV plane ``enc_kv`` (zeros,
+    ``batch`` rows) on either layout."""
     check_supported(cfg)
     dev = resolve_device(device)
 
@@ -600,11 +712,16 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int,
         return {"kv": L.init_attn_cache(cfg, batch, max_len, dev,
                                         attention_window(cfg, kind))}
 
-    layers = [layer(kind) for kind in cfg.layer_kinds()]
+    state = {"layers": [layer(kind) for kind in cfg.layer_kinds()], "pos": 0}
     if kv_page is not None:
-        return {"layers": layers, "pos": np.zeros((batch,), np.int32),
-                "pages": np.full((batch, kv_max_pages), -1, np.int32)}
-    return {"layers": layers, "pos": 0}
+        state.update(pos=np.zeros((batch,), np.int32),
+                     pages=np.full((batch, kv_max_pages), -1, np.int32))
+    if cfg.is_encoder_decoder:
+        shape = (cfg.n_layers, batch, cfg.encoder_seq, cfg.n_kv_heads,
+                 cfg.head_dim)
+        state["enc_kv"] = {k: torch.zeros(shape, dtype=L._dt(cfg), device=dev)
+                           for k in ("k", "v")}
+    return state
 
 
 def layer_params(params, cfg: ModelConfig, layer_idx: int):

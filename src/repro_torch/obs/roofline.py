@@ -23,8 +23,9 @@ pool state's host-side ``counts`` array (the LRU state machine runs on
 the host), so the read is no device synchronisation at all.
 ``rec_state_bytes_per_token`` is the recurrent state read and written
 once per decode token (``cost_model.recurrent_state_bytes``, 0 on an
-attention-only stack); ``enc_kv_read_bytes_per_token`` is 0: the port
-runs no encoder-decoder stack yet.
+attention-only stack); ``enc_kv_read_bytes_per_token`` is the encoder
+K/V a decode token's cross-attention reads (``kv_read_bytes_per_token``
+at context 0: 0 without an encoder).
 """
 from __future__ import annotations
 
@@ -94,7 +95,7 @@ class RooflineAccountant:
         self._g["windows"].set(0)
         # per-layer-kind state-plane traffic: the recurrent carries (read
         # and written; 0 on an attention-only stack) and the encoder-KV
-        # cross-read (0: the port runs no encoder)
+        # cross-read (0 without an encoder)
         self._g["rec_state_bytes_per_token"].set(
             2.0 * cost_model.recurrent_state_bytes(cfg))
         self._g["enc_kv_read_bytes_per_token"].set(

@@ -173,6 +173,16 @@ class Executor:
     def init_state(self, batch: int, max_len: int):
         return T.init_decode_state(self.cfg, batch, max_len, self.device)
 
+    def encode(self, audio_embeds):
+        """An encoder-decoder's admission-time work: the encoder over the
+        frontend's ``audio_embeds`` (B, S_e, D) and every decoder layer's
+        cross K/V of its output, the encoder-KV plane ``{"k", "v":
+        (n_layers, B, S_e, Hkv, hd)}`` (``transformer.encode_enc_kv``),
+        run once per request and only read after."""
+        if not self.cfg.is_encoder_decoder:
+            raise ValueError(f"{self.cfg.name} has no encoder")
+        return T.encode_enc_kv(self.params, self.cfg, audio_embeds)
+
     def init_pool_state(self, max_rows: int = 1) -> EP.PoolState:
         """Pool state for decode steps of up to ``max_rows`` token rows
         (B * C: rows times tokens per row)."""
@@ -326,7 +336,8 @@ class Executor:
     def prefill_chunk_row(self, state, tokens, slot: int):
         """One slot's prompt chunk against the shared page pools: tokens
         (1, C) write KV straight into the pages ``slot`` owns at its
-        position (through the ragged binding), MoE runs by the gather
+        position (through the ragged binding), cross-attention reads the
+        slot's row of the encoder-KV plane, MoE runs by the gather
         (plain plane) or store-direct through the prefill tier (packed),
         and only that row's ``pos`` advances.  Returns ``(logits (1, C,
         V), state)``; there is no install step, the running batch reads
@@ -350,13 +361,22 @@ class Executor:
         logits = T.apply_head(self.params, cfg, x)
         return logits, dict(state, pos=T.advance(state, C, row=slot))
 
-    def prefill(self, tokens, max_len: int, *, chunk: Optional[int] = None):
-        """Whole-prompt prefill = chunked prefill over a fresh state.
-        Returns (logits of the last chunk, state)."""
+    def prefill(self, tokens, max_len: int, *, chunk: Optional[int] = None,
+                extras=None):
+        """Whole-prompt prefill = chunked prefill over a fresh state.  An
+        encoder-decoder needs ``extras={"audio_embeds": (B, S_e, D)}``:
+        the encoder runs once first (:meth:`encode`) and the chunks read
+        its plane.  Returns (logits of the last chunk, state)."""
         tokens = torch.as_tensor(tokens, device=self.device)
         B, S = tokens.shape
         C = S if chunk is None else max(1, min(int(chunk), S))
         state = self.init_state(B, max_len)
+        if self.cfg.is_encoder_decoder:
+            if not extras or "audio_embeds" not in extras:
+                raise ValueError(
+                    f"{self.cfg.name} is encoder-decoder: prefill needs "
+                    "extras={'audio_embeds': (B, encoder_seq, d_model)}")
+            state["enc_kv"] = self.encode(extras["audio_embeds"])
         logits = None
         for lo in range(0, S, C):
             logits, state = self.prefill_chunk(state, tokens[:, lo: lo + C])
@@ -378,15 +398,19 @@ class Executor:
 
     # ------------------------------------------------------------------
     def generate_greedy(self, prompt, max_new_tokens: int, *,
-                        prefill_chunk: Optional[int] = None) -> np.ndarray:
+                        prefill_chunk: Optional[int] = None,
+                        extras=None) -> np.ndarray:
         """Greedy decode of one prompt (1, S) on the plain plane: the
-        parity oracle's loop (``generate_plain``).  Returns (1, n) ints."""
+        parity oracle's loop (``generate_plain``); ``extras`` carries an
+        encoder-decoder's ``audio_embeds`` (:meth:`prefill`).  Returns (1,
+        n) ints."""
         if self.packed:
             raise ValueError("generate_greedy runs the plain plane; the "
                              "offload engine drives the packed planes")
         prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int32)
         max_len = int(prompt.shape[1]) + max_new_tokens
-        logits, state = self.prefill(prompt, max_len, chunk=prefill_chunk)
+        logits, state = self.prefill(prompt, max_len, chunk=prefill_chunk,
+                                     extras=extras)
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
         out = [tok]
         for _ in range(max_new_tokens - 1):

@@ -36,6 +36,11 @@
   quarantined; a request can be cancelled, or run out its deadline,
   wherever it is.  An ``obs.Telemetry`` (``telemetry=``) adds the
   reference's telemetry plane: step phases, request spans, the roofline.
+  An encoder-decoder's request brings its frontend's ``audio_embeds``
+  (``submit(..., extras=)``): admission runs the encoder once
+  (``Executor.encode``) into the slot's row of the encoder-KV plane (on
+  pages before its first chunk, on dense slots into the row state that
+  the install copies), and every step's cross-attention reads it.
 
 Each step's positions, row indices, page table and ragged work list are
 built on the host from the managers' tables and uploaded with the step's
@@ -123,6 +128,11 @@ class ServeEngine:
                 f"left-padded serve_batch needs a causal-attention stack; "
                 f"{cfg.name}'s mixers accumulate state over pad tokens "
                 f"- batch equal-length prompts for this arch")
+        if cfg.is_encoder_decoder:
+            raise ValueError(
+                f"{cfg.name} is encoder-decoder: serve_batch takes no audio "
+                f"input (audio_embeds); serve it through ContinuousEngine, "
+                f"whose submit() takes extras={{'audio_embeds': ...}}")
         max_new = max(r.max_new_tokens for r in requests)
         toks = np.zeros((B, S), np.int32)
         mask = np.zeros((B, S), bool)
@@ -426,8 +436,12 @@ class ContinuousEngine:
     # ------------------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 32, on_token=None,
                on_finish=None, temperature: Optional[float] = None,
-               priority: int = 0, deadline_ms: Optional[float] = None,
+               extras: Optional[dict] = None, priority: int = 0,
+               deadline_ms: Optional[float] = None,
                deadline_steps: Optional[int] = None) -> GenRequest:
+        """Queue a request.  An encoder-decoder needs ``extras={
+        "audio_embeds": (S_e, d_model) or (1, S_e, d_model)}``, kept as
+        float32 (1, S_e, d_model) and encoded at admission."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         assert prompt.size > 0, "empty prompt"
         if self._preempt:
@@ -440,6 +454,21 @@ class ContinuousEngine:
                     f"request needs {worst} pages > pool total "
                     f"{self.kv.pool.n_pages}; even preemption cannot make "
                     f"it fit")
+        if self.cfg.is_encoder_decoder:
+            if not extras or "audio_embeds" not in extras:
+                raise ValueError(
+                    f"{self.cfg.name} is encoder-decoder: submit() needs "
+                    f"extras={{'audio_embeds': (S_e, d_model)}}, encoded "
+                    f"once at admission into the read-only shared "
+                    f"encoder-KV plane")
+            ae = np.asarray(extras["audio_embeds"], np.float32)
+            if ae.ndim == 2:
+                ae = ae[None]
+            if ae.shape[0] != 1 or ae.shape[1] != self.cfg.encoder_seq:
+                raise ValueError(
+                    f"audio_embeds must be (S_e={self.cfg.encoder_seq}, "
+                    f"d_model) for one request; got {ae.shape}")
+            extras = dict(extras, audio_embeds=ae)
         if temperature is not None and self._greedy:
             raise ValueError(
                 "per-request temperature needs a stochastic sampler; this "
@@ -456,7 +485,7 @@ class ContinuousEngine:
         req = GenRequest(prompt=prompt, max_new_tokens=max_new_tokens,
                          arrival=self.step_count, on_token=on_token,
                          on_finish=on_finish, temperature=temperature,
-                         priority=priority,
+                         extras=extras, priority=priority,
                          deadline_ms=(deadline_ms if deadline_ms is not None
                                       else self._deadline_ms),
                          deadline_steps=deadline_steps,
@@ -489,15 +518,21 @@ class ContinuousEngine:
         preempt a strictly lower-priority row, and preempted requests
         resume first.  A prefix hit's pages count as credit and its
         prefill starts where it diverges.  On dense slots a request
-        prefills into a fresh row state.  Prompts prefill as chunks."""
+        prefills into a fresh row state.  Prompts prefill as chunks.  An
+        encoder-decoder's request is encoded here, once: into its slot's
+        row of the plane on pages, into its row state on dense slots."""
         while self.kv.n_free and (self.sched.has_waiting or self._swapped):
             if not self.paged:
                 req = self.sched.pop_next(self.usage)
                 self.obs.req_admitted(req.rid, self.step_count - req.arrival)
                 req.slot = self.kv.allocate(req.rid)
+                state = self.kv.new_row_state()
+                if self.cfg.is_encoder_decoder:
+                    state["enc_kv"] = self._exec.encode(
+                        req.extras["audio_embeds"])
                 self._admissions.append(Admission(
                     rid=req.rid, slot=req.slot, total=len(req.prompt),
-                    state=self.kv.new_row_state(), req=req))
+                    state=state, req=req))
                 continue
             if self._swapped:
                 sw = min(self._swapped, key=lambda s: (-s.req.priority, s.seq))
@@ -523,6 +558,9 @@ class ContinuousEngine:
             req.slot = self.kv.allocate(req.rid, reserve,
                                         shared_pages=shared, base=base)
             self._note_prefix_hit(base)
+            if self.cfg.is_encoder_decoder:
+                self.kv.write_enc_kv(
+                    req.slot, self._exec.encode(req.extras["audio_embeds"]))
             self._admissions.append(Admission(
                 rid=req.rid, slot=req.slot, total=len(req.prompt),
                 next_lo=base, req=req))

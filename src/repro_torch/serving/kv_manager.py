@@ -13,7 +13,12 @@ recurrent layer's carry rides in the same rows (the reference's "rec"
 plane, fixed-size, never paged): the install overwrites it, and
 :meth:`KVSlotManager.snapshot` / :meth:`KVSlotManager.restore` copy a
 slot's whole row out and back, the rollback of draft-and-verify on such
-a stack.
+a stack.  An encoder-decoder's encoder-KV plane (``state["enc_kv"]``,
+batch-indexed, never paged) rides likewise: admission encodes into the row
+state, the install copies its row, and on pages
+:meth:`PagedKVManager.write_enc_kv` writes the slot's row before the first
+admission chunk.  Every admission overwrites its row whole, so a freed
+slot's row needs no scrub.
 
 On the paged plane KV lives in one pool of fixed-size pages per
 attention layer (``models/layers.init_paged_attn_cache``) and each slot
@@ -138,20 +143,26 @@ class KVSlotManager:
             for name, plane in big.items():
                 for k, t in plane.items():
                     t[slot] = small[name][k][0]
+        for k, t in self.state.get("enc_kv", {}).items():
+            t[:, slot] = small_state["enc_kv"][k][:, 0]
         pos = self.state["pos"].copy()
         pos[slot] = int(np.reshape(small_state["pos"], -1)[0])
         self.state = dict(self.state, pos=pos)
 
     def snapshot(self, slot: int):
         """A B = 1 copy of the slot's whole state (every layer's ring row
-        and recurrent carry, and its position): the pre-round snapshot of
-        draft-and-verify on a stack with recurrent layers, whose carries
-        cannot roll back by a position reset."""
-        return {"layers": [{name: {k: t[slot: slot + 1].clone()
+        and recurrent carry, its encoder-KV row, and its position): the
+        pre-round snapshot of draft-and-verify on a stack with recurrent
+        layers, whose carries cannot roll back by a position reset."""
+        snap = {"layers": [{name: {k: t[slot: slot + 1].clone()
                                    for k, t in plane.items()}
                             for name, plane in blk.items()}
                            for blk in self.state["layers"]],
                 "pos": self.state["pos"][slot: slot + 1].copy()}
+        if "enc_kv" in self.state:
+            snap["enc_kv"] = {k: t[:, slot: slot + 1].clone()
+                              for k, t in self.state["enc_kv"].items()}
+        return snap
 
     def restore(self, small_state, slot: int) -> None:
         """Write a :meth:`snapshot` (or a continuation of one) back into
@@ -667,6 +678,13 @@ class PagedKVManager:
         """Take the pools and positions a step returned; the (possibly
         sliced) table is replaced by the full host-authoritative one."""
         self.state = dict(new_state, pages=self._pages_np)
+
+    def write_enc_kv(self, slot: int, enc_kv) -> None:
+        """Write a request's encoder-KV plane (B = 1, from
+        ``Executor.encode``) into ``slot``'s row of the shared plane, in
+        place: admission does it before the slot's first prompt chunk."""
+        for k, t in self.state["enc_kv"].items():
+            t[:, slot] = enc_kv[k][:, 0]
 
     def _scrub(self, page_ids: List[int]) -> None:
         """Reset ``ppos`` of freed pages to -1 in every layer."""

@@ -24,6 +24,7 @@ from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import speculative
@@ -66,6 +67,9 @@ class GenRequest:
     # latest arrival breaks ties), and a waiting request preempts only
     # strictly lower priorities
     priority: int = 0
+    # an encoder-decoder's {"audio_embeds": (1, S_e, D) float32}: encoded
+    # once at admission into the shared encoder-KV plane
+    extras: Optional[dict] = None
     # filled lazily by ExpertOverlapPolicy (per-layer predicted expert ids)
     _pred_experts: Optional[List[np.ndarray]] = None
 
@@ -104,7 +108,9 @@ def admission_cost(cfg: ModelConfig, prompt_len: int,
     """What admitting one request costs, per state plane: every position
     of prompt + max_new on each growing KV plane (none on a
     pure-recurrent stack, which then admits without a page), the flat
-    recurrent state, no encoder KV (the port runs no encoder)."""
+    recurrent state, and on an encoder-decoder its row of the encoder-KV
+    plane (K and V of every decoder layer over ``encoder_seq`` frames, in
+    the model dtype), flat in the request's length."""
     from repro_torch.core.cost_model import recurrent_state_bytes
     need = prompt_len + max_new_tokens
     kv_pos = kv_pos_win = 0
@@ -113,10 +119,15 @@ def admission_cost(cfg: ModelConfig, prompt_len: int,
             kv_pos = max(kv_pos, need)
             kv_pos_win = max(kv_pos_win,
                              min(need, sp.window) if sp.window else need)
+    enc_bytes = 0
+    if cfg.is_encoder_decoder:
+        item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+        enc_bytes = (2 * cfg.n_layers * cfg.encoder_seq * cfg.n_kv_heads
+                     * cfg.head_dim * item)
     return AdmissionCost(kv_positions=kv_pos,
                          kv_positions_windowed=kv_pos_win,
                          rec_state_bytes=recurrent_state_bytes(cfg),
-                         enc_kv_bytes=0)
+                         enc_kv_bytes=enc_bytes)
 
 
 # ----------------------------------------------------------------------

@@ -335,6 +335,12 @@ FLASH_CASES = [  # (B, H, Hkv, Sq, Skv, hd, causal, window, q_offset)
     (1, 16, 1, 5, 300, 256, True, 2048, 295),    # verify chunk
     (1, 16, 1, 200, 1200, 256, True, 256, 1000), # window skips KV tiles
     (2, 4, 2, 40, 50, 256, True, 5, 100),        # rows with no valid key
+    # whisper-medium (16 / 16 heads of 64) non-causal on the wgmma instance:
+    # the encoder's 1500 x 1500 (Sq and Skv off the tile), cross-attention
+    # at decode (4 rows of one query) and over a 64-token chunk, 1500 frames
+    (1, 16, 16, 1500, 1500, 64, False, None, 0),  # the encoder
+    (4, 16, 16, 1, 1500, 64, False, None, 0),    # cross-attention, decode
+    (1, 16, 16, 64, 1500, 64, False, None, 0),   # cross-attention, a chunk
 ]
 
 

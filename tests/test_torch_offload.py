@@ -220,21 +220,16 @@ def test_formerly_refused_features_match_reference(name):
     dict(block_pattern=("xattn+mlp",), encoder_layers=2, encoder_seq=8)],
     ids=["rglru", "mlstm", "xattn"])
 def test_unported_configs_are_refused(change):
-    """The encoder-decoder's mixers (ROADMAP item 6 sub-item 4), which the
-    port does not run yet, raise instead of computing something else; the
-    recurrent ones (``rglru``, and ``mlstm`` beside ``slstm`` with a dense
-    MLP) run now: ``forward_train`` logits within atol 1e-4 of the
-    reference's and ``generate_plain`` tokens exactly equal, as in the
-    test above."""
+    """The mixers once refused here run now: the recurrent ones
+    (``rglru``, and ``mlstm`` beside ``slstm`` with a dense MLP) and the
+    encoder-decoder's (``xattn`` over a 2-layer encoder of 8 frames, fed
+    seeded ``audio_embeds``): ``forward_train`` logits within atol 1e-4
+    of the reference's and ``generate_plain`` tokens exactly equal, as in
+    the test above."""
     from repro.core.offload_engine import generate_plain as jgenerate
     from repro_torch.core.offload_engine import generate_plain
-    from repro_torch.models.transformer import forward_train, init_model
+    from repro_torch.models.transformer import forward_train
     import zoo_models
-    if "encoder_layers" in change:
-        cfg = pget("tiny-moe").replace(**{"n_layers": 2, **change})
-        with pytest.raises(NotImplementedError, match="sub-item 4"):
-            init_model(cfg, device="cpu")
-        return
     change = {"n_layers": 2, "d_model": 128, "d_ff": 128, **change}
     jcfg, pcfg = jget("tiny-moe").replace(**change), \
         pget("tiny-moe").replace(**change)
@@ -242,10 +237,18 @@ def test_unported_configs_are_refused(change):
     jp = jax.tree.map(jnp.asarray, tree)
     pp = bridge.params_from_numpy(tree, pcfg, "cpu")
     toks = zoo_models.tokens(jcfg, 2, 12)
-    want, _ = JT.forward_train(jp, jcfg, {"tokens": jnp.asarray(toks)})
+    audio = {}
+    if jcfg.is_encoder_decoder:
+        audio = {"audio_embeds": np.random.default_rng(3).standard_normal(
+            (2, jcfg.encoder_seq, jcfg.d_model)).astype(np.float32)}
+    jx = {k: jnp.asarray(v) for k, v in audio.items()}
+    want, _ = JT.forward_train(jp, jcfg, {"tokens": jnp.asarray(toks), **jx})
     with torch.no_grad():
-        got, _ = forward_train(pp, pcfg, {"tokens": torch.as_tensor(toks)})
+        got, _ = forward_train(pp, pcfg, {"tokens": torch.as_tensor(toks),
+                                          **audio})
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=LOGIT_ATOL)
-    assert generate_plain(pp, pcfg, PROMPT, 5, device="cpu").tolist() == \
-        np.asarray(jgenerate(jp, jcfg, PROMPT, 5)).tolist()
+    one = lambda d: {k: v[:1] for k, v in d.items()} or None
+    assert generate_plain(pp, pcfg, PROMPT, 5, extras=one(audio),
+                          device="cpu").tolist() == \
+        np.asarray(jgenerate(jp, jcfg, PROMPT, 5, extras=one(jx))).tolist()

@@ -2,8 +2,8 @@
 CPU, at ``reduced()`` sizes (and the narrow configs of
 ``tests/zoo_models.py``): the model, its parameters and its training.
 
-* Configs: the six zoo names are served with the reference's fields; the
-  other three are refused with the ROADMAP sub-item that ports them;
+* Configs: the six zoo names are served with the reference's fields, and
+  so are the recurrent two and whisper (ported by later slices);
   ``ASSIGNED_ARCHS``, ``SWA_FOR_LONG`` and ``config_for_shape`` are the
   reference's.
 * ``count_params_analytic`` equals the reference's at the published
@@ -108,21 +108,18 @@ def test_registry_matches_reference():
                                        ("xlstm-1.3b", "sub-item 3"),
                                        ("whisper-medium", "sub-item 4")])
 def test_unported_zoo_names_are_refused(arch, item):
-    """The encoder-decoder (``whisper-medium``, whose mixers the port
-    lacks) is refused, naming ROADMAP item 6 and the sub-item that ports
-    it; the recurrent names (sub-item 3, ported) give the reference's
-    configs, field by field."""
-    if item == "sub-item 3":
-        got, want = PC.get_config(arch), JC.get_config(arch)
-        assert dataclasses.asdict(got) == dataclasses.asdict(want)
-        assert got.state_planes() == tuple(
-            type(got.state_planes()[0])(**dataclasses.asdict(sp))
-            for sp in want.state_planes())
-        assert (got.has_kv_layers, got.has_recurrent_layers) == \
-            (want.has_kv_layers, want.has_recurrent_layers)
-        return
-    with pytest.raises(NotImplementedError, match=f"item 6, {item}"):
-        PC.get_config(arch)
+    """The names ROADMAP item 6's sub-items 3 (the recurrent mixers) and 4
+    (the encoder-decoder) ported, once refused here, give the reference's
+    configs, field by field, with its state planes and derived flags."""
+    got, want = PC.get_config(arch), JC.get_config(arch)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.state_planes() == tuple(
+        type(got.state_planes()[0])(**dataclasses.asdict(sp))
+        for sp in want.state_planes())
+    assert (got.has_kv_layers, got.has_recurrent_layers,
+            got.is_encoder_decoder, got.attention_only_stack) == \
+        (want.has_kv_layers, want.has_recurrent_layers,
+         want.is_encoder_decoder, want.attention_only_stack)
 
 
 @pytest.mark.parametrize("arch", Z.ZOO + Z.REC)

@@ -1,7 +1,8 @@
 """Shared models of the port's config-zoo tests (imported, not collected).
 
-The six attention-only zoo architectures and the two recurrent ones
-(:data:`REC`) at ``reduced()`` size, plus the
+The six attention-only zoo architectures, the two recurrent ones
+(:data:`REC`) and the encoder-decoder (``whisper-medium``, its encoder
+stack included) at ``reduced()`` size, plus the
 narrow configs that carry features no zoo config reaches at that size:
 granite kept at 32 experts / top-8 / cache 8, phi-3 at head_dim 96,
 tail layers and a logit softcap.  Parameters are drawn once per module
@@ -28,7 +29,6 @@ from repro_torch.configs import get_config as pget
 ZOO = ("granite-moe-1b-a400m", "smollm-360m", "stablelm-1.6b", "qwen1.5-4b",
        "command-r-plus-104b", "phi-3-vision-4.2b")
 REC = ("recurrentgemma-9b", "xlstm-1.3b")
-UNPORTED = ("whisper-medium",)
 
 # granite at its published expert count, top-k and offload spec, widths
 # narrowed by hand (reduced() would give 4 experts and top-2, below its
