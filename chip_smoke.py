@@ -3643,6 +3643,83 @@ def _module(label, args, timeout, refused=None):
     return r.stdout
 
 
+# (arch, shape, layers timed on the card; None = all): the counts are
+# always the full depth's
+DRYRUN_COMBOS = (("mixtral-8x7b", "decode_32k", None),
+                 ("granite-moe-1b-a400m", "train_4k", 4),
+                 ("smollm-360m", "prefill_32k", 4))
+
+
+def phase_dryrun(card):
+    """Rank 0's share of the 16x16 production mesh on the card, at the
+    published widths (mixtral at full depth; granite and smollm timed at
+    4 layers, counted at full depth), under a fake world of 256 ranks
+    (``launch.dryrun``; collectives move nothing), in its own process:
+    mixtral-8x7b decode_32k (serve TP-only, KV window split on "model"),
+    granite train_4k (expert parallel, 2 microbatches, remat) and smollm
+    prefill_32k (32768 positions, heads not split).  Each combo: the
+    argument bytes held on the card must equal the spec trees' exactly,
+    the peak must fit in 80 GiB, the step time, the roofline terms on the
+    ``h100`` row and the collectives by type are printed.  No kernel of
+    the port is on this path (the reference's dry-run reaches none)."""
+    root = Path(__file__).resolve().parent
+    out = root / "chiprun_out" / "dryrun_torch"
+    code = (
+        "import torch\n"
+        "from pathlib import Path\n"
+        "from repro_torch.launch import dryrun as D, mesh as M\n"
+        "M.start_fake_world(256)\n"
+        "m = M.make_production_mesh()\n"
+        "x = torch.zeros(1, device=m.device_type)\n"
+        "assert m.device_type == 'cuda' and x.device.index == 0, x.device\n"
+        "print('[dryrun] fake world of', torch.distributed.get_world_size(),"
+        " 'ranks; rank 0 on', x.device, flush=True)\n"
+        f"for a, s, n in {list(DRYRUN_COMBOS)!r}:\n"
+        f"    D.run_one(a, s, False, Path({str(out)!r}), card_layers=n)\n")
+    env = dict(__import__("os").environ, PYTHONPATH=str(root / "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                       capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    log("\n".join(ln for ln in r.stdout.splitlines()
+                  if ln.startswith("[dryrun]")))
+    if r.returncode != 0:
+        log(r.stderr[-4000:])
+        fail(f"[dryrun] exited {r.returncode}")
+    for arch, shape, _ in DRYRUN_COMBOS:
+        res = json.loads((out / f"{arch}__{shape}__pod16x16.json").read_text())
+        ma, rf = res["memory_analysis"], res["roofline"]
+        if res["status"] != "ok" or res["n_devices"] != 256:
+            fail(f"[dryrun] {arch} x {shape}: {res['status']}")
+        if ma["argument_bytes_held"] != ma["step_argument_bytes"]:
+            fail(f"[dryrun] {arch} x {shape}: {ma['argument_bytes_held']} "
+                 f"argument bytes on the card, {ma['step_argument_bytes']} "
+                 f"from the spec trees")
+        peak = ma["peak_estimate_bytes"]
+        if not 0 < peak <= 80 * 2 ** 30:
+            fail(f"[dryrun] {arch} x {shape}: peak {peak} bytes")
+        if not (res["step_ms"] > 0 and rf["flops_per_chip"] > 0):
+            fail(f"[dryrun] {arch} x {shape}: step {res['step_ms']} ms, "
+                 f"{rf['flops_per_chip']} flops")
+        log(f"[dryrun] {arch} x {shape} x pod16x16 rank 0 on {card}: "
+            f"argument bytes {ma['argument_bytes_held']} on the card == "
+            f"spec trees at {res['step_layers']} layers "
+            f"({ma['argument_bytes_held'] / 2 ** 30:.3f} GiB; "
+            f"{ma['argument_bytes'] / 2 ** 30:.3f} GiB at full depth); peak "
+            f"{peak / 2 ** 30:.2f} GiB; step {res['step_ms']:.1f} ms at "
+            f"{res['step_layers']} of {res['n_layers']} layers; "
+            f"roofline (h100 row) compute {rf['t_compute_s'] * 1e3:.2f} ms "
+            f"memory {rf['t_memory_s'] * 1e3:.2f} ms collective "
+            f"{rf['t_collective_s'] * 1e3:.2f} ms -> {rf['bottleneck']}; "
+            f"flops/chip {rf['flops_per_chip']:.4g}, HBM bytes/chip "
+            f"{rf['hbm_bytes_per_chip']:.4g}; collectives "
+            f"{ {k: round(v / 2 ** 30, 3) for k, v in rf['collective_by_type'].items()} }"
+            f" GiB in {res['collective_ops']} ops; useful flops "
+            f"{res['useful_flops_ratio']:.3f}; tp_only "
+            f"{res['serve_tp_only']}")
+    log(f"[dryrun] {len(DRYRUN_COMBOS)} combos in {wall:.1f} s")
+
+
 def phase_cli(dev):
     """The port's launchers as a user runs them, each in its own process:
     ``launch.serve`` on ``mixtral-offload`` at its published 32 layers
@@ -4479,6 +4556,7 @@ def main():
     _add(zoo, phase_zoo_rec(dev))
     _add(zoo, phase_whisper(dev))
     phase_cli(dev)
+    phase_dryrun(card)
     for name in launches:  # [zoo], [zoo-rec], [whisper]
         launches[name] += zoo.get(name, 0)
     for name in ("ragged_attention", "flash_attention", "dequant_matmul_slots",

@@ -1,12 +1,14 @@
 """Config registry of the port: ``get_config(name)``, ``list_archs()``,
-and the reference's ``ASSIGNED_ARCHS``, ``SWA_FOR_LONG`` and
-``config_for_shape``."""
+and the reference's ``ASSIGNED_ARCHS``, ``INPUT_SHAPES``, ``SKIPS``,
+``SWA_FOR_LONG`` and ``config_for_shape``."""
 from __future__ import annotations
 
 import importlib
 from typing import List
 
 from repro_torch.configs.base import (  # noqa: F401  (re-exports)
+    INPUT_SHAPES,
+    InputShape,
     ModelConfig,
     MoESpec,
     OffloadSpec,
@@ -41,6 +43,15 @@ ASSIGNED_ARCHS: List[str] = [
     "xlstm-1.3b",
     "qwen1.5-4b",
 ]
+
+# (arch, shape) combinations that are skipped, with the reason recorded in
+# DESIGN.md section 5.  Everything else must run in the dry-run.
+SKIPS = {
+    ("whisper-medium", "long_500k"):
+        "encoder-decoder with architecturally bounded decoder context; "
+        "no sub-quadratic decoder variant exists for this family "
+        "(DESIGN.md section 5).",
+}
 
 # Dense full-attention archs run long_500k via their sliding-window variant
 SWA_FOR_LONG = {

@@ -226,3 +226,28 @@ class ModelConfig:
             rglru_conv_width=self.rglru_conv_width,
             dtype="float32",
         )
+
+
+# ----------------------------------------------------------------------
+# Input shapes of the dry-run (the reference's).
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", "train", 4096, 256),
+    "prefill_32k": InputShape("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": InputShape("decode_32k", "decode", 32768, 128),
+    "long_500k": InputShape("long_500k", "decode", 524288, 1),
+}
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Analytic parameter count (equals ``init_model``'s)."""
+    from repro_torch.models.transformer import count_params_analytic
+
+    return count_params_analytic(cfg)

@@ -32,6 +32,7 @@ import torch.utils.checkpoint
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import ragged_attention as RA
+from repro_torch.sharding.specs import constrain, is_dtensor, shard_offset
 
 DEFAULT_Q_CHUNK = 512
 NEG_INF = -1e30
@@ -57,6 +58,8 @@ def init_norm(cfg, device):
 def apply_norm(p, cfg, x):
     """RMS norm, or layernorm (a ``bias`` leaf and ``cfg.norm ==
     "layernorm"``), in float32."""
+    if is_dtensor(x) and any(p.is_partial() for p in x.placements):
+        x = _reduced(x)  # reduce a partial residual in the model dtype
     xf = x.to(torch.float32)
     if cfg.norm == "layernorm" and "bias" in p:
         mu = xf.mean(-1, keepdim=True)
@@ -129,7 +132,49 @@ def init_attention(gen, cfg):
 
 def _project(x, w):
     """x (..., D) @ w (D, *heads) as one 2-D product -> (..., *heads)."""
+    if is_dtensor(w):
+        return _project_sharded(x, w)
     return (x @ w.reshape(w.shape[0], -1)).reshape(x.shape[:-1] + w.shape[1:])
+
+
+def _mm(x, w):
+    """x (..., K) @ w (K, N); on a DTensor weight the local region of
+    :func:`_project_sharded` (DTensor's own choice for a matmul over an
+    FSDP-split contraction dim can replicate the whole batch)."""
+    return _project_sharded(x, w) if is_dtensor(w) else x @ w
+
+
+def _project_sharded(x, w):
+    """:func:`_project` of DTensors as a local region, per mesh dim:
+    where x's batch is split, w is gathered (FSDP) and its gradient is a
+    partial sum; where w's contraction dim D is split, x's D is split
+    alike and the output is a partial sum (the reduction is left to the
+    next constraint); where w's heads are split, the output's heads are,
+    and x is whole (its gradient a partial sum); else all replicated."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    xd = x.ndim - 1
+    rows = []
+    for a, b in zip(x.placements, w.placements):
+        if a == Shard(0):
+            rows.append((Shard(0), Replicate(), Shard(0), Shard(0),
+                         Partial()))
+        elif b == Shard(0):
+            rows.append((Shard(xd), Shard(0), Partial(), Shard(xd),
+                         Shard(0)))
+        elif b == Shard(1):
+            rows.append((Replicate(), Shard(1), Shard(xd), Partial(),
+                         Shard(1)))
+        else:
+            rows.append((Replicate(),) * 5)
+    px, pw, po, gx, gw = (tuple(c) for c in zip(*rows))
+    f = lambda xl, wl: (xl @ wl.reshape(wl.shape[0], -1)).reshape(
+        xl.shape[:-1] + wl.shape[1:])
+    return local_map(lambda xl, wl: (f(xl, wl),), out_placements=(po,),
+                     in_placements=(px, pw), in_grad_placements=(gx, gw),
+                     device_mesh=w.device_mesh, redistribute_inputs=True)(
+        x, w)[0]
 
 
 def _project_q(p, cfg, x):
@@ -146,7 +191,7 @@ def _project_kv(p, cfg, x):
 
 def _out_proj(p, cfg, o):
     w = p["wo"]  # (H, hd, D)
-    y = o.reshape(o.shape[:-2] + (-1,)) @ w.reshape(-1, w.shape[-1])
+    y = _mm(o.reshape(o.shape[:-2] + (-1,)), w.reshape(-1, w.shape[-1]))
     return y + p["bo"] if "bo" in p else y
 
 
@@ -165,6 +210,9 @@ def attention_core(q, k, v, qpos, kpos, *, causal, window,
     storing its scores (``torch.utils.checkpoint``, the reference's
     ``jax.checkpoint`` of its chunk body).
     """
+    if is_dtensor(q):
+        return _attention_core_sharded(q, k, v, qpos, kpos, causal=causal,
+                                       window=window, q_chunk=q_chunk)
     B, Sq, H, hd = q.shape
     Hkv = k.shape[2]
     qg = q.reshape(B, Sq, Hkv, H // Hkv, hd)
@@ -200,16 +248,125 @@ def attention_core(q, k, v, qpos, kpos, *, causal, window,
     return o.reshape(B, Sq, H, hd)
 
 
+def _attention_core_sharded(q, k, v, qpos, kpos, *, causal, window,
+                            q_chunk):
+    """:func:`attention_core` on DTensors, as a local region per rank.
+    Per mesh dim: the batch axis as q's; the key axis as k's (a decode
+    ring split over ranks, whose queries are then whole on that dim);
+    otherwise q heads on the dim that divides them, k/v heads with them
+    where they divide too.  A rank's q heads meet their own kv heads
+    (kv head = global q head // group, from its coordinate); over a split
+    key axis each rank attends over its keys and the softmax is combined
+    across ranks (max, then sums: exact)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    H, Hkv = q.shape[2], k.shape[2]
+    pq, pk, pqp, pkp, pout = [], [], [], [], []
+    kdims, hdim = [], None
+    for i, (a, b) in enumerate(zip(q.placements, k.placements)):
+        n = mesh.size(i)
+        if a == Shard(0) or b == Shard(0):
+            row = (Shard(0),) * 5
+        elif b == Shard(1):
+            kdims.append(i)
+            row = (Replicate(), Shard(1), Replicate(), Shard(kpos.ndim - 1),
+                   Replicate())
+        elif H % n == 0 and hdim is None and (a == Shard(2) or b == Shard(2)):
+            hdim = i
+            row = (Shard(2), Shard(2) if Hkv % n == 0 else Replicate(),
+                   Replicate(), Replicate(), Shard(2))
+        else:
+            row = (Replicate(),) * 5
+        for lst, p in zip((pq, pk, pqp, pkp, pout), row):
+            lst.append(p)
+    batch_pos = lambda t, pl: tuple(
+        Replicate() if p == Shard(0) and t.ndim < 2 else p for p in pl)
+    qpos, kpos = (_replicated(t, mesh) for t in (qpos, kpos))
+
+    def local(ql, kl, vl, qp, kp):
+        Hl = ql.shape[2]
+        if kl.shape[2] * (H // Hkv) != Hl:  # kv heads whole, q heads split
+            h0 = mesh.get_coordinate()[hdim] * Hl
+            idx = torch.div(torch.arange(h0, h0 + Hl, device=ql.device),
+                            H // Hkv, rounding_mode="floor")
+            kl, vl = kl[:, :, idx], vl[:, :, idx]
+        if not kdims:
+            return (attention_core(ql, kl, vl, qp, kp, causal=causal,
+                                   window=window, q_chunk=q_chunk),)
+        return (_attention_split_keys(ql, kl, vl, qp, kp, causal, window,
+                                      [(mesh, i) for i in kdims]),)
+
+    # whole kv heads serving split q heads: each rank's k/v gradient is
+    # a partial sum
+    gk = tuple(Partial() if i == hdim and p == Replicate() else p
+               for i, p in enumerate(pk))
+    pos_pl = (batch_pos(qpos, pqp), batch_pos(kpos, pkp))
+    return local_map(local, out_placements=(tuple(pout),),
+                     in_placements=(tuple(pq), tuple(pk), tuple(pk))
+                     + pos_pl,
+                     in_grad_placements=(tuple(pq), gk, gk) + pos_pl,
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q, k, v, qpos, kpos)[0]
+
+
+def _replicated(t, mesh):
+    """A plain tensor as a DTensor replicated on ``mesh``."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if is_dtensor(t):
+        return t
+    return DTensor.from_local(t, mesh, (Replicate(),) * mesh.ndim,
+                              run_check=False)
+
+
+def _attention_split_keys(q, k, v, qpos, kpos, causal, window, groups):
+    """This rank's share of attention over keys split across the mesh
+    dims ``groups``: scores over its keys, the max and the softmax sum
+    reduced across ranks, P.V summed across ranks (in float32, then cast
+    to q's dtype)."""
+    import torch.distributed._functional_collectives as funcol
+
+    B, Sq, H, hd = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, H // Hkv, hd)
+    qpos = qpos.expand(B, Sq)
+    kpos = kpos.expand(B, k.shape[1])
+    s = torch.einsum("bqhgk,bthk->bhgqt", qg.to(torch.float32),
+                     k.to(torch.float32)) / math.sqrt(hd)
+    valid = (kpos >= 0)[:, None, :]
+    qp = qpos[:, :, None]
+    if causal:
+        valid = valid & (kpos[:, None, :] <= qp)
+    if window is not None:
+        valid = valid & ((qp - kpos[:, None, :]) < window)
+    s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG_INF))
+    m = s.amax(-1, keepdim=True)
+    for g in groups:
+        m = funcol.all_reduce(m, "max", g)
+    p = torch.exp(s - m)
+    den = p.sum(-1, keepdim=True)
+    for g in groups:
+        den = funcol.all_reduce(den, "sum", g)
+    w = (p / den).to(q.dtype)
+    o = torch.einsum("bhgqt,bthk->bqhgk", w, v).to(torch.float32)
+    for g in groups:
+        o = funcol.all_reduce(o, "sum", g)
+    return o.to(q.dtype).reshape(B, Sq, H, hd)
+
+
 def attend_all(q, k, v):
     """Bidirectional attention of q (B, Sq, H, hd) over every key of k, v
     (B, Skv, Hkv, hd): the encoder's self-attention and cross-attention
     over the encoder's K/V, whose keys are all valid.  Through the flash
     binding with ``causal=False`` on (B, H, S, hd) views (k and v read in
-    place); under autograd (training) plain :func:`attention_core`, as the
-    flash kernel has no backward.  Flash keeps the softmax weights in
+    place); under autograd (training) or on a mesh (DTensors) plain
+    :func:`attention_core`, as the flash kernel has no backward and takes
+    no shards.  Flash keeps the softmax weights in
     float32 through P.V where ``attention_core`` rounds them to the model
     dtype first: equal in float32, one rounding of P apart in bfloat16."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    if is_dtensor(q) or (torch.is_grad_enabled()
+                         and any(t.requires_grad for t in (q, k, v))):
         kpos = torch.arange(k.shape[1], dtype=torch.int32, device=q.device)
         return attention_core(q, k, v, kpos[:1], kpos, causal=False,
                               window=None)
@@ -233,10 +390,12 @@ def attention_train(p, cfg, x, positions, *, window=None, causal=True,
     q = _project_q(p, cfg, x)
     if kv_override is not None:
         k, v = _project_kv(p, cfg, kv_override)
+        q, k, v = _heads_sharded(q, k, v)
         return _out_proj(p, cfg, attend_all(q, k, v))
     k, v = _project_kv(p, cfg, x)
     q = apply_rope(q, positions, cfg)
     k = apply_rope(k, positions, cfg)
+    q, k, v = _heads_sharded(q, k, v)
     if not causal and window is None and pad_mask is None:
         return _out_proj(p, cfg, attend_all(q, k, v))
     kpos = positions
@@ -245,6 +404,15 @@ def attention_train(p, cfg, x, positions, *, window=None, causal=True,
                            torch.full_like(pad_mask, -1, dtype=positions.dtype))
     o = attention_core(q, k, v, positions, kpos, causal=causal, window=window)
     return _out_proj(p, cfg, o)
+
+
+def _heads_sharded(q, k, v):
+    """Megatron-SP layout: full-sequence, head-sharded q, k, v (batch on
+    the batch axes, heads on ``"model"`` where they divide it).  Without
+    it a sequence-sharded residual stream would leave q sequence-sharded
+    and re-gather it per query chunk."""
+    return tuple(constrain(t, ("pod", "data"), None, "model", None)
+                 for t in (q, k, v))
 
 
 def cross_attention_decode(p, cfg, x_t, enc_k, enc_v):
@@ -345,9 +513,15 @@ def attention_decode(p, cfg, x_t, cache, cur_pos, *, window=None,
         o = attention_core(q, torch.cat([cache["k"], k_new], dim=1),
                            torch.cat([cache["v"], v_new], dim=1), posq, kpos,
                            causal=True, window=window)
-    cache["k"][:, slots] = k_new
-    cache["v"][:, slots] = v_new
-    cache["pos"][:, slots] = posq
+    if is_dtensor(cache["k"]):
+        host = [(int(cur_pos) + j) % W for j in range(C)]
+        for name, val in (("k", k_new), ("v", v_new),
+                          ("pos", posq.expand(B, C))):
+            _put_slots_sharded(cache[name], host, val)
+    else:
+        cache["k"][:, slots] = k_new
+        cache["v"][:, slots] = v_new
+        cache["pos"][:, slots] = posq
     if C > 1 and n <= W:
         # the ring has not wrapped: slot j holds position j for every j < n,
         # the flash kernel's contiguous key positions
@@ -359,6 +533,56 @@ def attention_decode(p, cfg, x_t, cache, cur_pos, *, window=None,
         o = attention_core(q, cache["k"], cache["v"], posq, cache["pos"],
                            causal=True, window=window)
     return _out_proj(p, cfg, o), cache
+
+
+def _rows_local(val, buf):
+    """This rank's rows of ``val`` (B, n, ...) beside the DTensor ring
+    ``buf`` (B, W, ...): split as buf's except along the ring axis."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(val, DTensor):
+        pl = tuple(Replicate() if p.is_shard() and p.dim == 1 else p
+                   for p in buf.placements)
+        return val.redistribute(buf.device_mesh, pl).to_local()
+    off, rows = shard_offset(buf, 0)
+    return val[off: off + rows]
+
+
+def _put_slots_sharded(buf, slots, val):
+    """``buf[:, slots] = val`` in place on a DTensor ring buf (B, W, ...)
+    whose W axis may be sharded: each rank writes the host-known
+    ``slots`` that fall in its shard."""
+    off, w = shard_offset(buf, 1)
+    loc, v = buf.to_local(), _rows_local(val, buf)  # every rank joins
+    mine = [(j, s - off) for j, s in enumerate(slots) if off <= s < off + w]
+    if not mine:
+        return
+    src = torch.tensor([j for j, _ in mine], device=loc.device)
+    dst = torch.tensor([s for _, s in mine], device=loc.device)
+    loc[:, dst] = v[:, src].to(loc.dtype)
+
+
+def ring_write(buf, slots, val):
+    """``buf[b, slots[b, j]] = val[b, j]`` in place: a ring buf (B, W,
+    ...), slots (B, n) long, at most one write per slot and row.  On a
+    DTensor ring each rank fills the slots of its W shard by a gather
+    (no host sync, so it also runs on ``meta``)."""
+    if not is_dtensor(buf):
+        bidx = torch.arange(buf.shape[0], device=buf.device)[:, None]
+        buf[bidx, slots] = val
+        return
+    off, w = shard_offset(buf, 1)
+    loc, v = buf.to_local(), _rows_local(val, buf)
+    sl = _rows_local(slots, buf) - off
+    Bl, n = sl.shape
+    ok = (sl >= 0) & (sl < w)
+    src = torch.full((Bl, w + 1), -1, dtype=torch.long, device=loc.device)
+    src.scatter_(1, torch.where(ok, sl, torch.full_like(sl, w)),
+                 torch.arange(n, device=loc.device).expand(Bl, n))
+    src = src[:, :w]
+    idx = src.clamp(min=0).view((Bl, w) + (1,) * (v.ndim - 2))
+    got = torch.gather(v.to(loc.dtype), 1, idx.expand((Bl, w) + v.shape[2:]))
+    have = (src >= 0).view(idx.shape)
+    loc.copy_(torch.where(have, got, loc))
 
 
 class RingStep(NamedTuple):
@@ -570,13 +794,15 @@ def apply_mlp(p, cfg, x):
     form, ``jax.nn.gelu``'s default)."""
     gelu = lambda t: torch.nn.functional.gelu(t, approximate="tanh")
     if "w_gate" in p:
-        g = x @ p["w_gate"]
-        u = x @ p["w_up"]
+        g = _mm(x, p["w_gate"])
+        u = _mm(x, p["w_up"])
         act = torch.nn.functional.silu if cfg.mlp_act == "swiglu" else gelu
         h = act(g.to(torch.float32)).to(x.dtype) * u
-        return h @ p["w_down"]
-    h = gelu((x @ p["w_in"]).to(torch.float32)).to(x.dtype)
-    return h @ p["w_out"]
+        h = constrain(h, ("pod", "data"), *[None] * (h.ndim - 2), "model")
+        return _mm(h, p["w_down"])
+    h = gelu(_mm(x, p["w_in"]).to(torch.float32)).to(x.dtype)
+    h = constrain(h, ("pod", "data"), *[None] * (h.ndim - 2), "model")
+    return _mm(h, p["w_out"])
 
 
 # ----------------------------------------------------------------------
@@ -592,15 +818,61 @@ def init_lm_head(gen, cfg):
 
 
 def embed(p, cfg, tokens):
+    if is_dtensor(p["table"]):
+        return _embed_sharded(p["table"], tokens)
     return p["table"][tokens.to(torch.long)]
 
 
+def _embed_sharded(table, tokens):
+    """The lookup on a DTensor table as a local region: the table
+    gathered where the tokens' batch is split (FSDP), and where its vocab
+    axis is split each rank looks up the ids of its shard and leaves a
+    partial sum (zeros elsewhere)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    rows = []
+    for a, b in zip(tokens.placements, table.placements):
+        if a == Shard(0):
+            rows.append((Shard(0), Replicate(), Shard(0), Partial()))
+        elif b == Shard(0):
+            rows.append((Replicate(), Shard(0), Partial(), Shard(0)))
+        else:
+            rows.append((Replicate(),) * 4)
+    pt, pw, po, gw = (tuple(c) for c in zip(*rows))
+    off = shard_offset(table, 0, pw)[0]
+
+    def local(tok, w):
+        idx = tok.to(torch.long) - off
+        own = (idx >= 0) & (idx < w.shape[0])
+        x = w[idx.clamp(0, w.shape[0] - 1)]
+        return (x * own[..., None].to(x.dtype),)
+
+    return local_map(local, out_placements=(po,), in_placements=(pt, pw),
+                     in_grad_placements=(pt, gw),
+                     device_mesh=table.device_mesh,
+                     redistribute_inputs=True)(tokens, table)[0]
+
+
+def _reduced(x):
+    """A DTensor with its partial sums reduced (Partial -> Replicate)."""
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, tuple(
+        Replicate() if p.is_partial() else p for p in x.placements))
+
+
 def unembed(params, cfg, x):
-    if cfg.tie_embeddings:
+    if is_dtensor(x):  # vocab-parallel: a rank's logits over its vocab shard
+        w = params["embed"]["table"].t() if cfg.tie_embeddings \
+            else params["lm_head"]["w"]
+        logits = _project(x, w)
+    elif cfg.tie_embeddings:
         logits = torch.einsum("bsd,vd->bsv", x, params["embed"]["table"])
     else:
         logits = torch.einsum("bsd,dv->bsv", x, params["lm_head"]["w"])
     logits = logits.to(torch.float32)
+    # keep the (huge) vocab axis model-sharded; CE reduces it locally
+    logits = constrain(logits, ("pod", "data"), None, "model")
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab_size
         logits = torch.where(pad, torch.full_like(logits, NEG_INF), logits)

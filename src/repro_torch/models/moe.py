@@ -44,7 +44,12 @@ import torch
 from repro_torch.core import expert_pool as EP
 from repro_torch.core import speculative
 from repro_torch.kernels import ops, ref
+from repro_torch.models.layers import _mm
 from repro_torch.quant import hqq
+from repro_torch.sharding.specs import (constrain, current_mesh,
+                                        is_dtensor, mesh_axis_size,
+                                        mesh_names, run_local, shard_offset,
+                                        spec_placements)
 
 
 def init_moe(gen, cfg):
@@ -68,13 +73,22 @@ def init_moe(gen, cfg):
 
 def router_logits(p, x2d):
     """(T, E) router logits in float32."""
-    return x2d.to(torch.float32) @ p["router"].to(torch.float32)
+    return _mm(x2d.to(torch.float32), p["router"].to(torch.float32))
 
 
 def route_topk(p, spec, x2d) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns (weights (T,K) f32, ids (T,K) int32, probs (T,E) f32)."""
-    probs = torch.softmax(router_logits(p, x2d), dim=-1)
-    w, ids = torch.topk(probs, spec.top_k, dim=-1)
+    """Returns (weights (T,K) f32, ids (T,K) int32, probs (T,E) f32).  On
+    a mesh each rank routes its own tokens (a local region)."""
+    logits = router_logits(p, x2d)
+    tok = (("pod", "data"),)
+    return run_local(lambda lg: _topk(lg, spec.top_k), (logits,), (tok,),
+                     lambda mesh: (spec_placements(mesh, logits.shape,
+                                                   tok),) * 3)
+
+
+def _topk(logits, k: int):
+    probs = torch.softmax(logits, dim=-1)
+    w, ids = torch.topk(probs, k, dim=-1)
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)  # mixtral renorm
     return w, ids.to(torch.int32), probs
 
@@ -90,11 +104,56 @@ def _act(cfg):
 def expert_ffn(experts, cfg, xbuf):
     """xbuf (..., E, C, D) -> (..., E, C, D), batched over experts (and
     any leading group axes)."""
+    if is_dtensor(xbuf):
+        return _expert_ffn_sharded(experts, cfg, xbuf)
     act = _act(cfg)
     g = torch.einsum("...ecd,edf->...ecf", xbuf, experts["w_gate"])
     u = torch.einsum("...ecd,edf->...ecf", xbuf, experts["w_up"])
     h = act(g.to(torch.float32)).to(xbuf.dtype) * u
     return torch.einsum("...ecf,efd->...ecd", h, experts["w_down"])
+
+
+def _expert_ffn_sharded(experts, cfg, xbuf):
+    """:func:`expert_ffn` of a DTensor buffer (g, E, C, D) as a local
+    region, per mesh dim: where the groups are split, the weights are
+    gathered (FSDP) and their gradients are partial sums; where the
+    experts are split (expert parallel), the buffer's E axis is split
+    alike; where their hidden dim is split (tensor parallel), the
+    buffer is whole and the output (and its gradient) a partial sum."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    names = ("w_gate", "w_up", "w_down")
+    hidden = {"w_gate": Shard(2), "w_up": Shard(2), "w_down": Shard(1)}
+    R = Replicate()
+    pb, po, gb = [], [], []
+    pw, gw = {n: [] for n in names}, {n: [] for n in names}
+    for a, e in zip(xbuf.placements, experts["w_gate"].placements):
+        if a == Shard(0):    # groups split: weights gathered
+            rows = (Shard(0), Shard(0), Shard(0),
+                    {n: (R, Partial()) for n in names})
+        elif e == Shard(0):  # experts split
+            rows = (Shard(1), Shard(1), Shard(1),
+                    {n: (Shard(0), Shard(0)) for n in names})
+        elif e == Shard(2):  # experts' hidden dim split
+            rows = (R, Partial(), Partial(),
+                    {n: (hidden[n], hidden[n]) for n in names})
+        else:
+            rows = (R, R, R, {n: (R, R) for n in names})
+        for lst, p in zip((pb, po, gb), rows[:3]):
+            lst.append(p)
+        for n in names:
+            pw[n].append(rows[3][n][0])
+            gw[n].append(rows[3][n][1])
+    f = lambda xb, wg, wu, wd: (expert_ffn(
+        {"w_gate": wg, "w_up": wu, "w_down": wd}, cfg, xb),)
+    ws = [experts[n] for n in names]
+    return local_map(
+        f, out_placements=(tuple(po),),
+        in_placements=(tuple(pb),) + tuple(tuple(pw[n]) for n in names),
+        in_grad_placements=(tuple(gb),) + tuple(tuple(gw[n])
+                                                for n in names),
+        device_mesh=xbuf.device_mesh, redistribute_inputs=True)(xbuf, *ws)[0]
 
 
 def capacity(spec, T: int) -> int:
@@ -194,23 +253,64 @@ def moe_apply_dispatch(p, cfg, x2d, capacity_factor=None, groups=None,
     C = capacity(spec, Tg)
     mask = (torch.ones((g, Tg), dtype=torch.bool, device=x2d.device)
             if token_mask is None else token_mask.reshape(g, Tg).bool())
-    slot, tok_map, w_map = dispatch_maps(ids.reshape(g, Tg, K),
-                                         w.reshape(g, Tg, K), mask, E, C)
-    xg = x2d.reshape(g, Tg, D)
-    xslot = xg[:, torch.arange(Tg, device=x2d.device).repeat_interleave(K)]
-    n = E * (C + 1)
-    flat = (slot + torch.arange(g, device=x2d.device)[:, None] * n).reshape(-1)
-    buf = torch.zeros((g * n, D), dtype=x2d.dtype, device=x2d.device
-                      ).index_add(0, flat, xslot.reshape(-1, D))
-    buf = buf.reshape(g, E, C + 1, D)[:, :, :C]
+    # on a mesh each rank dispatches its own groups (group axis -> batch
+    # shards); the expert axis -> "model" (expert parallel) when divisible
+    grp = ("pod", "data")
+    buf, tok_map, w_map = run_local(
+        lambda xg, i, wg, m: _dispatch(xg, i, wg, m, E, C),
+        (x2d.reshape(g, Tg, D), ids.reshape(g, Tg, K), w.reshape(g, Tg, K),
+         mask), ((grp,),) * 4,
+        lambda mesh: (spec_placements(mesh, (g,), (grp,)),) * 3)
+    buf = constrain(buf, grp, "model", None, None)
     ybuf = expert_ffn(p["experts"], cfg, buf)                # (g, E, C, D)
-    contrib = ybuf * w_map[..., None].to(ybuf.dtype)
-    dst = (tok_map.long() + torch.arange(g, device=x2d.device)[:, None, None]
-           * (Tg + 1)).reshape(-1)
-    y = torch.zeros((g * (Tg + 1), D), dtype=x2d.dtype, device=x2d.device
-                    ).index_add(0, dst, contrib.reshape(-1, D).to(x2d.dtype))
-    y = y.reshape(g, Tg + 1, D)[:, :Tg].reshape(T, D)
+    ybuf = constrain(ybuf, grp, "model", None, None)
+    # the combine scatters straight from the expert-sharded ybuf into
+    # per-token partial sums: the cross-shard traffic is (Tg, D), not
+    # (E, C, D)
+    y = run_local(lambda yb, tm, wm: _combine(yb, tm, wm, Tg, x2d.dtype
+                                              ).reshape(-1, D),
+                  (ybuf, tok_map, w_map), ((grp, "model"),) * 3,
+                  lambda mesh: _partial_over_experts(
+                      mesh, (g,), E % mesh_axis_size(mesh, "model") == 0))
     return y, aux_losses(spec, probs, ids, token_mask=token_mask)
+
+
+def _dispatch(xg, ids, w, mask, E: int, C: int):
+    """Groups xg (g, Tg, D) into per-expert capacity buffers (g, E, C, D)
+    by :func:`dispatch_maps`; returns (buf, tok_map, w_map)."""
+    g, Tg, D = xg.shape
+    K = ids.shape[-1]
+    slot, tok_map, w_map = dispatch_maps(ids, w, mask, E, C)
+    xslot = xg[:, torch.arange(Tg, device=xg.device).repeat_interleave(K)]
+    n = E * (C + 1)
+    flat = (slot + torch.arange(g, device=xg.device)[:, None] * n).reshape(-1)
+    buf = torch.zeros((g * n, D), dtype=xg.dtype, device=xg.device
+                      ).index_add(0, flat, xslot.reshape(-1, D))
+    return buf.reshape(g, E, C + 1, D)[:, :, :C], tok_map, w_map
+
+
+def _combine(ybuf, tok_map, w_map, Tg: int, dtype):
+    """Each slot's output of ybuf (g, E, C, D) times its routing weight,
+    added back to its token (``tok_map``; Tg = empty): (g, Tg, D)."""
+    g, D = ybuf.shape[0], ybuf.shape[-1]
+    contrib = ybuf * w_map[..., None].to(ybuf.dtype)
+    dst = (tok_map.long() + torch.arange(g, device=ybuf.device)[:, None, None]
+           * (Tg + 1)).reshape(-1)
+    y = torch.zeros((g * (Tg + 1), D), dtype=dtype, device=ybuf.device
+                    ).index_add(0, dst, contrib.reshape(-1, D).to(dtype))
+    return y.reshape(g, Tg + 1, D)[:, :Tg]
+
+
+def _partial_over_experts(mesh, shape, split: bool):
+    """Placements of a per-token output of the experts: batch entries of
+    ``shape[0]`` as the batch axes allow, and partial sums over
+    ``"model"`` where the experts' work is split on it (``split``)."""
+    from torch.distributed.tensor import Partial
+
+    pl = list(spec_placements(mesh, shape, (("pod", "data"),)))
+    if split and "model" in mesh_names(mesh):
+        pl[mesh_names(mesh).index("model")] = Partial()
+    return tuple(pl)
 
 
 GATHER_BYTES = 1 << 30  # per-(token, k) weights one gather block copies
@@ -221,19 +321,57 @@ def moe_apply_gather(p, cfg, x2d):
     stack (the plain plane's MoE).  Each row's (token, k) weights are
     gathered for the gather einsums, in blocks of rows that copy at most
     ``GATHER_BYTES``: the same einsums over fewer rows at a time, where a
-    Mixtral-width prompt chunk gathered whole would copy ~0.7 GB per row."""
+    Mixtral-width prompt chunk gathered whole would copy ~0.7 GB per row.
+    On a mesh each rank gathers from its own shard of the stack (its
+    experts, or its slice of every expert's hidden dim) and leaves
+    partial sums over ``"model"``."""
     w, ids, probs = route_topk(p, cfg.moe, x2d)
     ex = p["experts"]
-    idx = ids.to(torch.long)
-    T, K = ids.shape
-    per_row = K * sum(a[0].numel() * a.element_size() for a in ex.values())
-    step = max(1, GATHER_BYTES // per_row)
-    y = torch.cat([_gather_ffn(cfg, x2d[a: a + step],
-                               ex["w_gate"][idx[a: a + step]],
-                               ex["w_up"][idx[a: a + step]],
-                               ex["w_down"][idx[a: a + step]], w[a: a + step])
-                   for a in range(0, T, step)])
+    E = cfg.moe.num_experts
+
+    def local(x, i, wt, wg, wu, wd):
+        e_off = 0
+        if wg.shape[0] < E:  # expert parallel: this rank's experts only
+            e_off = shard_offset(ex["w_gate"], 0)[0]
+        return _gather_experts(cfg, x, i, wt, wg, wu, wd, e_off)
+
+    def out_pl(mesh):
+        split = E % mesh_axis_size(mesh, "model") == 0 or \
+            cfg.d_ff % mesh_axis_size(mesh, "model") == 0
+        return _partial_over_experts(mesh, tuple(x2d.shape), split)
+
+    ep = E % max(1, _model_size()) == 0
+    wspec = ("model", None, None) if ep else (None, None, "model")
+    dspec = ("model", None, None) if ep else (None, "model", None)
+    y = run_local(local, (x2d, ids, w, ex["w_gate"], ex["w_up"],
+                          ex["w_down"]),
+                  ((("pod", "data"),),) * 3 + (wspec, wspec, dspec), out_pl)
     return y, {"ids": ids, "weights": w, "probs": probs}
+
+
+def _model_size() -> int:
+    mesh = current_mesh()
+    return 1 if mesh is None else mesh_axis_size(mesh, "model")
+
+
+def _gather_experts(cfg, x2d, ids, w, w_gate, w_up, w_down, e_off: int = 0):
+    """:func:`moe_apply_gather`'s FFN over the stack (E', D, F'); ids
+    index it from ``e_off`` (pairs routed outside it weigh 0)."""
+    idx = ids.to(torch.long)
+    if e_off or w_gate.shape[0] < cfg.moe.num_experts:
+        idx = idx - e_off
+        own = (idx >= 0) & (idx < w_gate.shape[0])
+        w = torch.where(own, w, torch.zeros_like(w))
+        idx = idx.clamp(0, w_gate.shape[0] - 1)
+    T, K = ids.shape
+    per_row = K * sum(a[0].numel() * a.element_size()
+                      for a in (w_gate, w_up, w_down))
+    step = max(1, GATHER_BYTES // per_row)
+    return torch.cat([_gather_ffn(cfg, x2d[a: a + step],
+                                  w_gate[idx[a: a + step]],
+                                  w_up[idx[a: a + step]],
+                                  w_down[idx[a: a + step]], w[a: a + step])
+                      for a in range(0, T, step)])
 
 
 def _gather_ffn(cfg, x2d, wg, wu, wd, w):

@@ -39,9 +39,22 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import _dt as _pdt
-from repro_torch.models.layers import _randn
+from repro_torch.models.layers import _mm, _project, _randn
+from repro_torch.sharding.specs import constrain, is_dtensor
 
 F32 = torch.float32
+
+
+def _heads(x, w, eq="bsd,dhj->bshj"):
+    """x (B, S, D) projected by w (D, *heads): the einsum ``eq``; on a
+    DTensor weight the sharded projection (``layers._project``)."""
+    return _project(x, w) if is_dtensor(w) else torch.einsum(eq, x, w)
+
+
+def _logsigmoid(x):
+    """log sigmoid(x); on a DTensor -softplus(-x), whose backward DTensor
+    can shard (``log_sigmoid_backward`` has no sharding rule)."""
+    return -_softplus(-x) if is_dtensor(x) else F.logsigmoid(x)
 
 
 def _gelu(x):
@@ -93,8 +106,8 @@ def _causal_conv(p, x, prefix):
 
 
 def _rglru_gates(p, xi):
-    r = torch.sigmoid((xi @ p["w_rec_gate"]).to(F32))
-    i = torch.sigmoid((xi @ p["w_in_gate"]).to(F32))
+    r = torch.sigmoid(_mm(xi, p["w_rec_gate"]).to(F32))
+    i = torch.sigmoid(_mm(xi, p["w_in_gate"]).to(F32))
     log_a = -RGLRU_C * _softplus(p["lam"]) * r
     a = torch.exp(log_a)
     b = torch.sqrt(-torch.expm1(2.0 * log_a)) * (i * xi.to(F32))
@@ -116,24 +129,28 @@ def _linear_scan(a, b):
 
 def rglru_train(p, cfg, x):
     B = x.shape[0]
-    gate = _gelu((x @ p["w_gate_br"]).to(F32))
-    xi0 = x @ p["w_x"]
+    gate = _gelu(_mm(x, p["w_gate_br"]).to(F32))
+    xi0 = _mm(x, p["w_x"])
     prefix = torch.zeros((B, cfg.rglru_conv_width - 1, xi0.shape[-1]),
                          dtype=x.dtype, device=x.device)
     xi, conv_state = _causal_conv(p, xi0, prefix)
     a, b = _rglru_gates(p, xi)
+    # the recurrence is elementwise over R: shard R on "model" so the
+    # scan's saved intermediates shard too
+    a = constrain(a, ("pod", "data"), None, "model")
+    b = constrain(b, ("pod", "data"), None, "model")
     h = _linear_scan(a, b)
-    y = (gate * h).to(x.dtype) @ p["w_out_r"]
+    y = _mm((gate * h).to(x.dtype), p["w_out_r"])
     return y, {"h": h[:, -1], "conv": conv_state}
 
 
 def rglru_decode(p, cfg, x_t, state):
     """x_t: (B, 1, D)."""
-    gate = _gelu((x_t @ p["w_gate_br"]).to(F32))
-    xi, conv_state = _causal_conv(p, x_t @ p["w_x"], state["conv"])
+    gate = _gelu(_mm(x_t, p["w_gate_br"]).to(F32))
+    xi, conv_state = _causal_conv(p, _mm(x_t, p["w_x"]), state["conv"])
     a, b = _rglru_gates(p, xi)
     h = a[:, 0] * state["h"] + b[:, 0]
-    y = (gate * h[:, None]).to(x_t.dtype) @ p["w_out_r"]
+    y = _mm((gate * h[:, None]).to(x_t.dtype), p["w_out_r"])
     return y, {"h": h, "conv": conv_state}
 
 
@@ -141,14 +158,14 @@ def rglru_chunk(p, cfg, x, state):
     """C tokens from the carried state: projections, conv taps and gates
     over the whole chunk, then the decode update ``h = a_t h + b_t`` one
     position at a time."""
-    gate = _gelu((x @ p["w_gate_br"]).to(F32))
-    xi, conv_state = _causal_conv(p, x @ p["w_x"], state["conv"])
+    gate = _gelu(_mm(x, p["w_gate_br"]).to(F32))
+    xi, conv_state = _causal_conv(p, _mm(x, p["w_x"]), state["conv"])
     a, b = _rglru_gates(p, xi)
     h, hs = state["h"], []
     for t in range(x.shape[1]):
         h = a[:, t] * h + b[:, t]
         hs.append(h)
-    y = (gate * torch.stack(hs, dim=1)).to(x.dtype) @ p["w_out_r"]
+    y = _mm((gate * torch.stack(hs, dim=1)).to(x.dtype), p["w_out_r"])
     return y, {"h": h, "conv": conv_state}
 
 
@@ -183,12 +200,12 @@ def init_mlstm_state(cfg, batch: int, device):
 
 def _mlstm_qkv_gates(p, cfg, xn):
     dh = cfg.d_model // cfg.n_heads
-    q = torch.einsum("bsd,dhj->bshj", xn, p["wq"]).to(F32)
-    k = torch.einsum("bsd,dhj->bshj", xn, p["wk"]).to(F32) / math.sqrt(dh)
-    v = torch.einsum("bsd,dhj->bshj", xn, p["wv"]).to(F32)
+    q = _heads(xn, p["wq"]).to(F32)
+    k = _heads(xn, p["wk"]).to(F32) / math.sqrt(dh)
+    v = _heads(xn, p["wv"]).to(F32)
     xf = xn.to(F32)
-    lf = F.logsigmoid(xf @ p["wf"] + p["bf"])
-    li = xf @ p["wi"] + p["bi"]
+    lf = _logsigmoid(_mm(xf, p["wf"]) + p["bf"])
+    li = _mm(xf, p["wi"]) + p["bi"]
     return q, k, v, lf, li
 
 
@@ -260,9 +277,9 @@ def _headnorm(p, h):
 
 def _mlstm_out(p, cfg, xn, h):
     B, S, D = xn.shape
-    o = torch.sigmoid((xn @ p["w_ogate"]).to(F32))
+    o = torch.sigmoid(_mm(xn, p["w_ogate"]).to(F32))
     y = (_headnorm(p, h).reshape(B, S, D) * o).to(xn.dtype)
-    return y @ p["out_proj"]
+    return _mm(y, p["out_proj"])
 
 
 def mlstm_train(p, cfg, x):
@@ -321,7 +338,7 @@ def _slstm_step(p, carry, pre_in):
     pre = pre_in + rec + p["b_gates"][None]
     z = torch.tanh(pre[:, 0])
     li = pre[:, 1]
-    lf = F.logsigmoid(pre[:, 2])
+    lf = _logsigmoid(pre[:, 2])
     o = torch.sigmoid(pre[:, 3])
     m_t = torch.maximum(lf + m, li)
     fs = torch.exp(lf + m - m_t)
@@ -333,7 +350,7 @@ def _slstm_step(p, carry, pre_in):
 
 
 def _slstm_pre(p, x):
-    return torch.einsum("bsd,dghj->bsghj", x.to(F32), p["w_gates_in"].to(F32))
+    return _heads(x.to(F32), p["w_gates_in"].to(F32), "bsd,dghj->bsghj")
 
 
 def _slstm_scan(p, carry, pre):
@@ -373,7 +390,7 @@ def slstm_chunk(p, cfg, x, state):
 def _slstm_out(p, cfg, x, h):
     B, S, D = x.shape
     hn = _headnorm(p, h).reshape(B, S, D)
-    return hn.to(x.dtype) @ p["out_proj"]
+    return _mm(hn.to(x.dtype), p["out_proj"])
 
 
 # ======================================================================

@@ -53,6 +53,8 @@ from repro_torch.configs.base import MIXER_STATE, ModelConfig, parse_block
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import recurrent as R
+from repro_torch.sharding import specs as SP
+from repro_torch.sharding.specs import constrain, is_dtensor
 
 ATTN_MIXERS = ("attn", "swa", "xattn")  # self-attention over a ring or pages
 REC_MIXERS = ("rglru", "mlstm", "slstm")
@@ -246,7 +248,7 @@ def _attn_train_with_cache(p, cfg: ModelConfig, h, positions, window,
     B, S, _ = h.shape
     y = L.attention_train(p, cfg, h, positions, window=window,
                           pad_mask=pad_mask)
-    cache = L.init_attn_cache(cfg, B, max_len, h.device, window)
+    cache = _init_ring(cfg, B, max_len, h, window)
     W = cache["k"].shape[1]
     k_full, v_full = L._project_kv(p, cfg, h)
     k_full = L.apply_rope(k_full, positions, cfg)
@@ -256,11 +258,29 @@ def _attn_train_with_cache(p, cfg: ModelConfig, h, positions, window,
         tail_pos = torch.where(pad_mask[:, -n:], tail_pos,
                                torch.full_like(tail_pos, -1))
     slots = torch.remainder(tail_pos, W).long()
-    bidx = torch.arange(B, device=h.device)[:, None]
-    cache["k"][bidx, slots] = k_full[:, -n:]
-    cache["v"][bidx, slots] = v_full[:, -n:]
-    cache["pos"][bidx, slots] = tail_pos.to(torch.int32)
+    L.ring_write(cache["k"], slots, k_full[:, -n:])
+    L.ring_write(cache["v"], slots, v_full[:, -n:])
+    L.ring_write(cache["pos"], slots, tail_pos.to(torch.int32))
     return y, cache
+
+
+def _init_ring(cfg: ModelConfig, B: int, max_len: int, like, window):
+    """``layers.init_attn_cache`` beside activations ``like``; on a mesh
+    (``like`` a DTensor) each rank allocates only its shard of the ring,
+    split by the decode-state rules (``sharding.specs``)."""
+    if not is_dtensor(like):
+        return L.init_attn_cache(cfg, B, max_len, like.device, window)
+    mesh = like.device_mesh
+    W = min(max_len, window) if window else max_len
+    dt = L._dt(cfg)
+    leaves = {"k": ((B, W, cfg.n_kv_heads, cfg.head_dim), dt, 0),
+              "v": ((B, W, cfg.n_kv_heads, cfg.head_dim), dt, 0),
+              "pos": ((B, W), torch.int32, -1)}
+    specs = SP.decode_state_spec_tree(
+        cfg, mesh, B, {"kv": {k: v[:2] for k, v in leaves.items()}})["kv"]
+    dev = like.to_local().device
+    return {k: SP.sharded_full(mesh, shape, specs[k], fill, dtype, dev)
+            for k, (shape, dtype, fill) in leaves.items()}
 
 
 def _block_train(p, cfg: ModelConfig, kind: str, x, positions, pad_mask,
@@ -273,6 +293,14 @@ def _block_train(p, cfg: ModelConfig, kind: str, x, positions, pad_mask,
     no state; ``xattn`` is causal self-attention (with its ring when
     asked), then ``norm_x`` and cross-attention over ``enc_out``."""
     mixer, ffn = parse_block(kind)
+
+    def seq_shard(t):
+        # Megatron-SP: keep residual adds sequence-sharded so the backward
+        # of TP output projections reduce-scatters instead of all-reducing
+        if cfg.act_seq_shard:
+            return constrain(t, ("pod", "data"), "model", None)
+        return t
+
     h = L.apply_norm(p["norm1"], cfg, x)
     st = None
     if mixer in REC_MIXERS:
@@ -290,21 +318,21 @@ def _block_train(p, cfg: ModelConfig, kind: str, x, positions, pad_mask,
                                        attention_window(cfg, kind), max_len,
                                        pad_mask)
         st = {"kv": kv}
-    x = x + y
+    x = x + seq_shard(y)
     if mixer == "xattn":
         hx = L.apply_norm(p["norm_x"], cfg, x)
-        x = x + L.attention_train(p["xattn"], cfg, hx, positions,
-                                  kv_override=enc_out)
+        x = x + seq_shard(L.attention_train(p["xattn"], cfg, hx, positions,
+                                            kv_override=enc_out))
     if ffn == "none":
         return x, None, st
     h2 = L.apply_norm(p["norm2"], cfg, x)
     if ffn == "mlp":
-        return x + L.apply_mlp(p["mlp"], cfg, h2), None, st
+        return x + seq_shard(L.apply_mlp(p["mlp"], cfg, h2)), None, st
     B, S, D = h2.shape
     y2d, aux = M.moe_apply_dispatch(
         p["moe"], cfg, h2.reshape(B * S, D),
         token_mask=None if pad_mask is None else pad_mask.reshape(B * S))
-    return x + y2d.reshape(B, S, D), aux["load_balance"], st
+    return x + seq_shard(y2d.reshape(B, S, D)), aux["load_balance"], st
 
 
 def forward_train(params, cfg: ModelConfig, batch, *, remat: bool = False,
@@ -329,7 +357,8 @@ def forward_train(params, cfg: ModelConfig, batch, *, remat: bool = False,
     count as a host (B,) array: the per-row positions decode continues
     from."""
     check_supported(cfg)
-    x = _embed_inputs(params, cfg, batch)
+    x = constrain(_embed_inputs(params, cfg, batch), ("pod", "data"), None,
+                  None)
     enc_out = None
     if cfg.is_encoder_decoder:
         if batch.get("audio_embeds") is None:
@@ -351,6 +380,9 @@ def forward_train(params, cfg: ModelConfig, batch, *, remat: bool = False,
     states = []
 
     def run_period(x, lb, *layer_params):
+        if cfg.act_seq_shard:
+            # sequence-parallel residual stream (shards the remat stack)
+            x = constrain(x, ("pod", "data"), "model", None)
         for i, lp in enumerate(layer_params):
             x, term, st = _block_train(lp, cfg, kinds[i], x, positions,
                                        pad_mask, ring_len, enc_out)

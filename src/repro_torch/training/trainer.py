@@ -20,6 +20,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
 from repro_torch.quant.hqq import tree_leaves, tree_map
+from repro_torch.sharding.specs import is_dtensor, micro_slice, shard_offset
 from repro_torch.training import optimizer as O
 
 
@@ -29,10 +30,14 @@ def loss_fn(params, cfg: ModelConfig, batch, remat: bool = False):
     layers.  Returns ``(loss, {"ce", "load_balance", "loss"})``."""
     logits, aux = T.forward_train(params, cfg, batch, remat=remat)
     labels = batch["labels"].long()
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
     mask = (labels >= 0).to(torch.float32)
-    ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    if is_dtensor(logits):
+        ce = (_vocab_parallel_nll(logits, labels) * mask).sum() / torch.clamp(
+            mask.sum(), min=1.0)
+    else:
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
+        ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     loss = ce
     metrics = {"ce": ce}
     if cfg.moe is not None:
@@ -41,6 +46,62 @@ def loss_fn(params, cfg: ModelConfig, batch, remat: bool = False):
         metrics["load_balance"] = lb
     metrics["loss"] = loss
     return loss, metrics
+
+
+def _vocab_parallel_nll(logits, labels):
+    """The per-token NLL (B, S) of DTensor logits (B, S, V) whose vocab
+    axis is split over mesh dims: each rank reduces its vocab shard and
+    the max, the softmax sum and the label's logit are combined across
+    the shards (Megatron's vocab-parallel cross-entropy); the logits are
+    never gathered.  Labels < 0 give their row's log-sum-exp (masked by
+    the caller)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, vd = logits.device_mesh, logits.ndim - 1
+    split = [i for i, p in enumerate(logits.placements) if p == Shard(vd)]
+    rows = tuple(Replicate() if i in split else p
+                 for i, p in enumerate(logits.placements))
+    off = shard_offset(logits, vd)[0]
+    groups = [(mesh, i) for i in split]
+    return local_map(
+        lambda lg, lab: (_VocabNLL.apply(lg, lab, off, groups),),
+        out_placements=(rows,), in_placements=(logits.placements, rows),
+        device_mesh=mesh, redistribute_inputs=True)(logits, labels)[0]
+
+
+class _VocabNLL(torch.autograd.Function):
+    """NLL over a vocab shard starting at ``off``; ``groups`` are the
+    (mesh, dim) pairs the vocab is split over."""
+
+    @staticmethod
+    def forward(ctx, lg, lab, off, groups):
+        import torch.distributed._functional_collectives as funcol
+
+        m = lg.amax(-1, keepdim=True)
+        for g in groups:
+            m = funcol.all_reduce(m, "max", g)
+        e = torch.exp(lg - m)
+        s = e.sum(-1, keepdim=True)
+        for g in groups:
+            s = funcol.all_reduce(s, "sum", g)
+        idx = lab.long() - off
+        own = (idx >= 0) & (idx < lg.shape[-1])
+        idx = idx.clamp(0, lg.shape[-1] - 1)
+        picked = torch.where(own, lg.gather(-1, idx[..., None])[..., 0],
+                             torch.zeros((), dtype=lg.dtype,
+                                         device=lg.device))
+        for g in groups:
+            picked = funcol.all_reduce(picked, "sum", g)
+        ctx.save_for_backward(e, s, idx, own)
+        return torch.log(s[..., 0]) + m[..., 0] - picked
+
+    @staticmethod
+    def backward(ctx, gout):
+        e, s, idx, own = ctx.saved_tensors
+        grad = (e / s).scatter_add(-1, idx[..., None],
+                                   -own[..., None].to(e.dtype))
+        return grad * gout[..., None], None, None, None
 
 
 def _grads(params, cfg, batch, remat):
@@ -70,7 +131,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: O.OptimizerConfig,
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``.  ``microbatches`` splits the batch along its first axis
     and averages the gradients (accumulated in float32) and the metrics
-    over the pieces; ``remat`` checkpoints each period's blocks
+    over the pieces (on a mesh each piece takes a block of every rank's
+    own rows, ``sharding.specs.micro_slice``); ``remat`` checkpoints each period's blocks
     (``transformer.forward_train``)."""
 
     def train_step(params, opt_state, batch):
@@ -79,10 +141,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: O.OptimizerConfig,
         else:
             B = batch["tokens"].shape[0]
             assert B % microbatches == 0
-            n = B // microbatches
             grads, metrics = None, None
             for i in range(microbatches):
-                mb = {k: v[i * n: (i + 1) * n] for k, v in batch.items()}
+                mb = {k: micro_slice(v, i, microbatches)
+                      for k, v in batch.items()}
                 m, g = _grads(params, cfg, mb, remat)
                 g = tree_map(lambda a: a.to(torch.float32), g)
                 if grads is None:
