@@ -209,8 +209,8 @@ gap.
     syncs per decode step on and off (``torch.cuda.set_sync_debug_mode``),
     a traced run held to ``[serve]``'s tokens with its step / exec /
     roofline numbers, and ``[main]``'s ``OffloadEngine`` traced, held to
-    ``[main]``'s tokens; each metrics and trace file through
-    ``tools/check_metrics_schema.py`` in its own process.
+    ``[main]``'s tokens; each metrics and trace file through the port's
+    schema checker (``repro_torch.obs.check_schema``).
     ``[attention-bench]`` (after ``[paper]``): the ported
     ``attention_bench`` (dense ring against ``ragged_mma`` as the live
     context sweeps 1/8 to full; work-list lengths).  ``[cli]`` (last):
@@ -3511,19 +3511,16 @@ def phase_item5_parity(dev):
 
 # ----------------------------------------------------------------------
 # telemetry, the launchers, the attention bench and F4 (item 7)
-SCHEMA_TOOL = Path(__file__).resolve().parent / "tools" / "check_metrics_schema.py"
-
-
 def _schema_check(label, metrics, trace):
-    """``tools/check_metrics_schema.py`` on a metrics and trace file, in
-    its own process (it reads the reference's schema); must exit 0."""
-    r = subprocess.run([sys.executable, str(SCHEMA_TOOL), str(metrics),
-                        "--trace", str(trace)], capture_output=True, text=True,
-                       timeout=120)
-    log(f"[{label}] schema tool: exit {r.returncode} "
-        f"{(r.stdout + r.stderr).strip()}")
-    if r.returncode != 0:
-        fail(f"{label}: {metrics} / {trace} fail the schema tool")
+    """The port's schema checker (``repro_torch.obs.check_schema``, on the
+    port's schema of record) on a metrics and trace file: no violation."""
+    from repro_torch.obs import check_schema
+    errors = check_schema.check_metrics(Path(metrics)) + \
+        check_schema.check_trace(Path(trace))
+    log(f"[{label}] schema checker: {len(errors)} violations in {metrics} "
+        f"and {trace}" + "".join(f"\n  {e}" for e in errors))
+    if errors:
+        fail(f"{label}: {metrics} / {trace} fail the schema checker")
 
 
 def _roofline(snap):
@@ -3645,6 +3642,8 @@ def _module(label, args, timeout, refused=None):
 
 # (arch, shape, layers timed on the card; None = all): the counts are
 # always the full depth's
+# (xlstm-1.3b train_4k at one period of 6 layers: 113 s on an H100, of it
+# a 71.7 s step through its 4096-position sLSTM loop; left out, PERF.md)
 DRYRUN_COMBOS = (("mixtral-8x7b", "decode_32k", None),
                  ("granite-moe-1b-a400m", "train_4k", 4),
                  ("smollm-360m", "prefill_32k", 4))
@@ -3674,8 +3673,12 @@ def phase_dryrun(card):
         "assert m.device_type == 'cuda' and x.device.index == 0, x.device\n"
         "print('[dryrun] fake world of', torch.distributed.get_world_size(),"
         " 'ranks; rank 0 on', x.device, flush=True)\n"
+        "import time\n"
         f"for a, s, n in {list(DRYRUN_COMBOS)!r}:\n"
-        f"    D.run_one(a, s, False, Path({str(out)!r}), card_layers=n)\n")
+        "    t0 = time.perf_counter()\n"
+        f"    D.run_one(a, s, False, Path({str(out)!r}), card_layers=n)\n"
+        "    print(f'[dryrun] {a} x {s}: {time.perf_counter() - t0:.1f} s',"
+        " flush=True)\n")
     env = dict(__import__("os").environ, PYTHONPATH=str(root / "src"))
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
@@ -3716,7 +3719,8 @@ def phase_dryrun(card):
             f"{ {k: round(v / 2 ** 30, 3) for k, v in rf['collective_by_type'].items()} }"
             f" GiB in {res['collective_ops']} ops; useful flops "
             f"{res['useful_flops_ratio']:.3f}; tp_only "
-            f"{res['serve_tp_only']}")
+            f"{res['serve_tp_only']}; counted and built in "
+            f"{res['lower_s']:.1f} s")
     log(f"[dryrun] {len(DRYRUN_COMBOS)} combos in {wall:.1f} s")
 
 

@@ -53,6 +53,21 @@ def init_model_state(n_layers: int, k: int, n_spec: int
     return [init_layer_state(k, n_spec) for _ in range(n_layers)]
 
 
+def layer_slice(state: List[LayerCacheState], l: int) -> LayerCacheState:
+    """Layer ``l``'s state of a model state (the reference's slice of its
+    stacked leaves)."""
+    return state[l]
+
+
+def set_layer(state: List[LayerCacheState], l: int,
+              new: LayerCacheState) -> List[LayerCacheState]:
+    """A model state with layer ``l`` replaced by ``new``; ``state`` is
+    left as it was (the reference's functional ``.at[l].set``)."""
+    out = list(state)
+    out[l] = new
+    return out
+
+
 # ----------------------------------------------------------------------
 class AccessPlan(NamedTuple):
     """Per-needed-expert decisions of one :func:`access_plan` call:
@@ -103,6 +118,14 @@ def access_plan(state: LayerCacheState, needed: Sequence[int]
     stats = AccessStats(hits, spec_hits, demand, 0)
     plan = AccessPlan(slots, in_cache_a, in_spec_a, spec_slot_a, evicted_a)
     return new, stats, plan
+
+
+def access(state: LayerCacheState, needed: Sequence[int]
+           ) -> Tuple[LayerCacheState, AccessStats]:
+    """Serve ``needed`` (K,) expert ids of one layer for one token
+    (:func:`access_plan` without its plan)."""
+    new, stats, _ = access_plan(state, needed)
+    return new, stats
 
 
 class BatchAccessPlan(NamedTuple):
@@ -196,6 +219,16 @@ def stage_plan(state: LayerCacheState, predicted: Sequence[int]
     new = LayerCacheState(ids, clock_arr, predicted.copy(), clk)
     plan = StagePlan(loads, in_cache_a, cache_slot, in_old_a, old_slot)
     return new, plan, int(loads.sum())
+
+
+def stage_speculative(state: LayerCacheState, predicted: Sequence[int]
+                      ) -> Tuple[LayerCacheState, int]:
+    """Stage ``predicted`` (n_spec,) experts into this layer's buffers;
+    returns (new state, transfers): only predictions resident nowhere
+    (pool or previous staging) are charged (:func:`stage_plan` without
+    its plan)."""
+    new, _, transfers = stage_plan(state, predicted)
+    return new, transfers
 
 
 # ----------------------------------------------------------------------

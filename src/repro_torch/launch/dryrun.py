@@ -7,6 +7,8 @@ rank's share of the production mesh (16x16, or 2x16x16 with
     PYTHONPATH=src python -m repro_torch.launch.dryrun --device meta \\
         --arch mixtral-8x7b --shape train_4k [--multi-pod]
     PYTHONPATH=src python -m repro_torch.launch.dryrun --device meta --all
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --device meta \
+        --arch xlstm-1.3b --shape prefill_32k --seq-len 4096
     PYTHONPATH=src python -m repro_torch.launch.dryrun \\
         --arch mixtral-8x7b --shape decode_32k         # on the card
 
@@ -28,6 +30,9 @@ rank 0's shard only; the whole model is never materialised.
   the launches and the time are real, and ``peak_estimate_bytes`` is
   ``torch.cuda.max_memory_allocated``.
 
+``--seq-len`` cuts the shape's sequence (a quick check; the report's
+``seq_len`` says so).
+
 Per combo it writes the reference's JSON schema into
 ``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json``, with
 ``collective_ops`` for the reference's ``hlo_collective_ops``;
@@ -38,6 +43,7 @@ weights) has no counterpart: the card runs bf16 matmuls natively.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -78,6 +84,14 @@ MICROBATCHES = {
 SEQ_SHARD_TRAIN = {"command-r-plus-104b"}
 # bf16 AdamW moments for the largest config
 BF16_MOMENTS = {"command-r-plus-104b"}
+
+
+def input_shape(shape_name: str, seq_len: int = None):
+    """``INPUT_SHAPES[shape_name]``, its sequence cut to ``seq_len`` when
+    given."""
+    shp = INPUT_SHAPES[shape_name]
+    return shp if seq_len is None else dataclasses.replace(shp,
+                                                           seq_len=seq_len)
 
 
 def mesh_name(multi_pod: bool) -> str:
@@ -141,10 +155,10 @@ def _nbytes(shape, dtype) -> int:
     return math.prod(shape) * torch.empty((), dtype=dtype).element_size()
 
 
-def _layout(cfg, shape_name: str, mesh, arch: str):
+def _layout(cfg, shape_name: str, mesh, arch: str, seq_len: int = None):
     """(tree of (global shape, dtype) leaves, spec tree) of every argument
     of the combo's step, keyed by argument name, at ``cfg``'s depth."""
-    shp = INPUT_SHAPES[shape_name]
+    shp = input_shape(shape_name, seq_len)
     B, S = shp.global_batch, shp.seq_len
     tp_only = serve_tp_only(cfg, shp.kind, mesh)
     pshapes = T.param_specs(cfg)
@@ -244,8 +258,9 @@ def _fill_rings(state):
                                    device=loc.device).expand_as(loc))
 
 
-def _step_fn(cfg, shape_name: str, micro: int, arch: str):
-    shp = INPUT_SHAPES[shape_name]
+def _step_fn(cfg, shape_name: str, micro: int, arch: str,
+             seq_len: int = None):
+    shp = input_shape(shape_name, seq_len)
     if shp.kind == "train":
         opt_cfg = O.OptimizerConfig(
             moment_dtype="bfloat16" if arch in BF16_MOMENTS else "float32")
@@ -297,18 +312,19 @@ def _arg_bytes_held(args) -> int:
 
 
 def count_combo(arch: str, shape_name: str, mesh, device, *, seed: int = 0,
-                record: bool = False, card_layers: int = None):
+                record: bool = False, card_layers: int = None,
+                seq_len: int = None):
     """Build and count one combo (:func:`_count_meta`); on the card also
     run the step once for its time and peak memory (a step under 2 s
     again, warm), at full depth or at ``card_layers`` layers (whole
     periods, plus the tail; the counts stay the full depth's).  Returns
     (meta dict, RooflineReport, recorded ops, measurements dict)."""
-    shp = INPUT_SHAPES[shape_name]
+    shp = input_shape(shape_name, seq_len)
     cfg = step_config(arch, shape_name, mesh)
     micro = microbatches(arch, shape_name, mesh) if shp.kind == "train" \
         else 1
     B, S = shp.global_batch, shp.seq_len
-    layout = _layout(cfg, shape_name, mesh, arch)
+    layout = _layout(cfg, shape_name, mesh, arch, seq_len)
     meta = {"arch": arch, "shape": shape_name, "kind": shp.kind,
             "global_batch": B, "seq_len": S,
             "n_params": T.count_params_analytic(cfg),
@@ -323,7 +339,7 @@ def count_combo(arch: str, shape_name: str, mesh, device, *, seed: int = 0,
     t0 = time.perf_counter()
     if device.type == "meta":
         rep, ops = _count_meta(arch, shape_name, cfg, micro, mesh, seed,
-                               record)
+                               record, seq_len)
         meas.update(build_s=time.perf_counter() - t0, step_ms=None,
                     peak_bytes=None, output_bytes=None,
                     argument_bytes_held=None, step_layers=None,
@@ -334,18 +350,18 @@ def count_combo(arch: str, shape_name: str, mesh, device, *, seed: int = 0,
     from torch.distributed.device_mesh import DeviceMesh
     cpu_mesh = DeviceMesh("cpu", mesh.mesh, mesh_dim_names=mesh.mesh_dim_names)
     rep, ops = _count_meta(arch, shape_name, cfg, micro, cpu_mesh, seed,
-                           record)
+                           record, seq_len)
     run_cfg = cfg if card_layers is None else cfg.replace(
         n_layers=card_layers)
     if run_cfg.is_encoder_decoder:
         run_cfg = run_cfg.replace(encoder_layers=run_cfg.n_layers)
-    run_layout = _layout(run_cfg, shape_name, mesh, arch)
+    run_layout = _layout(run_cfg, shape_name, mesh, arch, seq_len)
     meas["step_layers"] = run_cfg.n_layers
     meas["step_argument_bytes"] = argument_bytes(run_layout, mesh)
     args = _materialise(run_layout, mesh, device, seed, run_cfg, S - 1)
     meas["argument_bytes_held"] = _arg_bytes_held(args)
     meas["build_s"] = time.perf_counter() - t0
-    fn = _step_fn(run_cfg, shape_name, micro, arch)
+    fn = _step_fn(run_cfg, shape_name, micro, arch, seq_len)
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
     for _ in range(2):  # a short step is timed again, warm
@@ -364,13 +380,13 @@ def count_combo(arch: str, shape_name: str, mesh, device, *, seed: int = 0,
 
 
 def _count_meta(arch: str, shape_name: str, cfg, micro: int, mesh, seed: int,
-                record: bool):
+                record: bool, seq_len: int = None):
     """The step counted on ``meta`` at one and two periods (x one and two
     microbatches) and extrapolated to ``cfg``'s depth; returns (report,
     the recorded ops of one period and microbatch)."""
     device = torch.device("meta")
-    B, S = INPUT_SHAPES[shape_name].global_batch, \
-        INPUT_SHAPES[shape_name].seq_len
+    shp = input_shape(shape_name, seq_len)
+    B, S = shp.global_batch, shp.seq_len
     per, tail = cfg.pattern_period, cfg.n_layers % cfg.pattern_period
     reps, ops = {}, []
     periods = (1, 2) if cfg.n_periods > 1 else (1,)
@@ -381,14 +397,14 @@ def _count_meta(arch: str, shape_name: str, cfg, micro: int, mesh, seed: int,
             if cfg.is_encoder_decoder:
                 c = c.replace(encoder_layers=p)
             sub = B // micro * m  # m microbatches of the real size
-            lay = _layout(c, shape_name, mesh, arch)
+            lay = _layout(c, shape_name, mesh, arch, seq_len)
             if "batch" in lay:
                 lay["batch"] = (_tree_map(
                     lambda l: ((sub,) + tuple(l[0][1:]), l[1]),
                     lay["batch"][0]), lay["batch"][1])
             args = _materialise(lay, mesh, device, seed, c, S - 1)
-            _, rep, o = _run(_step_fn(c, shape_name, m, arch), args, mesh,
-                             True, record and (p, m) == (1, 1))
+            _, rep, o = _run(_step_fn(c, shape_name, m, arch, seq_len), args,
+                             mesh, True, record and (p, m) == (1, 1))
             reps[(p, m)] = rep
             ops = ops or o
     if len(periods) == 1:
@@ -402,7 +418,8 @@ def _count_meta(arch: str, shape_name: str, cfg, micro: int, mesh, seed: int,
 
 
 def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
-            device=None, *, seed: int = 0, card_layers: int = None) -> dict:
+            device=None, *, seed: int = 0, card_layers: int = None,
+            seq_len: int = None) -> dict:
     mname = mesh_name(multi_pod)
     if (arch, shape_name) in SKIPS:
         result = {"arch": arch, "shape": shape_name, "mesh": mname,
@@ -419,7 +436,7 @@ def run_one(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
                                 device_type="cpu" if dev.type == "meta"
                                 else dev.type)
     meta, rep, _, meas = count_combo(arch, shape_name, mesh, dev, seed=seed,
-                                     card_layers=card_layers)
+                                     card_layers=card_layers, seq_len=seq_len)
     cfg = config_for_shape(arch, shape_name)
     mf = roofline.model_flops(cfg, meta["tokens_per_step"],
                               "train" if meta["kind"] == "train" else "serve")
@@ -515,6 +532,8 @@ def main(argv=None):
     ap.add_argument("--card-layers", type=int, default=None,
                     help="run the timed step on the card at this depth "
                          "(the counts stay the full depth's)")
+    ap.add_argument("--seq-len", type=int, default=None,
+                    help="cut the shape's sequence to this length")
     args = ap.parse_args(argv)
     out = Path(args.out)
     dev = resolve_device(args.device)  # no card and no --device: an error
@@ -523,7 +542,7 @@ def main(argv=None):
     if not args.arch or not args.shape:
         ap.error("--arch and --shape required (or --all)")
     run_one(args.arch, args.shape, args.multi_pod, out, dev, seed=args.seed,
-            card_layers=args.card_layers)
+            card_layers=args.card_layers, seq_len=args.seq_len)
 
 
 if __name__ == "__main__":

@@ -24,7 +24,11 @@ Replicated work counts once per rank, as in XLA's per-device HLO.
 The reference scales ``while`` bodies by their trip count; the dry-run
 (launch/dryrun.py) counts the step at one and at two periods of the
 block pattern (and one and two microbatches) and extrapolates linearly
-(:func:`extrapolate`).  The reference's HLO helpers (``parse_hlo``,
+(:func:`extrapolate`).  Within a step, a loop over ``meta`` tensors
+(shapes only, so every step runs the same ops) may run its body once
+under :func:`repeat`, counted as its trip count of bodies (the sLSTM
+position loop and the mLSTM chunk loop of ``models/recurrent``).  The
+reference's HLO helpers (``parse_hlo``,
 ``_parse_shape``, ``_parse_dims``, ``_multipliers``, ``_trip_count``,
 ``_group_size``, ``_dot_flops``, ``xla_cost_analysis``) read XLA's text
 and are JAX-only; this module is their counting counterpart.  What it
@@ -39,6 +43,7 @@ is a measurement.
 """
 from __future__ import annotations
 
+import contextlib
 import sys
 from dataclasses import dataclass, field
 from typing import Dict, List
@@ -84,6 +89,23 @@ COUNT_BYTE_OPS = {
     # sorts
     "sort", "topk",
 }
+
+
+# the factor every count is multiplied by (:func:`repeat`): a process-wide
+# stack, as the backward pass runs on the autograd engine's threads
+_SCALE = [1]
+
+
+@contextlib.contextmanager
+def repeat(n: int):
+    """Count whatever runs inside as ``n`` runs of it (0: not at all), the
+    counterpart of the reference's trip-count scaling of a ``while``
+    body whose body runs once here.  Nests by multiplying."""
+    _SCALE.append(_SCALE[-1] * n)
+    try:
+        yield
+    finally:
+        _SCALE.pop()
 
 
 def _nbytes(x) -> float:
@@ -162,28 +184,31 @@ class CountMode(TorchDispatchMode):
         out = func(*args, **kwargs)
         if any(issubclass(t, FakeTensor) for t in types):
             return out  # DTensor's shape propagation at global shapes
+        n = _SCALE[-1]
+        if not n:
+            return out
         name = func._overloadpacket.__name__
         packet = func._overloadpacket
         if packet in self.registry:
             f = float(self.registry[packet](*args, **kwargs, out_val=out))
-            self.rep.flops += f
+            self.rep.flops += n * f
         coll = _COLL_OPS.get(name) if func.namespace in (
             "_c10d_functional", "_c10d_functional_autograd", "c10d") else None
         if coll is not None:
             g = _group_size(args)
-            eff = ring_bytes(coll, _nbytes(out), g)
+            eff = n * ring_bytes(coll, _nbytes(out), g)
             self.rep.coll_bytes += eff
             self.rep.coll_by_type[coll] = self.rep.coll_by_type.get(coll, 0.0) \
                 + eff
-            self.rep.coll_count += 1
+            self.rep.coll_count += n
             if self.record:
                 self.ops.append(OpRecord("collective", coll, eff,
                                          _shape(out), g, caller_label()))
         elif name in COUNT_BYTE_OPS:
             b = _nbytes(out) + sum(_nbytes(a) for a in args)
-            self.rep.hbm_bytes += b
+            self.rep.hbm_bytes += n * b
             if self.record:
-                self.ops.append(OpRecord("memory", name, _nbytes(out),
+                self.ops.append(OpRecord("memory", name, n * _nbytes(out),
                                          _shape(out), 1, caller_label()))
         return out
 
@@ -308,4 +333,4 @@ def top_ops(ops: List[OpRecord], top: int = 15):
 
 __all__ = ["PEAK_FLOPS", "HBM_BW", "COLL_BW", "COLLECTIVES",
            "COUNT_BYTE_OPS", "CountMode", "RooflineReport", "analyze_step",
-           "extrapolate", "model_flops", "ring_bytes", "top_ops"]
+           "extrapolate", "model_flops", "repeat", "ring_bytes", "top_ops"]

@@ -230,7 +230,7 @@ def dispatch_maps(ids, w, mask, num_experts: int, cap: int):
 
 
 def moe_apply_dispatch(p, cfg, x2d, capacity_factor=None, groups=None,
-                       token_mask=None):
+                       token_mask=None, expert_ffn_fn=None):
     """Scatter-dispatch MoE (the training forward): tokens are scattered
     into an (E, capacity, D) buffer per group (:func:`dispatch_maps`;
     masked and overflow pairs dropped), the expert FFNs run batched over
@@ -240,6 +240,10 @@ def moe_apply_dispatch(p, cfg, x2d, capacity_factor=None, groups=None,
     that many equal token groups independently, each with its own
     capacity.  Gradients flow through the gathered rows, the routing
     weights and the router probabilities of the load-balance loss.
+    ``expert_ffn_fn`` replaces the expert computation, ``(E, C, D) ->
+    (E, C, D)`` per group (then ``p`` needs only its ``router``):
+    :func:`packed_expert_ffn` streams the experts one at a time from the
+    packed host store.
     Returns ``(y2d, {"load_balance"})``."""
     spec = cfg.moe
     if capacity_factor is not None:
@@ -262,7 +266,10 @@ def moe_apply_dispatch(p, cfg, x2d, capacity_factor=None, groups=None,
          mask), ((grp,),) * 4,
         lambda mesh: (spec_placements(mesh, (g,), (grp,)),) * 3)
     buf = constrain(buf, grp, "model", None, None)
-    ybuf = expert_ffn(p["experts"], cfg, buf)                # (g, E, C, D)
+    if expert_ffn_fn is None:
+        ybuf = expert_ffn(p["experts"], cfg, buf)            # (g, E, C, D)
+    else:
+        ybuf = torch.stack([expert_ffn_fn(b) for b in buf])
     ybuf = constrain(ybuf, grp, "model", None, None)
     # the combine scatters straight from the expert-sharded ybuf into
     # per-token partial sums: the cross-shard traffic is (Tg, D), not
@@ -273,6 +280,37 @@ def moe_apply_dispatch(p, cfg, x2d, capacity_factor=None, groups=None,
                   lambda mesh: _partial_over_experts(
                       mesh, (g,), E % mesh_axis_size(mesh, "model") == 0))
     return y, aux_losses(spec, probs, ids, token_mask=token_mask)
+
+
+def packed_expert_ffn(store: EP.Tier, l: int, cfg):
+    """The expert FFN of :func:`moe_apply_dispatch` (``expert_ffn_fn=``)
+    straight from the packed host store's layer ``l``: one expert at a
+    time, each slot's three matrices dequantized into the model dtype
+    (``hqq.dequantize``; no dense (E, ...) stack is ever built), then
+    :func:`expert_ffn`'s products and cast points on that expert's rows.
+    The reference's prefill encode path; no cache accounting."""
+    act, dt = _act(cfg), getattr(torch, cfg.dtype)
+    layer = store.layer(int(l))
+
+    def ffn(xbuf):  # (E, C, D) -> (E, C, D)
+        outs = []
+        for e in range(store.n_slots):
+            wg, wu, wd = (hqq.dequantize(_on(qt, xbuf.device), dt)
+                          for qt in layer.slice(e))
+            g = torch.einsum("cd,df->cf", xbuf[e], wg)
+            u = torch.einsum("cd,df->cf", xbuf[e], wu)
+            h = act(g.to(torch.float32)).to(xbuf.dtype) * u
+            outs.append(torch.einsum("cf,fd->cd", h, wd))
+        return torch.stack(outs)
+    return ffn
+
+
+def _on(qt: hqq.QTensor, device) -> hqq.QTensor:
+    """``qt``'s packed leaves on ``device`` (copied only if elsewhere)."""
+    to = lambda a: a.to(device)
+    meta = None if qt.meta is None else {k: to(v) for k, v in qt.meta.items()}
+    return hqq.QTensor(to(qt.packed), to(qt.scale), to(qt.zero), meta,
+                       qt.bits, qt.group_size, qt.shape)
 
 
 def _dispatch(xg, ids, w, mask, E: int, C: int):

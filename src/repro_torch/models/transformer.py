@@ -710,6 +710,12 @@ def prefill_block_packed_moe(p, cfg: ModelConfig, x_t, h2, store, l_moe: int,
 
 
 # ----------------------------------------------------------------------
+def layer_kind(cfg: ModelConfig, layer_idx: int) -> str:
+    """The block kind of layer ``layer_idx`` (tail layers included: they
+    take the pattern's positions from 0)."""
+    return cfg.block_pattern[layer_idx % cfg.pattern_period]
+
+
 def attention_window(cfg: ModelConfig, kind: str):
     """The sliding window of a block kind's attention (None: global)."""
     return cfg.sliding_window if parse_block(kind)[0] == "swa" else None

@@ -152,11 +152,23 @@ def placements(mesh, spec):
     return tuple(out)
 
 
-def spec_placements(mesh, shape, entries):
+def spec_placements(mesh, shape, entries, partial=()):
     """Placements of a tensor of ``shape`` under spec ``entries`` (padded
-    with None, filtered as :func:`constrain` filters them)."""
+    with None, filtered as :func:`constrain` filters them); ``Partial()``
+    on the mesh dims named in ``partial`` that the spec leaves whole."""
+    from torch.distributed.tensor import Partial
+
     entries = list(entries) + [None] * (len(shape) - len(entries))
-    return placements(mesh, _filter_spec(mesh, shape, entries[: len(shape)]))
+    pl = placements(mesh, _filter_spec(mesh, shape, entries[: len(shape)]))
+    return tuple(Partial() if n in partial and p.is_replicate() else p
+                 for n, p in zip(mesh_names(mesh), pl))
+
+
+def spec_axes(mesh, dim: int, entry) -> Tuple[str, ...]:
+    """The mesh dims that split a tensor dim of size ``dim`` under spec
+    ``entry`` (filtered as :func:`constrain` filters it)."""
+    e = _filter_spec(mesh, (dim,), (entry,))[0]
+    return () if e is None else (e if isinstance(e, tuple) else (e,))
 
 
 def local_shape(mesh, shape, spec) -> Tuple[int, ...]:
@@ -437,7 +449,7 @@ def micro_slice(x, i: int, m: int):
                                                  device="meta").stride())
 
 
-def run_local(fn, args, in_specs, out_placements):
+def run_local(fn, args, in_specs, out_placements, grad_placements=None):
     """``fn(*args)`` on each rank's local shards, the counterpart of a
     ``shard_map`` region for ops that have no DTensor sharding rule (or
     one that would replicate): ``torch.distributed.tensor.experimental.
@@ -446,6 +458,11 @@ def run_local(fn, args, in_specs, out_placements):
     arg's shape; None for a non-tensor).  ``out_placements(mesh)`` gives
     the placements of fn's one output, or a tuple of them for a tuple of
     outputs (Partial where ``fn`` leaves partial sums).
+    ``grad_placements(mesh)``, when given, gives each argument's gradient
+    placements (None for a non-tensor): Partial where ranks use the same
+    input differently (a weight gathered over split batch rows, an input
+    whole on a dim its consumer splits); by default each gradient is laid
+    out as its input.
     Outside a mesh, or with no DTensor argument, ``fn(*args)`` itself."""
     mesh = current_mesh()
     if mesh is None or not any(is_dtensor(a) for a in args):
@@ -466,10 +483,13 @@ def run_local(fn, args, in_specs, out_placements):
         for a, s in zip(args, in_specs))
     out_pl = out_placements(mesh)
     single = not isinstance(out_pl[0], tuple)
+    grad_pl = None if grad_placements is None else tuple(
+        None if g is None or not isinstance(a, torch.Tensor) else tuple(g)
+        for a, g in zip(args, grad_placements(mesh)))
     out = local_map((lambda *a: (fn(*a),)) if single else fn,
                     out_placements=(out_pl,) if single else out_pl,
-                    in_placements=in_pl, device_mesh=mesh,
-                    redistribute_inputs=True)(*args)
+                    in_placements=in_pl, in_grad_placements=grad_pl,
+                    device_mesh=mesh, redistribute_inputs=True)(*args)
     return out[0] if single else out
 
 

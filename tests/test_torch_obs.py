@@ -22,11 +22,19 @@ Weights are the reference's seeded ones crossed over by
   ``OffloadEngine.generate``.
 * The files the port writes pass ``tools/check_metrics_schema.py``
   (which checks against the reference's schema), and the tool rejects a
-  broken one.
+  broken one.  The port's own checker (``python -m
+  repro_torch.obs.check_schema``, on the port's schema) gives the tool's
+  exit code and messages on those files and on corrupted ones of each
+  kind, and it, with every port module ``chip_smoke.py`` imports,
+  imports nothing of the JAX package.
 """
 import dataclasses
 import importlib.util
 import json
+import os
+import re
+import subprocess
+import sys
 from pathlib import Path
 
 import jax
@@ -48,7 +56,7 @@ from repro_torch.configs import get_config as pget
 from repro_torch.configs.base import OffloadSpec as PSpec
 from repro_torch.core import expert_pool as EP
 from repro_torch.core.offload_engine import OffloadEngine as PEngine
-from repro_torch.obs import Telemetry, flatten_legacy
+from repro_torch.obs import Telemetry, check_schema, flatten_legacy
 from repro_torch.obs.registry import Histogram, MetricsRegistry
 from repro_torch.obs.schema import HISTOGRAM_FIELDS
 from repro_torch.obs.tracing import PID_REQUESTS, Tracer
@@ -380,8 +388,9 @@ def test_parity_offload_engine_generate(runs):
 
 # ----------------------------------------------------------------------
 # the written files against the schema tool
-def test_metrics_and_trace_files_pass_the_checker(runs, tmp_path):
-    checker = _load_checker()
+def _write_port_files(runs, tmp_path):
+    """The metrics and trace files the port writes for four serving
+    cases; returns {case: (metrics path, trace path)}."""
     cases = {
         "dense": {"engine": "continuous", "kv_layout": "dense",
                   "offloaded": False, "plane": "plain"},
@@ -393,6 +402,7 @@ def test_metrics_and_trace_files_pass_the_checker(runs, tmp_path):
                            "prefix_cache": True, "kv_host": True},
         "offload_engine": {"engine": "offload", "offloaded": True,
                            "plane": "packed_pipelined"}}
+    out = {}
     for name, mode in cases.items():
         r = runs[name]
         eng = r["port"] if name == "offload_engine" else r["port"][0]
@@ -400,6 +410,13 @@ def test_metrics_and_trace_files_pass_the_checker(runs, tmp_path):
         eng.obs.write_metrics(mpath, dict(mode, arch="tiny-moe", timing=True,
                                           roofline=True))
         eng.obs.write_trace(tpath)
+        out[name] = (mpath, tpath)
+    return out
+
+
+def test_metrics_and_trace_files_pass_the_checker(runs, tmp_path):
+    checker = _load_checker()
+    for name, (mpath, tpath) in _write_port_files(runs, tmp_path).items():
         assert checker.check_metrics(mpath) == [], name
         assert checker.check_trace(tpath) == [], name
     # the reference's OffloadEngine writes no step span: its trace fails
@@ -413,3 +430,113 @@ def test_metrics_and_trace_files_pass_the_checker(runs, tmp_path):
     bad = tmp_path / "bad.json"
     bad.write_text(json.dumps(doc))
     assert checker.check_metrics(bad), "the checker passed a broken snapshot"
+
+
+def _corrupted(tmp_path):
+    """One broken file of each kind the checker reads, beside the good
+    dense-serving pair: (metrics, trace) paths."""
+    good_m, good_t = tmp_path / "dense.m.json", tmp_path / "dense.t.json"
+    doc, out = json.loads(good_m.read_text()), []
+    for name, edit in (
+            ("no_key", lambda d: d["metrics"]["engine"].pop("steps")),
+            ("version", lambda d: d.update(schema_version=99)),
+            ("no_mode", lambda d: d.pop("mode")),
+            ("histogram", lambda d: d["metrics"]["step"].update(wall_ms=3))):
+        d = json.loads(json.dumps(doc))
+        edit(d)
+        path = tmp_path / f"bad_{name}.m.json"
+        path.write_text(json.dumps(d))
+        out.append((path, good_t))
+    tdoc = json.loads(good_t.read_text())
+    for name, edit in (
+            ("empty", lambda d: d.update(traceEvents=[])),
+            ("no_spans", lambda d: d.update(traceEvents=[
+                e for e in d["traceEvents"] if e.get("ph") == "M"]))):
+        d = json.loads(json.dumps(tdoc))
+        edit(d)
+        path = tmp_path / f"bad_{name}.t.json"
+        path.write_text(json.dumps(d))
+        out.append((good_m, path))
+    return out
+
+
+def test_port_checker_matches_the_tool(runs, tmp_path, monkeypatch,
+                                       capsys):
+    """The port's checker against the tool on the files the port writes
+    (every case of the test above) and on corrupted ones of each kind:
+    the same violations, messages and exit code (the tool's ``main`` in
+    process; the port's once more as ``python -m``)."""
+    tool = _load_checker()
+    good = list(_write_port_files(runs, tmp_path).values())
+    cases = good + _corrupted(tmp_path)
+    codes = []
+    for m, t in cases:
+        assert check_schema.check_metrics(m) == tool.check_metrics(m)
+        assert check_schema.check_trace(t) == tool.check_trace(t)
+        monkeypatch.setattr(sys, "argv", ["tool", str(m), "--trace", str(t)])
+        want = (tool.main(), capsys.readouterr())
+        got = (check_schema.main([str(m), "--trace", str(t)]),
+               capsys.readouterr())
+        assert got == want, m
+        codes.append(got[0])
+    assert codes == [0] * len(good) + [1] * (len(cases) - len(good))
+    for (m, t), code in ((good[0], 0), (cases[-1], 1)):
+        r = subprocess.run([sys.executable, "-m",
+                            "repro_torch.obs.check_schema", str(m),
+                            "--trace", str(t)], capture_output=True,
+                           text=True, cwd=ROOT, timeout=120,
+                           env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        assert r.returncode == code, r.stderr[-2000:]
+
+
+def _smoke_port_modules():
+    """Every ``repro_torch`` module ``chip_smoke.py`` imports or runs: the
+    modules of its ``from ... import`` and ``import`` lines (submodules
+    among the imported names), and those its code strings run."""
+    text = (ROOT / "chip_smoke.py").read_text()
+    mods = set()
+    for mod, group, line in re.findall(
+            r"from (repro_torch[\w.]*) import (?:\(([^)]*)\)|([\w ,]+))",
+            text):
+        mods.add(mod)
+        for name in re.split(r"[,\s]+", group or line):
+            if name and name != "as":
+                mods.add(f"{mod}.{name}")
+    mods |= set(re.findall(r"repro_torch(?:\.\w+)+", text))
+
+    def is_module(name):
+        try:
+            return importlib.util.find_spec(name) is not None
+        except (ImportError, AttributeError):  # a name inside a module
+            return False
+    out = set()
+    for m in mods:  # the longest prefix of each that is a module
+        parts = m.split(".")
+        while parts and not is_module(".".join(parts)):
+            parts.pop()
+        out.add(".".join(parts))
+    return sorted(out)
+
+
+def test_nothing_chip_smoke_runs_imports_the_jax_package():
+    """With ``repro`` and ``jax`` made unimportable, the port's checker
+    and every port module ``chip_smoke.py`` imports or runs still import;
+    the script's text names no module of the JAX package and runs no
+    file of ``tools/``."""
+    mods = _smoke_port_modules()
+    assert "repro_torch.obs.check_schema" in mods
+    assert "repro_torch.launch.dryrun" in mods and len(mods) > 20
+    code = ("import importlib, json, sys\n"
+            "sys.modules['repro'] = None\nsys.modules['jax'] = None\n"
+            f"for m in {mods!r}:\n    importlib.import_module(m)\n"
+            "print(json.dumps(sorted(k for k in sys.modules"
+            " if k == 'repro' or k.startswith(('repro.', 'jax.')))))\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=ROOT, timeout=300,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert json.loads(r.stdout.strip().splitlines()[-1]) == ["repro"]
+    text = (ROOT / "chip_smoke.py").read_text()
+    assert not re.search(r"(?<![\w/])repro\.\w", text)
+    assert not re.search(r"(from|import) repro\b(?!_)", text)
+    assert "tools/" not in text and '"tools"' not in text

@@ -347,6 +347,36 @@ def _free_port():
         return s.getsockname()[1]
 
 
+def _gloo_steps(tmp_path, arch, n_experts=0, mesh="2x2"):
+    """The worker's four CPU processes on one mesh; their result file."""
+    out, port = tmp_path / "res.json", _free_port()
+    env = dict(os.environ, PYTHONPATH=SRC)
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "tests" / "torch_sharding_worker.py"),
+         str(r), "4", str(port), arch, str(out), str(n_experts), mesh],
+        env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True) for r in range(4)]
+    errs = []
+    try:
+        for p in procs:
+            errs.append(p.communicate(timeout=240)[1])
+    finally:
+        for p in procs:
+            p.kill()
+    assert all(p.returncode == 0 for p in procs), errs[0][-3000:]
+    return json.loads(out.read_text())
+
+
+def _assert_steps_match(res):
+    """Loss and gradient norm of the train step, prefill + decode logits
+    within 1e-5 relative; greedy tokens equal."""
+    assert res["loss"] == pytest.approx(res["loss_ref"], rel=1e-5)
+    assert res["gnorm"] == pytest.approx(res["gnorm_ref"], rel=1e-5)
+    a, b = np.array(res["logits_ref"]), np.array(res["logits"])
+    assert np.abs(a - b).max() <= 1e-5 * np.abs(a).max()
+    assert (a.argmax(-1) == b.argmax(-1)).all()
+
+
 @pytest.mark.parametrize("arch,n_experts", [
     ("mixtral-8x7b", 0), ("mixtral-8x7b", 3), ("smollm-360m", 0)])
 def test_sharded_steps_match_unsharded_on_gloo_mesh(arch, n_experts,
@@ -359,27 +389,138 @@ def test_sharded_steps_match_unsharded_on_gloo_mesh(arch, n_experts,
     step's loss and gradient norm, the prefill + decode step's logits
     within 1e-5 relative, and the greedy tokens equal the unsharded
     port's."""
-    out, port = tmp_path / "res.json", _free_port()
-    env = dict(os.environ, PYTHONPATH=SRC)
-    procs = [subprocess.Popen(
-        [sys.executable, str(ROOT / "tests" / "torch_sharding_worker.py"),
-         str(r), "4", str(port), arch, str(out), str(n_experts)], env=env,
-        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
-        for r in range(4)]
-    errs = []
-    try:
-        for p in procs:
-            errs.append(p.communicate(timeout=240)[1])
-    finally:
-        for p in procs:
-            p.kill()
-    assert all(p.returncode == 0 for p in procs), errs[0][-3000:]
-    res = json.loads(out.read_text())
-    assert res["loss"] == pytest.approx(res["loss_ref"], rel=1e-5)
-    assert res["gnorm"] == pytest.approx(res["gnorm_ref"], rel=1e-5)
-    a, b = np.array(res["logits_ref"]), np.array(res["logits"])
-    assert np.abs(a - b).max() <= 1e-5 * np.abs(a).max()
-    assert (a.argmax(-1) == b.argmax(-1)).all()
+    _assert_steps_match(_gloo_steps(tmp_path, arch, n_experts))
+
+
+def test_sharded_xlstm_matches_unsharded_on_gloo_mesh(tmp_path):
+    """One period of xlstm-1.3b (5 mLSTM + 1 sLSTM), float32, d_model 128
+    with 2 heads of 64 on a 1x4 mesh: one "model" shard of D (32 columns)
+    is narrower than a head, as 2048 on 16 ranks is against heads of 512
+    in the published config.  The heads' merge, the scans and the
+    projections run in local regions (the merge's backward was a view
+    DTensor could not shard).  128 positions: the train step and the
+    prefill gather the projection weights, the decode step reduces the
+    projection outputs.  Tolerances as the other gloo cases."""
+    _assert_steps_match(_gloo_steps(tmp_path, "xlstm-1.3b", mesh="1x4"))
+
+
+_COUNT_CHILD = """
+import json, torch
+from torch.distributed.tensor.experimental import implicit_replication
+from repro_torch.configs import get_config
+from repro_torch.launch import roofline as R, dryrun as D
+from repro_torch.launch.mesh import start_fake_world, make_smoke_mesh
+from repro_torch.models import recurrent as Rec, transformer as T
+from repro_torch.sharding import specs as SP
+n_data, n_model = {n_data}, {n_model}
+start_fake_world(n_data * n_model)
+mesh = make_smoke_mesh(n_data, n_model, device_type="cpu")
+cfg = get_config("xlstm-1.3b").reduced().replace(
+    d_model=128, n_heads=2, n_kv_heads=2, head_dim=64)
+ps = T.param_specs(cfg)
+sp = SP.param_spec_tree(cfg, mesh, ps)
+B = 4 * n_data
+
+class Split(R.CountMode):  # HBM bytes of the copies (clone, cat) apart
+    copies = 0.0
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        before = self.rep.hbm_bytes
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        if func._overloadpacket.__name__ in ("clone", "cat"):
+            self.copies += self.rep.hbm_bytes - before
+        return out
+
+def count(S, sharded):
+    def leaf(l, s):
+        t = torch.empty(SP.local_shape(mesh, l[0], s) if sharded else l[0],
+                        dtype=l[1], device="meta").requires_grad_()
+        return SP.from_local(mesh, t, l[0], s) if sharded else t
+    params = D._tree_map(leaf, ps, sp)
+    rows = B if sharded else B // n_data
+    x = leaf(((rows, S, cfg.d_model), torch.float32),
+             SP.Spec("data", None, None))
+    leaves = [x] + list(D._leaves(params))
+    with SP.mesh_context(mesh), implicit_replication(), Split() as m:
+        ys = [Rec.TRAIN[k.split("+")[0]](lp[k.split("+")[0]], cfg, x)[0]
+              for lp, k in zip(params["layers"], cfg.layer_kinds())]
+        torch.autograd.grad(sum(y.sum() for y in ys), leaves,
+                            allow_unused=True)
+    r = m.rep
+    return dict(flops=r.flops, other=r.hbm_bytes - m.copies,
+                copies=m.copies, coll_count=r.coll_count)
+print(json.dumps({{S: [count(S, True), count(S, False)] for S in (32, 64)}}))
+"""
+
+
+@pytest.mark.parametrize("n_data,n_model", [(4, 1), (2, 2)])
+def test_xlstm_regions_count_the_plain_work(n_data, n_model):
+    """One xlstm period's mixers (5 mLSTM + 1 sLSTM, d_model 128, 2 heads
+    of 64), forward and backward on ``meta`` DTensors of a fake mesh,
+    counted at 32 and 64 positions against the plain mixers on one
+    rank's rows (4).  On a data-parallel mesh (4x1) the regions replicate
+    nothing: flops and every HBM byte but the copies (clone, cat) equal
+    the plain counts exactly, and the copies are fewer (the plain sLSTM
+    step copies ``r_gates`` into its product's layout at every position;
+    the region lays it out once).  On 2x2 the regions split the
+    projections over "model" and replicate the scans: no more flops or
+    bytes than the plain work.  On both, the collectives are a fixed set
+    per layer: their count does not grow with the sequence (none per
+    position)."""
+    out = _child(_COUNT_CHILD.format(n_data=n_data, n_model=n_model))
+    for S in ("32", "64"):
+        mesh, plain = out[S]
+        if n_model == 1:
+            assert mesh["flops"] == plain["flops"] > 0
+            assert mesh["other"] == plain["other"] > 0
+        else:
+            assert 0 < mesh["flops"] <= plain["flops"]
+            assert 0 < mesh["other"] <= plain["other"]
+        assert mesh["copies"] < plain["copies"]
+        assert plain["coll_count"] == 0
+    assert out["32"][0]["coll_count"] == out["64"][0]["coll_count"] > 0
+
+
+@pytest.mark.parametrize("mixer", ["slstm", "mlstm"])
+@pytest.mark.parametrize("grad,carry_grad,final", [
+    (False, False, "all"), (True, False, "all"), (True, True, "all"),
+    (True, False, "h")])
+def test_meta_scans_count_every_step(mixer, grad, carry_grad, final):
+    """The sLSTM position loop and the mLSTM chunk loop on ``meta``
+    tensors run one step and count it as the loop's trip count
+    (``roofline.repeat``, the reference's scaling of a ``while`` body);
+    their counts equal the loops' on real tensors exactly, forward and
+    backward, with and without a gradient for the initial carry, and
+    with a gradient for every final carry or for the outputs alone."""
+    from repro_torch.models import recurrent as Rec
+
+    def count(dev):
+        g = torch.Generator().manual_seed(0)
+        B, H, dh, S = 2, 2, 8, 12
+        mk = lambda *sh, rg=grad: torch.randn(*sh, generator=g).to(
+            dev).requires_grad_(rg)
+        if mixer == "slstm":
+            p = {"r_gates": mk(4, H, dh, dh), "b_gates": mk(4, H, dh)}
+            carry = [mk(B, H, dh, rg=carry_grad) for _ in range(4)]
+            run = lambda: Rec._slstm_scan(p, carry, pre)[::-1]
+            pre = mk(B, S, 4, H, dh)
+        else:
+            st = {"C": mk(B, H, dh, dh, rg=carry_grad),
+                  "n": mk(B, H, dh, rg=carry_grad),
+                  "m": mk(B, H, rg=carry_grad)}
+            xs = [mk(B, S, H, dh) for _ in range(3)] + [mk(B, S, H)
+                                                         for _ in range(2)]
+            run = lambda: (lambda h, c: (h, list(c.values())))(
+                *Rec.mlstm_scan_core(*xs, st, 4))
+        with R.CountMode() as m:
+            hs, carry_out = run()
+            if grad:
+                loss = hs.sum() + (sum(c.sum() for c in carry_out)
+                                   if final == "all" else 0)
+                loss.backward()
+        return m.rep.flops, m.rep.hbm_bytes
+
+    real, meta = count("cpu"), count("meta")
+    assert meta == real and real[0] > 0
 
 
 def test_summarize_table_matches_reference(tmp_path):

@@ -1,8 +1,18 @@
 """One rank of the gloo check of ``tests/test_torch_sharding.py``: the
-port's train step and prefill + decode step on a 2x2 ("data", "model")
-mesh of CPU processes, against the unsharded port on the same weights.
+port's train step and prefill + decode step on a ("data", "model") mesh
+of CPU processes (2x2 unless ``MESH`` says otherwise, e.g. ``1x4``),
+against the unsharded port on the same weights.
 
-    python tests/torch_sharding_worker.py RANK WORLD PORT ARCH OUT [N_EXPERTS]
+    python tests/torch_sharding_worker.py RANK WORLD PORT ARCH OUT \
+        [N_EXPERTS [MESH]]
+
+``xlstm-1.3b`` runs one period (5 mLSTM + 1 sLSTM) at d_model 128 with 2
+heads of 64: on a 4-way "model" axis one shard of D (32 columns) is
+narrower than one head, as the published 2048 on 16 ranks (128 columns)
+is against heads of 512.  Its 128 positions make each rank's projection
+output larger than the weight in the train step and the prefill (the
+weight is gathered) and smaller in the decode step (the output is
+reduced).
 """
 import dataclasses
 import json
@@ -34,12 +44,15 @@ def full(t):
     return t.full_tensor() if isinstance(t, DTensor) else t
 
 
-def main(rank, world, port, arch, out, n_experts=0):
+def main(rank, world, port, arch, out, n_experts=0, mesh_shape="2x2"):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=world)
-    mesh = make_smoke_mesh(2, 2, device_type="cpu")
+    n_data, n_model = (int(n) for n in mesh_shape.split("x"))
+    mesh = make_smoke_mesh(n_data, n_model, device_type="cpu")
     cfg = get_config(arch).reduced()
+    if arch == "xlstm-1.3b":
+        cfg = cfg.replace(d_model=128, n_heads=2, n_kv_heads=2, head_dim=64)
     if n_experts:  # experts that do not divide "model": tensor parallel
         cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
                                                   num_experts=n_experts))
@@ -48,7 +61,7 @@ def main(rank, world, port, arch, out, n_experts=0):
         cfg = cfg.replace(moe_dispatch_groups=n_batch)
     params = T.init_model(cfg, seed=0, device="cpu")
     rng = np.random.default_rng(0)
-    B, S = 4, 16
+    B, S = 4, (128 if arch == "xlstm-1.3b" else 16)
     tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
                           dtype=torch.int32)
     lab = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
@@ -98,4 +111,5 @@ def main(rank, world, port, arch, out, n_experts=0):
 if __name__ == "__main__":
     r, w, port, arch, out = sys.argv[1:6]
     main(int(r), int(w), int(port), arch, out,
-         int(sys.argv[6]) if len(sys.argv) > 6 else 0)
+         int(sys.argv[6]) if len(sys.argv) > 6 else 0,
+         sys.argv[7] if len(sys.argv) > 7 else "2x2")
