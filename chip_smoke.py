@@ -7,6 +7,15 @@ last line):
 
 1. device: a CUDA device or exit 1; print the card's name and power limit;
    build every kernel from the sources in this checkout (``nvcc``).
+
+Phases 2-4 and 16 run the cases of the port's kernels suite
+(``repro_torch.benchmarks.kernels_bench``, also ``python -m
+repro_torch.benchmarks.run --only kernels``), which checks, times and
+bounds each one and raises on a failed check; phase 4 is followed by the
+suite's group (a), the reference's float32 rows (the 2-D binding at 2, 4
+and 8 bits, causal flash), each kernel held to its plain version
+(``[kernel-ref]`` lines).
+
 2. kernels: each binding of the dequant-matmul kernels (batched, slots
    and the 2-D one) against its plain PyTorch version on the card at the
    main path's shapes (2- and 3-bit codes), with its time, the plain
@@ -262,10 +271,12 @@ gap.
     (xlstm on a one-page pool, no page reserved) and on dense slots with
     chunks of 4, and draft-and-verify on dense slots (4 requests through 2
     slots: tokens and emit steps).  ``[zoo-rec]`` (after ``[zoo]``):
-    published widths in bf16, seed 0, full depth: recurrentgemma-9b (38
-    layers, 9.4B parameters) serving ``[serve]``'s 8 requests through 4
-    slots on pages of 16 and on dense slots with chunks of 32; xlstm-1.3b
-    (48 layers) at batch 1 and served on pages with no page in use;
+    published widths in bf16, seed 0, depth cut for the script's time
+    limit (``ZOO_REC_LAYERS``; ``[cli]`` serves both at full depth):
+    recurrentgemma-9b (14 of 38 layers: four periods and the two tail
+    layers) serving ``[serve]``'s 8 requests through 4 slots on pages of
+    16 and on dense slots with chunks of 32; xlstm-1.3b (12 of 48 layers,
+    two periods) at batch 1 and served on pages with no page in use;
     tokens/s, admission s against decode s, ms per layer per decode
     step, peak memory, launches against the expected on the routes, the
     recurrent state bytes per row equal to ``recurrent_state_bytes``; each
@@ -291,7 +302,8 @@ gap.
     dense slots with chunks of 4, and draft-and-verify (f32 ``tiny-draft``,
     k = 2) on dense slots and on pages (4 requests through 2 slots: tokens
     and emit steps).  ``[whisper]`` (after ``[zoo-rec]``): whisper-medium
-    at its published widths and full depth (24 + 24 layers, 1500 frames)
+    at its published widths, depth cut to 8 + 8 of 24 + 24 layers for the
+    script's time limit (``[cli]`` serves it at full depth; 1500 frames)
     in bf16, seed 0, ``[serve]``'s 8 requests through 4 slots on pages of
     16 and on dense slots with chunks of 32: tokens/s, encoder, admission
     and decode seconds, ms per layer per decode step, peak memory, every
@@ -303,8 +315,10 @@ gap.
     --continuous --max-new 8`` (12 requests, published width) and checks
     that static mode is refused with the reference's message.
 
-The line before the card's line is ``{"kernels": [...]}``; the last line
-is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+Before the kernels line, ``[phases]`` gives each phase's wall seconds
+and the script's total.  The line before the card's line is
+``{"kernels": [...]}``; the last line is ``{"ok": true, "device":
+{...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -322,20 +336,11 @@ import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory (NVIDIA data sheet)
-BF16_FLOP_PER_S = 989e12     # H100 SXM dense bf16 on the tensor cores: the
-                             # inputs are bf16 activations and integer codes
-KERNEL_RTOL = 1e-4           # of max |plain|: f32 sums over <= 14336 terms in another order
 LOGIT_ATOL = 1e-3            # tiny-moe f32 logits, card vs CPU
 NEAR_TIE = 2 ** -6           # a difference between two runs must start at a
                              # decision this close (phases 12-13): routing
                              # probabilities, or a token's top-2 logit gap
                              # over its row's largest |logit|
-RAGGED_BF16_RTOL = 2 ** -7   # of each row's max |plain in f32|: the kernel
-                             # accumulates in f32 and rounds only its bf16
-                             # output, by at most 2^-8 of the value
-FLASH_BF16_RTOL = 2 ** -7    # of each (head, row)'s max |plain in f32|: the
-                             # same reason as the ragged kernel's
 TRAIN_RTOL = 1e-5            # card vs CPU training metrics over 5 steps,
                              # relative: f32 products in another order
                              # (cuBLAS vs the CPU's BLAS), grown by Adam,
@@ -799,297 +804,34 @@ def _hold_positions(label, a, b, names, tokens_equal):
     return found
 
 
-def _event_ms(fn, n, flush):
-    """Mean device time of ``fn``, each launch timed alone after the L2
-    cache is overwritten (the main path finds its weights cold).  A spin
-    kernel ahead of the start event keeps the host's launch overhead out
-    of the interval."""
-    import torch
-    fn()
-    total = 0.0
-    for _ in range(n):
-        flush.fill_(1)
-        torch.cuda._sleep(2_000_000)
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        fn()
-        e1.record()
-        e1.synchronize()
-        total += e0.elapsed_time(e1)
-    return total / n
-
-
-def _stored_bytes(qt, n_slots):
-    from repro_torch.quant import hqq
-    return n_slots * sum(a[0].numel() * a.element_size()
-                         for _, a in hqq.leaves(qt))
-
-
-def _bound(nbytes, flops):
-    """(bound_ms, bound_by): the larger of the bytes over the memory rate
-    and the operations over the bf16 tensor-core rate."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
-SHAPES = ((4096, 14336), (14336, 4096), (4096, 14336))  # gate, down, up
-
-
+# ----------------------------------------------------------------------
 def phase_kernels(dev):
-    """Each binding at the main path's shapes: decode (``slots``: B = 2
-    rows, M = 1, over a pool of 4 slots), prefill (``batched``: B = 8
-    distinct experts, M = 16 rows each) and the unrolled plane's decode
-    (the 2-D ``dequant_matmul``: one row, M = 1, against one record of
-    a stack, read in place); gate/up (4096 x 14336) and down (14336 x
-    4096); x bf16; 2- and 3-bit codes.  The kernels line reports the
-    2-bit (mixtral-offload) figures summed over the three matrices (of a
-    layer for the 3-D bindings, of one (token, k) expert for the 2-D
-    one); the batched figures there are replaced by phase 5's, taken at
-    the main run's own prefill shapes.  Returns (figures, the 8-expert
-    tiers by (bits, K, N), the L2 flush buffer)."""
-    import torch
-    from repro_torch.kernels import dequant_matmul as DM, ops, ref
-    from repro_torch.quant import hqq
-    gen = torch.Generator(dev)
-    gen.manual_seed(1)
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-    shapes = SHAPES
-    cases = {"dequant_matmul_slots": dict(B=2, M=1, S=4),
-             "dequant_matmul_batched": dict(B=8, M=16, S=8),
-             "dequant_matmul": dict(B=1, M=1, S=1)}
-    acc = {n: dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0, err=0.0, rel=0.0)
-           for n in cases}
-    for n in ("dequant_matmul_slots", "dequant_matmul"):
-        acc[n].update(previous_ms=0.0, previous_err=0.0)
-    tiers = {}
-    for bits in (2, 3):
-        for K, N in sorted(set(shapes)):
-            w = torch.randn((8, K, N), generator=gen, device=dev) * 0.02
-            tiers[bits, K, N] = hqq.quantize(w.to(torch.bfloat16), bits)
-            del w
-    for bits in (2, 3):
-        for name, c in cases.items():
-            for K, N in shapes:
-                qt = tiers[bits, K, N]
-                if 1 < c["S"] < 8:
-                    qt = hqq.QTensor(qt.packed[:c["S"]], qt.scale[:c["S"]],
-                                     qt.zero[:c["S"]],
-                                     {k: v[:c["S"]] for k, v in qt.meta.items()},
-                                     bits, qt.group_size, (c["S"], K, N))
-                x = torch.randn((c["B"], c["M"], K), generator=gen,
-                                device=dev).to(torch.bfloat16)
-                previous = None  # the FMA kernel, what the binding ran before
-                if name == "dequant_matmul":
-                    x, qt = x[0], hqq.slice_leading(tiers[bits, K, N], 5)
-                    run = lambda: ops.dequant_matmul(x, qt)
-                    plain = lambda: ref.dequant_matmul(x, qt)
-                    n_read, stack = 1, ref.stack_one(qt)
-                    previous = lambda: DM._launch_fma(x[None], stack, None)[0]
-                elif name == "dequant_matmul_slots":
-                    slots = torch.tensor([3, 1], dtype=torch.int32, device=dev)
-                    run = lambda: ops.dequant_matmul_slots(x, qt, slots)
-                    plain = lambda: ref.dequant_matmul_slots(x, qt, slots)
-                    n_read, stack = 2, qt
-                    previous = lambda: DM._launch_fma(x, qt, slots)
-                else:
-                    run = lambda: ops.dequant_matmul_batched(x, qt)
-                    plain = lambda: ref.dequant_matmul_batched(x, qt)
-                    n_read, stack = c["B"], qt
-                gemv = DM.launch.routes["gemv"]
-                y, yp = run(), plain()
-                torch.cuda.synchronize()
-                if previous is not None and DM.launch.routes["gemv"] != gemv + 1:
-                    fail(f"{name} {bits}-bit K={K} N={N}: bfloat16 x at M = 1 did "
-                         f"not take the tensor-core GEMV")
-                err = (y - yp).abs().max().item()
-                scale = yp.abs().max().item()
-                if not (err <= KERNEL_RTOL * scale) or not torch.isfinite(y).all():
-                    fail(f"{name} {bits}-bit K={K} N={N}: max |kernel - plain| "
-                         f"{err:.3g} > {KERNEL_RTOL} x {scale:.3g}")
-                ms = _event_ms(run, 20, flush)
-                pms = _event_ms(plain, 3, flush)
-                nbytes = (_stored_bytes(stack, n_read) + x.numel() * x.element_size()
-                          + y.numel() * 4)
-                flops = 2 * c["B"] * c["M"] * K * N
-                prev = ""
-                a = acc[name]
-                if previous is not None:
-                    perr = (previous() - yp).abs().max().item()
-                    if not perr <= KERNEL_RTOL * scale:
-                        fail(f"previous {name} kernel {bits}-bit K={K}: {perr:.3g}")
-                    prev_ms = _event_ms(previous, 20, flush)
-                    prev = f" previous (FMA) kernel {prev_ms:.4f} ms err {perr:.3g}"
-                    a["previous_err"] = max(a["previous_err"], perr)
-                    if bits == 2:
-                        a["previous_ms"] += prev_ms
-                log(f"[kernel] {name} {bits}-bit B={c['B']} M={c['M']} K={K} "
-                    f"N={N}: max_abs_err {err:.3g} (max |y| {scale:.3g}) "
-                    f"kernel {ms:.4f} ms plain {pms:.4f} ms{prev} "
-                    f"bytes {nbytes} -> {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
-                a["err"] = max(a["err"], err)
-                a["rel"] = max(a["rel"], err / scale)
-                if bits == 2:
-                    a["ms"] += ms
-                    a["plain_ms"] += pms
-                    a["bytes"] += nbytes
-                    a["flops"] += flops
-    # tiny-moe's own shapes (3-bit, g = 64, float32 x) through both bindings
-    for K, N in ((256, 512), (512, 256)):
-        w = torch.randn((8, K, N), generator=gen, device=dev) * 0.05
-        qt = hqq.quantize(w, 3)
-        x = torch.randn((8, 4, K), generator=gen, device=dev)
-        slots = torch.tensor([7, 0, 3, 3, 5, 1, 2, 6], dtype=torch.int32, device=dev)
-        for name, y, yp in (
-                ("dequant_matmul_slots", ops.dequant_matmul_slots(x, qt, slots),
-                 ref.dequant_matmul_slots(x, qt, slots)),
-                ("dequant_matmul_batched", ops.dequant_matmul_batched(x, qt),
-                 ref.dequant_matmul_batched(x, qt)),
-                ("dequant_matmul", ops.dequant_matmul(x[3], hqq.slice_leading(qt, 6)),
-                 ref.dequant_matmul(x[3], hqq.slice_leading(qt, 6)))):
-            err = (y - yp).abs().max().item()
-            scale = yp.abs().max().item()
-            if not err <= KERNEL_RTOL * scale:
-                fail(f"{name} tiny-moe shape K={K} N={N}: {err:.3g}")
-            acc[name]["err"] = max(acc[name]["err"], err)
-            acc[name]["rel"] = max(acc[name]["rel"], err / scale)
-    # the slot binding at verify-chunk shapes: C x top_k rows of one k = 4
-    # chunk (B = 10) and of four serving rows' chunks (B = 40), 2-bit, the
-    # rows spread over the 8-record tier
-    verify = {}
-    for B in (10, 40):
-        v = dict(B=B, ms=0.0, plain_ms=0.0, bytes=0, flops=0, err=0.0)
-        slots = torch.randint(0, 8, (B,), generator=gen, device=dev,
-                              dtype=torch.int32)
-        for K, N in shapes:
-            qt = tiers[2, K, N]
-            x = torch.randn((B, 1, K), generator=gen, device=dev).to(torch.bfloat16)
-            run = lambda: ops.dequant_matmul_slots(x, qt, slots)
-            plain = lambda: ref.dequant_matmul_slots(x, qt, slots)
-            gemv = DM.launch.routes["gemv"]
-            y, yp = run(), plain()
-            torch.cuda.synchronize()
-            err, scale = (y - yp).abs().max().item(), yp.abs().max().item()
-            if DM.launch.routes["gemv"] != gemv + 1:
-                fail(f"dequant_matmul_slots B={B}: not on the tensor-core GEMV")
-            if not (err <= KERNEL_RTOL * scale) or not torch.isfinite(y).all():
-                fail(f"dequant_matmul_slots B={B} K={K} N={N}: max |kernel - "
-                     f"plain| {err:.3g} > {KERNEL_RTOL} x {scale:.3g}")
-            v["ms"] += _event_ms(run, 20, flush)
-            v["plain_ms"] += _event_ms(plain, 3, flush)
-            v["bytes"] += (_stored_bytes(qt, len(set(slots.tolist())))
-                           + x.numel() * x.element_size() + y.numel() * 4)
-            v["flops"] += 2 * B * K * N
-            v["err"] = max(v["err"], err)
-            acc["dequant_matmul_slots"]["err"] = max(
-                acc["dequant_matmul_slots"]["err"], err)
-        v["bound_ms"], v["bound_by"] = _bound(v["bytes"], v["flops"])
-        v["bound_share"] = v["bound_ms"] / v["ms"]
-        log(f"[kernel] dequant_matmul_slots verify rows B={B}, per MoE layer "
-            f"(3 matrices, 2-bit): {json.dumps(v)}")
-        verify[B] = v
-    out = {}
-    for name, a in acc.items():
-        bound_ms, bound_by = _bound(a["bytes"], a["flops"])
-        out[name] = {
-            "ms": a["ms"], "plain_ms": a["plain_ms"],
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "max_abs_err": a["err"], "max_rel_err": a["rel"]}
-        if "previous_ms" in a:
-            out[name].update(previous_ms=a["previous_ms"],
-                             previous_max_abs_err=a["previous_err"],
-                             bound_share=bound_ms / a["ms"])
-        if name == "dequant_matmul_slots":
-            out[name]["verify_rows"] = verify
-        per = "(token, k) expert" if name == "dequant_matmul" else "MoE layer"
-        log(f"[kernel] {name} per {per} (3 matrices, 2-bit): "
-            f"{json.dumps(out[name])}")
-    return out, tiers, flush
-
-
-def _grouped_case(dev, tiers, flush, counts, gen, *, previous=False):
-    """The batched binding over U = len(counts) experts of the 2-bit
-    tiers with ragged row groups of ``counts`` rows, for gate, down and up,
-    x bf16: checked against the plain version at ``KERNEL_RTOL`` and timed.
-    With ``previous`` the FMA kernel (``csrc/dequant_matmul.cu``, what this
-    binding launched before the grouped kernel) is timed beside it on the
-    same rows zero-padded to the largest group.  The bound counts the U
-    experts' stored bytes, x and the output, and the operations of the
-    routed rows."""
-    import torch
-    from repro_torch.kernels import dequant_matmul as DM, ops, ref
-    from repro_torch.quant import hqq
-    U, rows = len(counts), int(sum(counts))
-    off = np.concatenate([[0], np.cumsum(counts)])
-    t = dict(ms=0.0, plain_ms=0.0, bytes=0, flops=0, err=0.0, rel=0.0)
-    if previous:
-        t["previous_padded_ms"] = 0.0
-    for K, N in SHAPES:
-        full = tiers[2, K, N]
-        qt = hqq.QTensor(full.packed[:U], full.scale[:U], full.zero[:U],
-                         {k: v[:U] for k, v in full.meta.items()},
-                         2, full.group_size, (U, K, N))
-        x = torch.randn((rows, K), generator=gen, device=dev).to(torch.bfloat16)
-        y, yp = ops.dequant_matmul_batched(x, qt, off), ref.dequant_matmul_grouped(x, qt, off)
-        err = (y - yp).abs().max().item()
-        scale = yp.abs().max().item()
-        if not (err <= KERNEL_RTOL * scale) or not torch.isfinite(y).all():
-            fail(f"grouped at counts {list(counts)} K={K}: {err:.3g} > "
-                 f"{KERNEL_RTOL} x {scale:.3g}")
-        t["err"], t["rel"] = max(t["err"], err), max(t["rel"], err / scale)
-        t["ms"] += _event_ms(lambda: ops.dequant_matmul_batched(x, qt, off), 10, flush)
-        t["row_tile"] = DM.launch_grouped.last_bm
-        del y, yp
-        t["plain_ms"] += _event_ms(lambda: ref.dequant_matmul_grouped(x, qt, off), 1, flush)
-        if previous:
-            xp = torch.zeros((U, int(max(counts)), K), dtype=x.dtype, device=dev)
-            for u in range(U):
-                xp[u, :counts[u]] = x[off[u]:off[u + 1]]
-            t["previous_padded_ms"] += _event_ms(lambda: DM._launch_fma(xp, qt, None), 5, flush)
-        t["bytes"] += (_stored_bytes(qt, U) + x.numel() * x.element_size()
-                       + rows * N * 4)
-        t["flops"] += 2 * rows * K * N
-    t["bound_ms"], t["bound_by"] = _bound(t["bytes"], t["flops"])
-    t["tflop_s"] = t["flops"] / (t["ms"] * 1e-3) / 1e12
-    t["bound_share"] = t["bound_ms"] / t["ms"]
-    return t
-
-
-def phase_prefill_kernel(dev, tiers, flush, batches):
-    """The batched binding at the shapes the main run's prefill launched:
-    per MoE layer the per-expert row counts of the routed rows, as ragged
-    groups (no padding: ``padded_over_routed_rows`` is 1.0), gate, down and
-    up at 2 bits, x bf16; the FMA kernel on the same rows padded to the
-    largest group beside it (the previous design, same run).  Then one
-    long case: a 4096-token prompt's 8192 routed rows over 8 experts,
-    counts from a seeded multinomial, operation-bound.  Returns the
-    per-layer means (the kernels line's ``dequant_matmul_batched``
-    entry)."""
-    import torch
-    gen = torch.Generator(dev)
-    gen.manual_seed(2)
-    per_layer = []
-    for l, counts in enumerate(batches):
-        t = _grouped_case(dev, tiers, flush, counts, gen, previous=True)
-        log(f"[prefill-kernel] layer {l}: {len(counts)} experts, counts "
-            f"{list(counts)}, row tile {t['row_tile']}: kernel {t['ms']:.4f} ms, "
-            f"previous kernel padded {t['previous_padded_ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
-        per_layer.append(t)
-    mean = lambda k: float(np.mean([t[k] for t in per_layer]))
-    out = {"ms": mean("ms"), "previous_padded_ms": mean("previous_padded_ms"),
-           "plain_ms": mean("plain_ms"), "bound_ms": mean("bound_ms"),
-           "bound_by": per_layer[0]["bound_by"], "padded_over_routed_rows": 1.0,
-           "max_abs_err": max(t["err"] for t in per_layer),
-           "max_rel_err": max(t["rel"] for t in per_layer)}
-    log(f"[prefill-kernel] per MoE layer, mean of {len(batches)}: {json.dumps(out)}")
-    counts = np.random.default_rng(8).multinomial(2 * 4096, [1 / 8] * 8)
-    long = _grouped_case(dev, tiers, flush, [int(c) for c in counts], gen)
-    log(f"[prefill-kernel] long prompt (4096 tokens x top-2 = 8192 routed rows, "
-        f"counts {counts.tolist()}), per MoE layer: {json.dumps(long)}")
-    out["max_abs_err"] = max(out["max_abs_err"], long["err"])
-    out["long"] = long
-    return out
+    """Phases 2-4 through the port's kernels suite
+    (``repro_torch.benchmarks.kernels_bench``): its group (b) dequant and
+    attention cases (each kernel against its plain version at the main
+    path's and the zoo's shapes, on its tensor-core route, timed cold
+    beside its bound, the kernel it replaced and SDPA; the suite raises on
+    a failed check), then its group (a) rows on the card (the reference's
+    f32 shapes: the 2-D binding at 2, 4 and 8 bits and causal flash, each
+    held to its plain version).  Returns (the kernels line's entries, the
+    8-expert tiers, the L2 flush buffer) for ``[prefill-kernel]``."""
+    from repro_torch.benchmarks import kernels_bench as KB
+    if KB.CHUNK != PROMPT_LEN:
+        fail(f"the suite's prefill chunk {KB.CHUNK} is not the main path's "
+             f"{PROMPT_LEN}-token prompt")
+    flush = KB.new_flush(dev)
+    records, tiers = KB.dequant_cases(dev, flush)
+    records += KB.attention_cases(dev, flush)
+    kern = KB.entries(records)
+    for r in KB.reference_rows(dev):
+        log(f"[kernel-ref] {json.dumps(r)}")
+        binding = ("dequant_matmul" if r["name"].startswith("dequant_matmul_cuda")
+                   else "flash_attention" if r["name"] == "flash_attention_cuda"
+                   else None)
+        if binding:
+            kern[binding]["max_abs_err"] = max(kern[binding]["max_abs_err"],
+                                               r["max_abs_err"])
+    return kern, tiers, flush
 
 
 # ----------------------------------------------------------------------
@@ -1390,150 +1132,6 @@ def _profile_prefill(eng, prompt, dev):
 
 
 # ----------------------------------------------------------------------
-def _paged_case(dev, lens, C, gen, n_heads=32, n_kv=8, hd=128, ps=16,
-                window=4096):
-    """Mixtral-shaped paged KV (bf16) for rows of live lengths ``lens``,
-    their pages scattered over the pool, queries at the last C positions;
-    with the work list and the bytes a kernel must move (each visited
-    page's k, v and ppos once, q and out) and the operations on the
-    valid keys (q.k and p.v, 2 x 2 x hd each)."""
-    import torch
-    from repro_torch.kernels import ragged_attention as RA
-    B = len(lens)
-    T = max(-(-n // ps) for n in lens)
-    P = sum(-(-n // ps) for n in lens) + 8
-    ids = torch.randperm(P, generator=torch.Generator().manual_seed(P)).tolist()
-    pages = np.full((B, T), -1, np.int32)
-    ppos = np.full((P, ps), -1, np.int32)
-    for b, n in enumerate(lens):
-        for o in range(-(-n // ps)):
-            pages[b, o] = pid = ids.pop()
-            for j in range(min(ps, n - o * ps)):
-                ppos[pid, j] = o * ps + j
-    qpos = (np.asarray(lens)[:, None] - C + np.arange(C)).astype(np.int32)
-    kp = torch.randn((P, ps, n_kv, hd), generator=gen, device=dev).to(torch.bfloat16)
-    vp = torch.randn((P, ps, n_kv, hd), generator=gen, device=dev).to(torch.bfloat16)
-    q = torch.randn((B, C, n_heads, hd), generator=gen, device=dev).to(torch.bfloat16)
-    wl = RA.build_page_worklist(pages, lens, qpos[:, 0], qpos[:, -1], ps,
-                                window=window)
-    packed, n_seg = RA.pack_worklist(*wl, B)
-    work = RA.DeviceWorklist(torch.from_numpy(packed).to(dev), n_seg)
-    visited = int(wl[2][:, 2].sum())
-    page_bytes = 2 * ps * n_kv * hd * 2 + ps * 4
-    nbytes = visited * page_bytes + 2 * q.numel() * 2
-    keys = sum(int(((0 <= kv) & (kv <= qp)
-                    & (qp - kv < (window or np.inf))).sum())
-               for b in range(B) for qp in qpos[b]
-               for kv in [ppos[pages[b][pages[b] >= 0]].ravel()])
-    flops = 4 * n_heads * hd * keys
-    return dict(q=q, kp=kp, vp=vp, ppos=torch.from_numpy(ppos).to(dev),
-                pages=torch.from_numpy(pages).to(dev),
-                qpos=torch.from_numpy(qpos).to(dev), work=work,
-                window=window, nbytes=nbytes, flops=flops, visited=visited,
-                listed=T * B, segments=n_seg)
-
-
-RAGGED_CASES = (("decode", [37, 300, 1500, 4200], 1),
-                ("admission", [200], 128),
-                # four serving rows' verify chunks (k = 4)
-                ("verify", [69, 133, 1500, 4200], 5))
-
-
-def phase_ragged_kernel(dev, flush, *, heads=(32, 8, 128), cases=RAGGED_CASES,
-                        window=4096, label="ragged"):
-    """The ragged paged-attention kernel against its plain version at
-    Mixtral's attention shapes, called through the binding the model
-    path calls (``ops.ragged_attention``, which counts the launch): a
-    decode step of 4 rows whose live lengths straddle the 4096 window
-    (its pages wholly outside the window are skipped, the rest masked
-    per key), a 128-token admission chunk and four rows' C = 5 verify
-    chunks (draft-and-verify serving at k = 4); ``heads`` (H, Hkv, hd),
-    ``cases`` and ``window`` give another model's shapes (phi-3's, under
-    ``label``).  Each row is held against
-    the plain version run in f32 on the same (upcast) inputs, within
-    ``RAGGED_BF16_RTOL`` of that row's own largest value.  Each launch
-    timed alone after an L2 flush; the bound is the
-    visited pages' bytes (k, v, ppos) plus q and out over the memory rate.
-    ``scaled_dot_product_attention`` on the pre-gathered dense view is
-    printed as a yardstick on its own line; the port never calls it.
-    Returns the decode figures (the kernels line's entry)."""
-    import torch
-    from repro_torch.kernels import ops, ragged_attention as RA
-    gen = torch.Generator(dev)
-    gen.manual_seed(3)
-    out = {}
-    n_heads, n_kv, hd = heads
-    for case, lens, C in cases:
-        c = _paged_case(dev, lens, C, gen, n_heads, n_kv, hd, window=window)
-        args = (c["q"], c["kp"], c["vp"], c["ppos"])
-        run = lambda: ops.ragged_attention(*args, c["pages"], c["qpos"],
-                                           window=c["window"],
-                                           worklist=c["work"])
-        plain = lambda: RA.ragged_attention_reference(
-            *args, c["pages"], c["qpos"], window=c["window"])
-        # the warp-reduction kernel, what the binding ran before
-        previous = lambda: RA._launch_warp(*args, c["qpos"], c["work"],
-                                           window=c["window"])
-        before, mma = ops.ragged_attention.launches, RA.launch.routes["mma"]
-        y = run()
-        route = "mma" if RA.launch.routes["mma"] == mma + 1 else "warp"
-        y32 = RA.ragged_attention_reference(  # the same sums in f32
-            *(a.float() for a in args[:3]), c["ppos"], c["pages"], c["qpos"],
-            window=c["window"])
-        yprev = previous()
-        torch.cuda.synchronize()
-        if ops.ragged_attention.launches != before + 1:
-            fail(f"ragged_attention {case}: the binding did not count its launch")
-        if route != "mma":
-            fail(f"ragged_attention {case}: bfloat16 took the {route} route, "
-                 f"not the tensor-core kernel")
-        err, tol, row_errs, prev_err = 0.0, 0.0, [], 0.0
-        for b in range(len(lens)):
-            e = (y[b].float() - y32[b]).abs().max().item()
-            t = RAGGED_BF16_RTOL * y32[b].abs().max().item()
-            pe = (yprev[b].float() - y32[b]).abs().max().item()
-            row_errs.append((e, t))
-            if not e <= t or not pe <= t:
-                fail(f"ragged_attention {case} row {b} (live {lens[b]}): max "
-                     f"|kernel - plain f32| {e:.3g} (previous kernel {pe:.3g}) "
-                     f"> {t:.3g}")
-            err, tol, prev_err = max(err, e), max(tol, t), max(prev_err, pe)
-        if not torch.isfinite(y).all():
-            fail(f"ragged_attention {case}: non-finite output")
-        bound_ms, bound_by = _bound(c["nbytes"], c["flops"])
-        r = dict(H=n_heads, Hkv=n_kv, hd=hd, route=route,
-                 ms=_event_ms(run, 20, flush), plain_ms=_event_ms(plain, 3, flush),
-                 previous_ms=_event_ms(previous, 20, flush),
-                 bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
-                 previous_max_abs_err=prev_err,
-                 row_err_and_tolerance=row_errs, bytes=c["nbytes"],
-                 pages_visited=c["visited"],
-                 table_pages=c["listed"], segments=c["segments"], B=len(lens), C=C)
-        k, v, kpos = RA.ragged_gather(c["kp"], c["vp"], c["ppos"], c["pages"])
-        H, G = c["q"].shape[2], c["q"].shape[2] // k.shape[2]
-        qp = c["qpos"][:, None, :, None]
-        mask = ((kpos[:, None, None, :] >= 0) & (kpos[:, None, None, :] <= qp)
-                & (qp - kpos[:, None, None, :] < (c["window"] or np.inf)))
-        qs = c["q"].transpose(1, 2)
-        ks = k.repeat_interleave(G, 2).transpose(1, 2)
-        vs = v.repeat_interleave(G, 2).transpose(1, 2)
-        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask)
-        r["sdpa_dense_ms"] = _event_ms(sdpa, 10, flush)
-        r["kernel_over_sdpa"] = r["ms"] / r["sdpa_dense_ms"]
-        r["previous_over_sdpa"] = r["previous_ms"] / r["sdpa_dense_ms"]
-        r["bound_share"] = bound_ms / r["ms"]
-        log(f"[{label}] {case} B={len(lens)} C={C} lens={lens}: {json.dumps(r)}")
-        log(f"[yardstick] scaled_dot_product_attention on the gathered dense "
-            f"view ({case}, {ks.shape[2]} keys per row, not paged, not used "
-            f"by the port): {r['sdpa_dense_ms']:.4f} ms")
-        out[case] = r
-    dec = dict(out["decode"])
-    dec["max_abs_err"] = max(o["max_abs_err"] for o in out.values())
-    return dec
-
-
-# ----------------------------------------------------------------------
 def _serve(eng, cfg, prompts, max_news, *, max_slots, on_engine=None,
            params=None, device=None, priorities=None, extras=None, **kw):
     """Serve ``prompts`` (with ``priorities``, default 0, and an
@@ -1680,12 +1278,13 @@ class _SlotCapture:
 def _check_serving_slots(capture):
     """The slot binding on the captured serving inputs (x of the active
     rows, the layer's pool-and-overflow view, the slot map ``acquire``
-    returned) against its plain version at ``KERNEL_RTOL``, and timed
-    (CUDA events, flushed L2).  The bound reads each distinct record
-    once."""
+    returned) against its plain version at the suite's ``KERNEL_RTOL``,
+    and timed (CUDA events, flushed L2).  The bound reads each distinct
+    record once."""
     import torch
+    from repro_torch.benchmarks import kernels_bench as KB
     from repro_torch.kernels import dequant_matmul as DM, ref
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    flush = KB.new_flush("cuda")
     fn = capture.fn
     record_bytes = capture.ce._pstate.pool.layout.record_bytes
     out = dict(ms=0.0, plain_ms=0.0, previous_ms=0.0, bytes=0, flops=0, err=0.0,
@@ -1701,19 +1300,19 @@ def _check_serving_slots(capture):
         scale = yp.abs().max().item()
         if route != "gemv":
             fail(f"dequant_matmul_slots at serving shape took the {route} route")
-        if (not (err <= KERNEL_RTOL * scale) or not torch.isfinite(y).all()
-                or not perr <= KERNEL_RTOL * scale):
+        if (not (err <= KB.KERNEL_RTOL * scale) or not torch.isfinite(y).all()
+                or not perr <= KB.KERNEL_RTOL * scale):
             fail(f"dequant_matmul_slots at serving shape ({rows} rows, slot "
                  f"index up to {max_index}): {err:.3g} (previous kernel "
-                 f"{perr:.3g}) > {KERNEL_RTOL} x {scale:.3g}")
+                 f"{perr:.3g}) > {KB.KERNEL_RTOL} x {scale:.3g}")
         K, N = qt.shape[1:]
         distinct = len(set(slots.tolist()))
-        out["ms"] += _event_ms(lambda: fn(x, qt, slots), 20, flush)
-        out["previous_ms"] += _event_ms(lambda: DM._launch_fma(x, qt, slots), 20, flush)
+        out["ms"] += KB.event_ms(lambda: fn(x, qt, slots), 20, flush)
+        out["previous_ms"] += KB.event_ms(lambda: DM._launch_fma(x, qt, slots), 20, flush)
         out["previous_err"] = max(out["previous_err"], perr)
-        out["plain_ms"] += _event_ms(lambda: ref.dequant_matmul_slots(x, qt, slots),
+        out["plain_ms"] += KB.event_ms(lambda: ref.dequant_matmul_slots(x, qt, slots),
                                      3, flush)
-        out["bytes"] += (_stored_bytes(qt, distinct) + x.numel() * x.element_size()
+        out["bytes"] += (KB.stored_bytes(qt, distinct) + x.numel() * x.element_size()
                          + y.numel() * 4)
         out["flops"] += 2 * rows * K * N
         out["err"], out["rel"] = max(out["err"], err), max(out["rel"], err / scale)
@@ -1723,7 +1322,7 @@ def _check_serving_slots(capture):
             (rows, max_index, distinct))
         out["max_offset_gib"] = max(out.get("max_offset_gib", 0.0),
                                     max_index * record_bytes / 2**30)
-    out["bound_ms"], out["bound_by"] = _bound(out["bytes"], out["flops"])
+    out["bound_ms"], out["bound_by"] = KB.bound(out["bytes"], out["flops"])
     out["bound_share"] = out["bound_ms"] / out["ms"]
     log(f"[serve-kernel] dequant_matmul_slots at the serving run's shapes, "
         f"per MoE layer (3 matrices): {json.dumps(out)}")
@@ -2098,110 +1697,6 @@ def phase_serve_plain(dev, eng, cfg, dense):
         f"{reports['packed dense'][1] == traces['packed paged'][1][1]}; "
         f"{time.perf_counter() - t0:.1f} s")
     return total
-
-
-# ----------------------------------------------------------------------
-FLASH_CASES = (  # (name, Sq, Skv, q_offset, window[, causal, batch])
-    ("prefill_chunk", PROMPT_LEN, PROMPT_LEN, 0, 4096),
-    ("long_prompt", 4096, 4096, 0, None),
-    ("windowed", 1024, 8192, 7168, 4096),
-    ("verify_chunk", 5, PROMPT_LEN + 5, PROMPT_LEN, 4096),  # a C = 5 chunk
-)
-
-
-def _flash_work(Sq, Skv, q_offset, window, H, Hkv, hd, causal=True, B=1):
-    """(bytes, operations) the function must move and do over B rows: q
-    and out once, the K/V rows some query can see once; 2 x 2 x hd
-    operations per valid (query head, query, key)."""
-    qpos = q_offset + np.arange(Sq)
-    lo = np.zeros(Sq, np.int64) if window is None else np.maximum(0, qpos - window + 1)
-    hi = np.minimum(Skv, qpos + 1) if causal else np.full(Sq, Skv)
-    pairs = int(np.maximum(hi - lo, 0).sum())
-    keys = int(hi.max() - lo.min())
-    nbytes = 2 * H * Sq * hd * 2 + 2 * Hkv * keys * hd * 2
-    return B * nbytes, B * 4 * hd * H * pairs
-
-
-def phase_flash(dev, flush, *, heads=(32, 8, 128), cases=FLASH_CASES,
-                label="flash"):
-    """The flash-attention kernel against its plain version at Mixtral's
-    attention shapes (H 32, Hkv 8, hd 128, bf16), called through the
-    binding the model path calls (``ops.flash_attention``) on (B, H, S,
-    hd) views of (B, S, H, hd) tensors, as the prefill chunk passes its
-    queries and KV ring; a case may be non-causal over B rows (whisper's
-    encoder and cross-attention).  Each (head, row) is held against the plain
-    version run in f32 on the same (upcast) inputs, within
-    ``FLASH_BF16_RTOL`` of that row's own max |plain|.  One launch timed
-    alone after an L2 flush; ``scaled_dot_product_attention``
-    (``is_causal`` as the case, no window) is timed as a yardstick on the
-    cases a window does not cut; the port never calls it.  On the main path's
-    chunk, ``attention_core`` (what the chunk ran before it took the
-    kernel) is timed too.  ``heads`` (H, Hkv, hd) and ``cases`` give
-    another model's shapes (phi-3's, under ``label``).  Returns the figures
-    of the main path's prefill chunk (the kernels line's entry)."""
-    import torch
-    from repro_torch.kernels import flash_attention as FA, ops
-    gen = torch.Generator(dev)
-    gen.manual_seed(4)
-    H, Hkv, hd = heads
-    out = {}
-    for name, Sq, Skv, q_offset, window, *more in cases:
-        causal, B = more or (True, 1)
-        rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
-        q, k, v = (t.transpose(1, 2) for t in (rnd(B, Sq, H, hd), rnd(B, Skv, Hkv, hd),
-                                               rnd(B, Skv, Hkv, hd)))
-        kw = dict(causal=causal, window=window, q_offset=q_offset)
-        run = lambda: ops.flash_attention(q, k, v, **kw)
-        plain = lambda: FA.flash_attention_reference(q, k, v, **kw)
-        before, wg = ops.flash_attention.launches, FA.launch.routes["wgmma"]
-        y = run()
-        route = "wgmma" if FA.launch.routes["wgmma"] == wg + 1 else "fma"
-        y32 = FA.flash_attention_reference(q.float(), k.float(), v.float(), **kw)
-        torch.cuda.synchronize()
-        if ops.flash_attention.launches != before + 1:
-            fail(f"flash_attention {name}: the binding did not count its launch")
-        if not torch.isfinite(y).all():
-            fail(f"flash_attention {name}: non-finite output")
-        err = (y.float() - y32).abs().amax(-1)
-        tol = FLASH_BF16_RTOL * y32.abs().amax(-1)
-        if not bool((err <= tol).all()):
-            worst = int((err - tol).argmax())
-            fail(f"flash_attention {name}: (head, row) {divmod(worst % (H * Sq), Sq)} max "
-                 f"|kernel - plain f32| {err.flatten()[worst]:.3g} > "
-                 f"{tol.flatten()[worst]:.3g}")
-        nbytes, flops = _flash_work(Sq, Skv, q_offset, window, H, Hkv, hd,
-                                    causal, B)
-        bound_ms, bound_by = _bound(nbytes, flops)
-        r = dict(H=H, Hkv=Hkv, hd=hd, route=route, B=B, causal=causal, Sq=Sq, Skv=Skv,
-                 q_offset=q_offset, window=window, ms=_event_ms(run, 10, flush), plain_ms=_event_ms(plain, 3, flush),
-                 bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
-                 max_abs_err=float(err.max()),
-                 max_err_over_tolerance=float((err / tol).max()))
-        r["library_ms"] = None
-        if window is None or window >= q_offset + Sq:
-            # causal from the top left at q_offset 0, else an explicit mask
-            mask = (None if q_offset == 0 or not causal else
-                    FA._valid(Sq, Skv, True, window, q_offset, dev))
-            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, is_causal=causal and mask is None,
-                enable_gqa=True)
-            r["library_err_over_tolerance"] = float(
-                ((sdpa().float() - y32).abs().amax(-1) / tol).max())
-            r["library_ms"] = _event_ms(sdpa, 10, flush)
-        if name == "prefill_chunk":  # what the chunk ran before: the model's plain path
-            from repro_torch.models import layers as L
-            pos = torch.arange(Skv, dtype=torch.int32, device=dev)
-            r["attention_core_ms"] = _event_ms(lambda: L.attention_core(
-                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), pos,
-                pos[None], causal=True, window=window), 10, flush)
-        r["tflop_s"] = flops / (r["ms"] * 1e-3) / 1e12
-        r["kernel_over_library"] = (None if r["library_ms"] is None
-                                    else r["ms"] / r["library_ms"])
-        log(f"[{label}] {name}: {json.dumps(r)}")
-        out[name] = r
-    main = dict(out["prefill_chunk"])
-    main["max_abs_err"] = max(o["max_abs_err"] for o in out.values())
-    return main, out
 
 
 def phase_planes(dev, eng, cfg):
@@ -3613,11 +3108,9 @@ def phase_telemetry(dev, eng, cfg, serve_toks, prompt, main_toks):
     return launches
 
 
-def _module(label, args, timeout, refused=None):
+def _module(label, args, timeout):
     """``python -m`` of a port entry point from the checkout's root, in
-    its own process; must exit 0, or with ``refused`` (a regular
-    expression) exit non-zero with a message that matches it.  Returns
-    its standard output."""
+    its own process; must exit 0.  Returns its standard output."""
     root = Path(__file__).resolve().parent
     env = dict(__import__("os").environ, PYTHONPATH=str(root / "src"))
     t0 = time.perf_counter()
@@ -3626,18 +3119,35 @@ def _module(label, args, timeout, refused=None):
     wall = time.perf_counter() - t0
     lines = "\n".join(ln for ln in r.stdout.strip().splitlines()
                       if not ln.startswith(("[step ", "step ")))
-    log(f"[cli] python -m {' '.join(args)}: exit {r.returncode} in {wall:.1f} s\n"
+    log(f"[{label}] python -m {' '.join(args)}: exit {r.returncode} in {wall:.1f} s\n"
         f"{lines}")
-    if refused is not None:
-        said = (r.stdout + r.stderr).strip().splitlines()[-1:]
-        log(f"[cli] refusal: {said}")
-        if r.returncode == 0 or not re.search(refused, r.stdout + r.stderr):
-            fail(f"[cli] python -m {args[0]} was not refused as {refused!r}")
-        return r.stdout
     if r.returncode != 0:
         log(r.stderr[-4000:])
-        fail(f"[cli] python -m {args[0]} exited {r.returncode}")
+        fail(f"[{label}] python -m {args[0]} exited {r.returncode}")
     return r.stdout
+
+
+def _refused(args, refused):
+    """``launch.serve``'s ``main(args)`` in this process (a refusal exits
+    before it loads a model, so a process of its own would only add its
+    start-up): it must exit with a message that matches ``refused`` (a
+    regular expression)."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(out):
+            serve.main(args)
+        said = None
+    except SystemExit as e:
+        said = str(e.code)
+    log(f"[cli] launch.serve {' '.join(args)}: refusal in "
+        f"{time.perf_counter() - t0:.1f} s: {said!r}")
+    if said is None or not re.search(refused, said):
+        fail(f"[cli] launch.serve {' '.join(args)} was not refused as "
+             f"{refused!r}")
 
 
 # (arch, shape, layers timed on the card; None = all): the counts are
@@ -3724,8 +3234,14 @@ def phase_dryrun(card):
     log(f"[dryrun] {len(DRYRUN_COMBOS)} combos in {wall:.1f} s")
 
 
+CLI_REQUESTS = 5  # the zoo's continuous launcher runs (12 by default; the
+                  # script's time limit): one more than the launcher's 4
+                  # slots, so each run admits a request into a freed slot
+
+
 def phase_cli(dev):
-    """The port's launchers as a user runs them, each in its own process:
+    """The port's launchers as a user runs them, each in its own process
+    (the two refusals in this one, ``_refused``):
     ``launch.serve`` on ``mixtral-offload`` at its published 32 layers
     (``--offload --quantize``, 8 new tokens per prompt, metrics and
     trace), then ``launch.train`` of ``tiny-moe`` for 20 steps into a
@@ -3754,23 +3270,25 @@ def phase_cli(dev):
     if len(re.findall(r"^gen: ", out, re.M)) != 2:
         fail("[cli] granite did not serve its two prompts")
     out = _module("cli", ["repro_torch.launch.serve", "--arch", "smollm-360m",
-                          "--continuous", "--max-new", "8"], timeout=300)
-    if "[continuous] 12 requests" not in out:
-        fail("[cli] smollm's continuous run did not finish its 12 requests")
-    _module("cli", ["repro_torch.launch.serve", "--arch", "command-r-plus-104b",
-                    "--continuous"], timeout=120,
-            refused=r"needs [0-9.]+ GB of device memory .* GB free")
+                          "--continuous", "--max-new", "8", "--n-requests",
+                          str(CLI_REQUESTS)], timeout=300)
+    if f"[continuous] {CLI_REQUESTS} requests" not in out:
+        fail(f"[cli] smollm's continuous run did not finish its "
+             f"{CLI_REQUESTS} requests")
+    _refused(["--arch", "command-r-plus-104b", "--continuous"],
+             r"needs [0-9.]+ GB of device memory .* GB free")
     # the recurrent zoo and the encoder-decoder at their published widths;
     # whisper outside --continuous refused
     for arch in REC_ARCHS + (WHISPER,):
         out = _module("cli", ["repro_torch.launch.serve", "--config", arch,
-                              "--continuous", "--max-new", "8"], timeout=300)
+                              "--continuous", "--max-new", "8", "--n-requests",
+                              str(CLI_REQUESTS)], timeout=300)
         wide = arch == WHISPER or "published width" in out  # 1024 wide: never reduced
-        if "[continuous] 12 requests" not in out or not wide or "reduced" in out:
-            fail(f"[cli] {arch}'s continuous run did not finish its 12 requests "
-                 f"at the published width")
-    _module("cli", ["repro_torch.launch.serve", "--config", WHISPER], timeout=120,
-            refused=r"encoder-decoder: serve it with --continuous")
+        if (f"[continuous] {CLI_REQUESTS} requests" not in out or not wide
+                or "reduced" in out):
+            fail(f"[cli] {arch}'s continuous run did not finish its "
+                 f"{CLI_REQUESTS} requests at the published width")
+    _refused(["--config", WHISPER], r"encoder-decoder: serve it with --continuous")
     ck = out_dir / "tiny_moe.npz"
     _module("cli", ["repro_torch.launch.train", "--arch", "tiny-moe",
                     "--steps", "20", "--checkpoint", str(ck)], timeout=300)
@@ -3878,9 +3396,6 @@ ZOO_NARROW = {
     "gqa12": ("command-r-plus-104b", True,
               dict(n_heads=12, n_kv_heads=1, head_dim=32)),
 }
-PHI3_HEADS = (32, 32, 96)  # phi-3-vision: H, Hkv, head_dim
-PHI3_FLASH = (("prefill_chunk", PROMPT_LEN, PROMPT_LEN, 0, None),)
-PHI3_RAGGED = (("decode", [64, 300, 1500, 4000], 1),)
 
 
 class _PlainKernels:
@@ -4228,13 +3743,10 @@ def phase_zoo(dev):
 # ----------------------------------------------------------------------
 # the recurrent config zoo (ROADMAP item 6, sub-items 3 and 5)
 REC_ARCHS = ("recurrentgemma-9b", "xlstm-1.3b")
-RG_HEADS = (16, 1, 256)  # recurrentgemma-9b: H, Hkv (MQA), head_dim
-RG_WINDOW = 2048
-RG_FLASH = (("prefill_chunk", PROMPT_LEN, PROMPT_LEN, 0, RG_WINDOW),
-            ("windowed", 1024, 2048, 1024, RG_WINDOW),
-            ("verify_chunk", 5, PROMPT_LEN + 5, PROMPT_LEN, RG_WINDOW))
-RG_RAGGED = (("decode", [64, 300, 1500, 4000], 1), ("admission", [128], 128))
 REC_CHUNK = 32  # [zoo-rec]'s dense-slot admission chunk
+# [zoo-rec]'s depth (the script's time limit): recurrentgemma's four
+# (rglru, rglru, swa) periods and its two tail layers, xlstm's two periods
+ZOO_REC_LAYERS = {"recurrentgemma-9b": 14, "xlstm-1.3b": 12}
 
 
 def phase_rec_parity(dev):
@@ -4296,13 +3808,15 @@ def phase_rec_parity(dev):
 
 
 def phase_zoo_rec(dev):
-    """The recurrent configs at their published widths and full depth in
-    bf16, random weights from seed 0: recurrentgemma-9b (38 layers, 12 of
-    them SWA at head_dim 256) served on pages of 16 (ragged at hd 256) and
-    on dense slots with chunked admission (flash at hd 256); xlstm-1.3b
-    (48 layers) at batch 1 (``Executor.generate_greedy``, 64-token prompt,
-    32 new tokens: prefill s, decode tok/s, equal to the run with the
-    plain versions) and served on pages with no page in use.  Returns the
+    """The recurrent configs at their published widths in bf16, random
+    weights from seed 0, depth cut to ``ZOO_REC_LAYERS`` (the script's
+    time limit; ``[cli]`` serves both at full depth): recurrentgemma-9b
+    (14 of 38 layers, 4 of them SWA at head_dim 256) served on pages of 16
+    (ragged at hd 256) and on dense slots with chunked admission (flash at
+    hd 256); xlstm-1.3b (12 of 48 layers) at batch 1
+    (``Executor.generate_greedy``, 64-token prompt, 32 new tokens: prefill
+    s, decode tok/s, equal to the run with the plain versions) and served
+    on pages with no page in use.  Returns the
     launches."""
     import gc
     import torch
@@ -4314,13 +3828,14 @@ def phase_zoo_rec(dev):
     for arch in REC_ARCHS:
         gc.collect()
         torch.cuda.empty_cache()
-        cfg = get_config(arch)
+        cfg = get_config(arch).replace(n_layers=ZOO_REC_LAYERS[arch])
         t0 = time.perf_counter()
         params = T.init_model(cfg, seed=0, device=dev)
         torch.cuda.synchronize(dev)
         n = T.count_params_analytic(cfg)
         n_kv = sum(sp.plane == "kv" for sp in cfg.state_planes())
-        log(f"[zoo-rec] {arch}: {cfg.n_layers} layers ({n_kv} with KV), "
+        log(f"[zoo-rec] {arch}: {cfg.n_layers} of {get_config(arch).n_layers} "
+            f"layers ({n_kv} with KV), "
             f"d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads x "
             f"{cfg.head_dim}, {n / 1e9:.2f}B parameters ({n * 2 / 2**30:.1f} "
             f"GiB bf16) drawn in {time.perf_counter() - t0:.1f} s")
@@ -4374,14 +3889,8 @@ def phase_zoo_rec(dev):
 # ----------------------------------------------------------------------
 # the encoder-decoder (ROADMAP item 6, sub-item 4)
 WHISPER = "whisper-medium"
-WHISPER_HEADS = (16, 16, 64)  # H, Hkv, head_dim
-WHISPER_FLASH = (  # (name, Sq, Skv, q_offset, window, causal, batch)
-    ("prefill_chunk", PROMPT_LEN, PROMPT_LEN, 0, None, True, 1),
-    ("encoder", 1500, 1500, 0, None, False, 1),
-    ("cross_decode", 1, 1500, 0, None, False, 4),
-    ("cross_chunk", PROMPT_LEN, 1500, 0, None, False, 1))
-WHISPER_RAGGED = (("decode", [64, 300, 1500, 4000], 1), ("admission", [128], 128))
 WHISPER_CHUNK = 32  # [whisper]'s dense-slot admission chunk
+WHISPER_LAYERS = 8  # [whisper]'s encoder and decoder depth (the time limit)
 
 
 def phase_whisper_parity(dev):
@@ -4441,27 +3950,30 @@ def phase_whisper_parity(dev):
 
 
 def phase_whisper(dev):
-    """whisper-medium at its published widths and full depth (24 encoder
-    + 24 decoder layers, d 1024, 16 / 16 heads x 64, 1500 frames, vocab
-    51865) in bf16, random weights from seed 0, a seeded stub frontend
-    per request: ``[serve]``'s 8 requests through 4 slots on pages of 16
-    and on dense slots with chunks of 32 (``_zoo_serve``: tokens/s,
-    encoder, admission and decode seconds, ms per layer per decode step,
-    peak memory, launches by route against the expected, the encoder-KV
-    bytes per row against ``enc_kv_bytes``; held to the plain versions by
-    the near-tie rule).  Returns the launches."""
+    """whisper-medium at its published widths, depth cut to
+    ``WHISPER_LAYERS`` encoder and decoder layers of 24 + 24 (the script's
+    time limit; ``[cli]`` serves it at full depth), d 1024, 16 / 16 heads
+    x 64, 1500 frames, vocab 51865, in bf16, random weights from seed 0, a
+    seeded stub frontend per request: ``[serve]``'s 8 requests through 4
+    slots on pages of 16 and on dense slots with chunks of 32
+    (``_zoo_serve``: tokens/s, encoder, admission and decode seconds, ms
+    per layer per decode step, peak memory, launches by route against the
+    expected, the encoder-KV bytes per row against ``enc_kv_bytes``; held
+    to the plain versions by the near-tie rule).  Returns the launches."""
     import gc
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config(WHISPER)
+    cfg = get_config(WHISPER).replace(n_layers=WHISPER_LAYERS,
+                                      encoder_layers=WHISPER_LAYERS)
     t0 = time.perf_counter()
     params = T.init_model(cfg, seed=0, device=dev)
     torch.cuda.synchronize(dev)
     n = T.count_params_analytic(cfg)
-    log(f"[whisper] {WHISPER}: {cfg.encoder_layers} + {cfg.n_layers} layers, d "
+    log(f"[whisper] {WHISPER}: {cfg.encoder_layers} + {cfg.n_layers} of 24 + 24 "
+        f"layers, d "
         f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim}, "
         f"{cfg.encoder_seq} frames, {n / 1e9:.3f}B parameters ({n * 2 / 2**30:.2f} "
         f"GiB bf16) drawn in {time.perf_counter() - t0:.1f} s")
@@ -4477,90 +3989,82 @@ def phase_whisper(dev):
 
 
 # ----------------------------------------------------------------------
+PHASE_S = {}  # wall seconds of each phase, for the [phases] line
+T_START = time.perf_counter()
+
+
+def _phase(label, fn, *a, **kw):
+    """``fn(*a, **kw)``, its wall seconds added to ``PHASE_S[label]``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*a, **kw)
+    finally:
+        PHASE_S[label] = PHASE_S.get(label, 0.0) + time.perf_counter() - t0
+
+
 def main():
-    card = phase_device()
+    card = _phase("device", phase_device)
     import torch
+    from repro_torch.benchmarks import kernels_bench as KB
     dev = torch.device("cuda", 0)
-    kern, tiers, flush = phase_kernels(dev)
-    kern["ragged_attention"] = phase_ragged_kernel(dev, flush)
-    kern["flash_attention"], _ = phase_flash(dev, flush)
-    # phi-3-vision's attention (head_dim 96, MHA): the instances added for it
-    phi3_ragged = phase_ragged_kernel(dev, flush, heads=PHI3_HEADS, cases=PHI3_RAGGED,
-                                      window=None, label="ragged-hd96")
-    phi3_flash, _ = phase_flash(dev, flush, heads=PHI3_HEADS, cases=PHI3_FLASH,
-                                label="flash-hd96")
-    # recurrentgemma's attention (head_dim 256, MQA 16 / 1, window 2048)
-    rg_ragged = phase_ragged_kernel(dev, flush, heads=RG_HEADS, cases=RG_RAGGED,
-                                    window=RG_WINDOW, label="ragged-hd256")
-    rg_flash, rg_cases = phase_flash(dev, flush, heads=RG_HEADS, cases=RG_FLASH,
-                                     label="flash-hd256")
-    if any(r["route"] != "wgmma" for r in rg_cases.values()):
-        fail(f"[flash-hd256] bfloat16 at head_dim 256 left the wgmma instance: "
-             f"{ {n: r['route'] for n, r in rg_cases.items()} }")
-    # whisper's attention (head_dim 64, MHA 16 / 16): its encoder and
-    # cross-attention are the flash kernel's non-causal cases
-    wh_ragged = phase_ragged_kernel(dev, flush, heads=WHISPER_HEADS,
-                                    cases=WHISPER_RAGGED, window=None,
-                                    label="ragged-whisper")
-    wh_flash, wh_cases = phase_flash(dev, flush, heads=WHISPER_HEADS,
-                                     cases=WHISPER_FLASH, label="flash-whisper")
-    if any(r["route"] != "wgmma" for r in wh_cases.values()):
-        fail(f"[flash-whisper] bfloat16 at head_dim 64 left the wgmma instance: "
-             f"{ {n: r['route'] for n, r in wh_cases.items()} }")
-    for name, r in (("ragged_attention", phi3_ragged), ("flash_attention", phi3_flash),
-                    ("ragged_attention", rg_ragged), ("flash_attention", rg_flash),
-                    ("ragged_attention", wh_ragged), ("flash_attention", wh_flash)):
-        kern[name]["max_abs_err"] = max(kern[name]["max_abs_err"], r["max_abs_err"])
-    phase_parity(dev)
-    phase_continuous_parity(dev)
-    phase_plain_parity(dev)
-    serve_extra = phase_serve_plain_parity(dev)
-    _add(serve_extra, phase_serve_bench(dev))
-    phase_bf16_parity(dev)
-    phase_spec_parity(dev)
-    item5 = phase_item5_parity(dev)
-    _add(item5, phase_f4(dev))
-    _add(item5, phase_zoo_parity(dev))
-    _add(item5, phase_rec_parity(dev))
-    _add(item5, phase_whisper_parity(dev))
-    phase_train(dev)
-    launches, batches, eng, cfg, prompt, main_run, main_report = phase_main(dev)
+    kern, tiers, flush = _phase("kernels", phase_kernels, dev)
+    _phase("parity", phase_parity, dev)
+    _phase("continuous-parity", phase_continuous_parity, dev)
+    _phase("plain-parity", phase_plain_parity, dev)
+    serve_extra = _phase("serve-plain-parity", phase_serve_plain_parity, dev)
+    _add(serve_extra, _phase("serve-bench", phase_serve_bench, dev))
+    _phase("bf16-parity", phase_bf16_parity, dev)
+    _phase("spec-parity", phase_spec_parity, dev)
+    item5 = _phase("item5-parity", phase_item5_parity, dev)
+    _add(item5, _phase("f4", phase_f4, dev))
+    _add(item5, _phase("zoo-parity", phase_zoo_parity, dev))
+    _add(item5, _phase("rec-parity", phase_rec_parity, dev))
+    _add(item5, _phase("whisper-parity", phase_whisper_parity, dev))
+    _phase("train", phase_train, dev)
+    launches, batches, eng, cfg, prompt, main_run, main_report = _phase(
+        "main", phase_main, dev)
     # the host-bound decode runs come before any profiler window
-    planes = phase_planes(dev, eng, cfg)
+    planes = _phase("planes", phase_planes, dev, eng, cfg)
     launches["dequant_matmul"] = planes["pr2_sync"]["launches"]["dequant_matmul"]
-    spec_launches = phase_spec(dev, eng, cfg)
-    accounting, dense = phase_accounting(dev, eng, cfg, prompt, main_run)
+    spec_launches = _phase("spec", phase_spec, dev, eng, cfg)
+    accounting, dense = _phase("accounting", phase_accounting, dev, eng, cfg,
+                               prompt, main_run)
     launches["flash_attention"] += accounting["flash_attention"]
-    _add(serve_extra, phase_serve_plain(dev, eng, cfg, dense))
+    _add(serve_extra, _phase("serve-plain", phase_serve_plain, dev, eng, cfg, dense))
     del dense
     torch.cuda.empty_cache()
-    decode_split = _profile_decode(eng, prompt, dev)
-    _profile_prefill(eng, prompt, dev)
-    batched = phase_prefill_kernel(dev, tiers, flush, batches)
+    decode_split = _phase("profile", _profile_decode, eng, prompt, dev)
+    _phase("prefill-profile", _profile_prefill, eng, prompt, dev)
+    batched, _ = _phase("prefill-kernel", KB.grouped_cases, dev, tiers,
+                        flush, batches)
     batched["max_abs_err"] = max(batched["max_abs_err"],
                                  kern["dequant_matmul_batched"]["max_abs_err"])
     kern["dequant_matmul_batched"] = batched
     del tiers, flush
-    serve_launches, serve_slots, serve_toks = phase_serving(dev, eng, cfg)
-    item7 = phase_telemetry(dev, eng, cfg, serve_toks, prompt, main_run[0])
-    _add(spec_launches, phase_spec_serve(dev, eng, cfg, serve_toks))
+    serve_launches, serve_slots, serve_toks = _phase("serve", phase_serving,
+                                                     dev, eng, cfg)
+    item7 = _phase("telemetry", phase_telemetry, dev, eng, cfg, serve_toks,
+                   prompt, main_run[0])
+    _add(spec_launches, _phase("spec-serve", phase_spec_serve, dev, eng, cfg,
+                               serve_toks))
     # prefix cache, host swap with preemption, the fault plane
-    _add(item5, phase_prefix(dev, eng, cfg))
-    _add(item5, phase_preempt(dev, eng, cfg, serve_toks))
-    _add(item5, phase_chaos(dev, eng, cfg))
+    _add(item5, _phase("prefix", phase_prefix, dev, eng, cfg))
+    _add(item5, _phase("preempt", phase_preempt, dev, eng, cfg, serve_toks))
+    _add(item5, _phase("chaos", phase_chaos, dev, eng, cfg))
     launches["ragged_attention"] = serve_launches["ragged_attention"]
     slots = kern["dequant_matmul_slots"]
     slots["max_abs_err"] = max(slots["max_abs_err"], serve_slots["err"])
-    paper = phase_paper(dev, eng, cfg, main_report, planes, decode_split, kern)
+    paper = _phase("paper", phase_paper, dev, eng, cfg, main_report, planes,
+                   decode_split, kern)
     for name, n in paper.items():
         launches[name] += n
-    _add(item7, phase_attention_bench(dev))
+    _add(item7, _phase("attention-bench", phase_attention_bench, dev))
     del eng
-    zoo = phase_zoo(dev)
-    _add(zoo, phase_zoo_rec(dev))
-    _add(zoo, phase_whisper(dev))
-    phase_cli(dev)
-    phase_dryrun(card)
+    zoo = _phase("zoo", phase_zoo, dev)
+    _add(zoo, _phase("zoo-rec", phase_zoo_rec, dev))
+    _add(zoo, _phase("whisper", phase_whisper, dev))
+    _phase("cli", phase_cli, dev)
+    _phase("dryrun", phase_dryrun, card)
     for name in launches:  # [zoo], [zoo-rec], [whisper]
         launches[name] += zoo.get(name, 0)
     for name in ("ragged_attention", "flash_attention", "dequant_matmul_slots",
@@ -4573,6 +4077,9 @@ def main():
         launches[name] += item5.get(name, 0)
     for name in launches:  # [telemetry], [attention-bench]
         launches[name] += item7.get(name, 0)
+    phases = {k: round(v, 2) for k, v in PHASE_S.items()}
+    phases["total"] = round(time.perf_counter() - T_START, 2)
+    log(f"[phases] wall seconds: {json.dumps(phases)}")
     csrc = "src/repro_torch/kernels/csrc/"
     src = {"dequant_matmul_batched": csrc + "dequant_grouped.cu",
            "dequant_matmul_slots": csrc + "dequant_gemv.cu",

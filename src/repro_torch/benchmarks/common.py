@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import json
 import os
+import time
 from pathlib import Path
 
 import numpy as np
@@ -117,3 +118,26 @@ def emit(rows, name: str):
     for r in rows:
         print(f"{r['name']},{r.get('us_per_call', '')},{r.get('derived', '')}")
     (BENCH_OUT / f"{name}.json").write_text(json.dumps(rows, indent=1))
+
+
+def timeit(fn, *args, warmup=1, iters=3):
+    """Mean microseconds of ``fn(*args)`` over ``iters`` calls after
+    ``warmup`` (the counterpart of the reference's ``timeit``), and the
+    last output.  With a tensor argument on the card: CUDA events around
+    the calls; otherwise the host clock (CPU work is synchronous)."""
+    import torch
+    out = None
+    for _ in range(warmup):
+        out = fn(*args)
+    if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        for _ in range(iters):
+            out = fn(*args)
+        e1.record()
+        e1.synchronize()
+        return e0.elapsed_time(e1) / iters * 1e3, out
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fn(*args)
+    return (time.perf_counter() - t0) / iters * 1e6, out

@@ -5,8 +5,12 @@
 Prints ``name,us_per_call,derived`` CSV; JSON lands in
 ``experiments/torch/bench/``.  The first run trains the ``tiny-moe``
 artifact; later runs read the cache.  Runs on the card unless
-``--device cpu`` is given.  The reference's ``kernels`` suite is
-replaced by the kernel phases of ``chip_smoke.py`` and is refused.
+``--device cpu`` is given.  The ``kernels`` suite
+(``kernels_bench``) on the card checks every hand-written kernel against
+its plain version and times it: the reference's rows at its shapes, then
+every case of ``chip_smoke.py``'s kernel phases; a kernel that fails its
+check fails the suite.  On the CPU it times the plain versions at the
+reference's shapes only (no kernel runs there).
 """
 from __future__ import annotations
 
@@ -14,11 +18,8 @@ import argparse
 import sys
 import time
 
-SUITES = ["fig2_lru", "fig2_spec", "table1_quant", "table2_speed", "serve"]
-REFUSED = {
-    "kernels": "the kernel phases of chip_smoke.py check and time every "
-               "kernel on the card; run `python3 chip_smoke.py`",
-}
+SUITES = ["fig2_lru", "fig2_spec", "table1_quant", "table2_speed",
+          "kernels", "serve"]
 
 
 def main(argv=None) -> None:
@@ -31,20 +32,17 @@ def main(argv=None) -> None:
                     help="the card unless 'cpu' is given")
     args = ap.parse_args(argv)
     only = set(args.only.split(",")) if args.only else None
-    refused = sorted((only or set()) & set(REFUSED))
-    if refused:
-        sys.exit("; ".join(f"suite {n!r} is not run here: {REFUSED[n]}"
-                           for n in refused))
     unknown = sorted((only or set()) - set(SUITES))
     if unknown:
         sys.exit(f"unknown suites {unknown}; available: {SUITES}")
 
-    from repro_torch.benchmarks import (fig2_lru, fig2_spec, serve_bench,
-                                        table1_quant, table2_speed)
+    from repro_torch.benchmarks import (fig2_lru, fig2_spec, kernels_bench,
+                                        serve_bench, table1_quant,
+                                        table2_speed)
 
     mods = {"fig2_lru": fig2_lru, "fig2_spec": fig2_spec,
             "table1_quant": table1_quant, "table2_speed": table2_speed,
-            "serve": serve_bench}
+            "kernels": kernels_bench, "serve": serve_bench}
     print("name,us_per_call,derived")
     failures = []
     for name in SUITES:

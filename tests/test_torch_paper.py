@@ -21,7 +21,8 @@ held-out tokens.
   and counters equal to the reference's packed engine.
 * ``offload_bench --speculative``: its baseline and replay-draft rows
   carry the reference's engine's hit ratios and h2d bytes per token.
-* The harness refuses the suites it does not port, and the recipe's
+* The harness refuses an unknown suite and runs ``kernels`` (its quick
+  rows on the CPU), and the recipe's
   checkpoint and trace are cached and read back under the port's own
   directory.
 """
@@ -262,12 +263,30 @@ def test_speculative_scenario_is_refused(benches):
     assert rows["spec_summary"]["acceptance_rate"] == 1.0
 
 
-@pytest.mark.parametrize("only,match", [("kernels", "chip_smoke"),
-                                        ("serve,kernels", "chip_smoke"),
+@pytest.mark.parametrize("only,match", [("kernels", None),
+                                        ("kernels,kernels", None),
                                         ("fig2_lru,nope", "unknown")])
-def test_harness_refuses_unported_suites(only, match):
-    with pytest.raises(SystemExit, match=match):
-        bench_run.main(["--only", only, "--device", "cpu"])
+def test_harness_refuses_unported_suites(only, match, monkeypatch, tmp_path,
+                                         capsys):
+    """An unknown suite is refused.  ``kernels`` is ported: on the CPU its
+    quick run prints the reference's quick rows under the port's names
+    (the plain versions; no kernel runs there), once however often it is
+    named."""
+    if match is not None:
+        with pytest.raises(SystemExit, match=match):
+            bench_run.main(["--only", only, "--device", "cpu"])
+        return
+    monkeypatch.setattr(common, "BENCH_OUT", tmp_path)
+    bench_run.main(["--only", only, "--quick", "--device", "cpu"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == "name,us_per_call,derived"
+    rows = [ln.split(",") for ln in lines[1:] if not ln.startswith("[")]
+    assert [r[0] for r in rows] == [
+        "dequant_matmul_plain_2bit", "dequant_matmul_plain_4bit",
+        "dequant_matmul_plain_8bit", "flash_attention_plain",
+        "model_chunked_attention"]
+    assert all(float(r[1]) > 0 for r in rows)
+    assert (tmp_path / "kernels.json").exists()
 
 
 def test_recipe_checkpoint_and_trace_are_cached(monkeypatch, tmp_path):
